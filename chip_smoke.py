@@ -14,8 +14,22 @@ Phases, in order; the first failure exits non-zero:
 5. serving, the main path: InferenceServer behind its HTTP front-end
    answers 64 requests from 8 keep-alive clients; every answer is held
    against a direct forward, and both kernels must have launched;
-6. timing: each kernel, its plain version and the library call where
-   one exists, with CUDA events, beside the least time the card needs.
+7. training kernels against their plain versions on the card: C and D
+   at the VQA conv1/conv2 shapes (B=64) and the medical K=51, m=19
+   (B=8), f32 and bf16, with conv1's dropout epilogue (masks bit for bit,
+   kept fraction, repeatability, per-image seeds); E at T=16, H=1024,
+   B=64 and 256;
+8. one full-width f32 training step (dropout 0) on the card against the
+   same step on the CPU: loss, every gradient, the Adam update;
+9. training, the main path: fit() on an in-memory synthetic dataset at
+   full VQA width, batch 64, bf16, dropout 0.5, 20 steps and one
+   mini-validation; the launch counts per step must be C 2, D 2, B 16,
+   E 16 + 1 weight-gradient launch, and A 0;
+6. timing, in two parts: after phase 5 the serving kernels and the
+   forward at B=16 and 256, after phase 9 the training kernels and the
+   training step at B=64 and 256; each kernel beside its plain version,
+   the library call where one exists (CUDA events) and the least time
+   the card needs, and a profile of the forward and of the step.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Without a CUDA device, or without the repository beside it, the script
@@ -27,27 +41,37 @@ from __future__ import annotations
 import http.client
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
-from vqa_project_tpu_torch.config import ModelConfig
-from vqa_project_tpu_torch.data import FeatureStore, tokenize
+from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
+from vqa_project_tpu_torch.data import (FeatureStore, generate_synthetic_vqa,
+                                        tokenize)
 from vqa_project_tpu_torch.models import GraphVQAModel
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
+from vqa_project_tpu_torch.ops.dropout import philox_keep
 from vqa_project_tpu_torch.ops.edge_aggregate import (
-    fused_sel_aggregate_act, sel_aggregate_act_reference)
+    fused_sel_aggregate_act, sel_aggregate_act_reference,
+    sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
+    sel_aggregate_act_vjp, sel_aggregate_act_vjp_reference)
 from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
+                                           gru_scan_sweep_reference,
+                                           gru_wgrad_reference,
                                            input_projection)
-from vqa_project_tpu_torch.ops.gru_scan import gru_scan
+from vqa_project_tpu_torch.ops.gru_scan import gru_scan, gru_scan_bwd, gru_wgrad
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
+from vqa_project_tpu_torch.train import (build_model, fit, make_optimizer,
+                                         train_step)
 
 SEED = 20261016
 # VQA v2 widths (hid 1024, 8 kernels, 16 neighbours, K=36, 3001 answers,
@@ -56,6 +80,9 @@ FULL = dict(vocab_size=13000, emb_dim=300, feat_dim=2052, hid_dim=1024,
             out_dim=3001, combined_dim=512, n_kernels=8,
             neighbourhood_size=16, n_obj=36, dropout=0.5, max_qlen=16)
 SERVE_B = 16
+TRAIN_B = 64     # TrainConfig's default batch
+DROPOUT = 0.5    # ModelConfig's default rate
+ADAM_EPS = 1e-8
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -67,6 +94,25 @@ SOURCES = {
                            "vqa_project_tpu/ops/pallas/edge_aggregate.py:194"),
     "gru_scan_fwd": ("vqa_project_tpu_torch/csrc/gru_scan.cu",
                      "vqa_project_tpu/ops/pallas/gru_scan.py:54"),
+    "edge_aggregate_fwd_res": (
+        "vqa_project_tpu_torch/csrc/edge_aggregate.cu",
+        "vqa_project_tpu/ops/pallas/edge_aggregate.py:243"),
+    "edge_aggregate_bwd": (
+        "vqa_project_tpu_torch/csrc/edge_aggregate_bwd.cu",
+        "vqa_project_tpu/ops/pallas/edge_aggregate.py:282"),
+    "gru_scan_bwd_step": ("vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
+                          "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
+    "gru_wgrad": ("vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
+                  "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
+}
+# each kernel's wrapper, which counts its launches
+WRAPPERS = {
+    "edge_aggregate_fwd": fused_sel_aggregate_act,            # A
+    "gru_scan_fwd": gru_scan,                                  # B
+    "edge_aggregate_fwd_res": sel_aggregate_act_residuals,     # C
+    "edge_aggregate_bwd": sel_aggregate_act_vjp,               # D
+    "gru_scan_bwd_step": gru_scan_bwd,                         # E, sweep
+    "gru_wgrad": gru_wgrad,                                    # E, dW/db
 }
 
 
@@ -84,6 +130,15 @@ def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def reset_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 # ---------------- inputs ----------------
@@ -307,8 +362,7 @@ def serve(model, dev, n_clients=8, per_client=8):
                                                    n_words)]
         jobs.append((" ".join(words) + " ?", str(100 + i % 64)))
 
-    fused_sel_aggregate_act.launches = 0
-    gru_scan.launches = 0
+    reset_counts()
     srv = InferenceServer(model, ds, device=dev, batch_size=SERVE_B,
                           max_wait_ms=5.0)
     httpd = make_http_server(srv, port=0)
@@ -401,38 +455,306 @@ def serve(model, dev, n_clients=8, per_client=8):
     return launches
 
 
-def profile_forward(forward, n: int = 10) -> None:
-    """Device time per forward by kernel (torch.profiler, CUPTI) beside
-    the wall time of the same forwards: the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
+def random_seeds(b, gen, dev):
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (b,), generator=gen,
+                         dtype=torch.int32).to(dev)
 
-    forward()
+
+def check_edge_training(dev, gen, errs):
+    """Phase 7, kernels C and D: every output against the plain version
+    on the same inputs (D under the kernel's own dropout mask), and the
+    dropout epilogue's bits, rate, repeatability and per-image seeds."""
+    for b, k, m, d, use_alpha, label in [
+            (TRAIN_B, 36, 16, 256, True, "vqa conv1"),
+            (TRAIN_B, 36, 16, 128, False, "vqa conv2"),
+            (8, 51, 19, 256, True, "medical conv1"),
+            (8, 51, 19, 128, False, "medical conv2")]:
+        sel, pseudo, proj, gp = edge_inputs(b, k, m, 8, d, use_alpha, gen,
+                                            dev)
+        # conv1 runs relu + dropout in training, conv2 relu only
+        rate = DROPOUT if use_alpha else 0.0
+        seeds = random_seeds(b, gen, dev) if rate else None
+        g = torch.randn(proj.shape, generator=gen).to(dev)
+        for dtype, tol_c, tol_d in ((torch.float32, 1e-5, 1e-4),
+                                    (torch.bfloat16, 1e-2, 1e-2)):
+            p = proj.to(dtype)
+            res = sel_aggregate_act_residuals(sel, pseudo, p, gp, True, rate,
+                                              seeds)
+            ref = sel_aggregate_act_residuals_reference(sel, pseudo, p, gp,
+                                                        True, rate, seeds)
+            grads = sel_aggregate_act_vjp(g.to(dtype), sel, res[1], res[2],
+                                          pseudo, p, gp, res[0], rate)
+            ref_g = sel_aggregate_act_vjp_reference(
+                g.to(dtype), sel, res[1], res[2], pseudo, p, gp, res[0], rate)
+            torch.cuda.synchronize()
+            e_c = [norm_err(x, y) for x, y in zip(res, ref)]
+            e_d = [norm_err(x, y) for x, y in zip(grads, ref_g)]
+            print(f"kernel C {label} B={b} K={k} d={d} {str(dtype)[6:]} "
+                  f"dropout {rate}: normalized err out/ghat/denom "
+                  f"{e_c[0]:.2e}/{e_c[1]:.2e}/{e_c[2]:.2e} (<= {tol_c}); "
+                  f"kernel D dsel/dpseudo/dproj/dgparams "
+                  + "/".join(f"{e:.2e}" for e in e_d)
+                  + f" (<= {tol_d})", flush=True)
+            require(max(e_c) <= tol_c, f"kernel C {label} disagrees")
+            require(max(e_d) <= tol_d, f"kernel D {label} disagrees")
+            if label == "vqa conv1" and dtype == torch.bfloat16:
+                errs["edge_aggregate_fwd_res"] = max(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(res, ref))
+                errs["edge_aggregate_bwd"] = max(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(grads, ref_g))
+            if not rate or dtype != torch.float32:
+                continue
+            check_dropout(sel, pseudo, p, gp, seeds, res[0], label)
+
+
+def check_dropout(sel, pseudo, proj, gp, seeds, out, label):
+    """Kernel C's dropout mask: bit for bit the plain Philox keep mask
+    wherever the relu output is clear of 0, half of the positive units
+    kept, the same seeds giving the same output, and a changed seed
+    changing its own image only."""
+    plain = sel_aggregate_act_residuals_reference(sel, pseudo, proj, gp,
+                                                  True)[0]
+    keep = philox_keep(seeds, proj.shape[1:], DROPOUT)
+    clear = plain > 1e-6 * float(plain.max())
+    mismatched = int(((out != 0) != keep)[clear].sum())
+    kept = float((out > 0).sum()) / float((plain > 0).sum())
+    again = sel_aggregate_act_residuals(sel, pseudo, proj, gp, True,
+                                        DROPOUT, seeds)[0]
+    seeds2 = seeds.clone()
+    seeds2[1] ^= 1
+    other = sel_aggregate_act_residuals(sel, pseudo, proj, gp, True,
+                                        DROPOUT, seeds2)[0]
+    changed = [i for i in range(out.shape[0])
+               if not torch.equal(other[i], out[i])]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    print(f"kernel C {label} dropout: mask mismatches vs plain Philox "
+          f"{mismatched} of {int(clear.sum())} (want 0); kept fraction of "
+          f"positive units {kept:.5f} (0.5 +- 0.005); repeat identical "
+          f"{torch.equal(again, out)}; seed of image 1 changed -> images "
+          f"changed {changed}", flush=True)
+    require(mismatched == 0, "dropout mask differs from the plain Philox")
+    require(abs(kept - 0.5) <= 0.005, "kept fraction off 0.5")
+    require(torch.equal(again, out), "same seeds, different output")
+    require(changed == [1], "a seed change leaked across images")
+
+
+def check_gru_training(dev, gen, errs):
+    """Phase 7, kernel B's states and kernel E (sweep, then dW/db), each
+    against its plain version on the same inputs."""
+    for b in (TRAIN_B, 256):
+        (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, 16, 300, 1024, gen, dev)
+        gh = torch.randn(b, w_hh.shape[1], generator=gen).to(dev)
+        for w, tol_hs, tol in ((w_hh, 1e-5, 1e-4),
+                               (w_hh.to(torch.bfloat16), 2e-3, 1e-2)):
+            _, hs = gru_scan(xp, w, b_hh, qlen, return_hs=True)
+            _, r_hs = gru_scan_reference(xp, w, b_hh, qlen, return_hs=True)
+            dxp, dhp = gru_scan_bwd(xp, w, b_hh, qlen, hs, gh)
+            r_dxp, r_dhp = gru_scan_sweep_reference(xp, w, b_hh, qlen, hs, gh)
+            dw, db = gru_wgrad(dhp, hs)
+            r_dw, r_db = gru_wgrad_reference(dhp, hs)
+            torch.cuda.synchronize()
+            e_hs = float((hs - r_hs).abs().max())
+            e_sweep = max(norm_err(dxp, r_dxp), norm_err(dhp, r_dhp))
+            e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
+            print(f"kernel B states / E B={b} T=16 H=1024 "
+                  f"{str(w.dtype)[6:]} weights: hs max abs err {e_hs:.2e} "
+                  f"(<= {tol_hs}); sweep dxp/dhp normalized {e_sweep:.2e} "
+                  f"(<= {tol}); dW/db normalized {e_w:.2e} (<= 1e-4)",
+                  flush=True)
+            require(e_hs <= tol_hs, f"kernel B states B={b} disagree")
+            require(e_sweep <= tol, f"kernel E sweep B={b} disagrees")
+            require(e_w <= 1e-4, f"kernel E dW/db B={b} disagrees")
+            if b == TRAIN_B and w.dtype == torch.bfloat16:
+                errs["gru_scan_bwd_step"] = max(
+                    float((dxp - r_dxp).abs().max()),
+                    float((dhp.float() - r_dhp.float()).abs().max()))
+                errs["gru_wgrad"] = max(float((dw - r_dw).abs().max()),
+                                        float((db - r_db).abs().max()))
+
+
+def random_train_batch(b, cfg, gen):
+    """A host batch as Batcher yields it: random questions and images,
+    soft answer labels on a few classes, votes, the last row padding."""
+    q, image, qlen = random_batch(b, cfg, gen)
+    rng = np.random.default_rng(SEED + b)
+    answers = np.zeros((b, cfg.out_dim), np.float32)
+    votes = np.zeros((b, cfg.out_dim), np.float32)
+    for i in range(b):
+        cls = rng.choice(cfg.out_dim - 1, size=3, replace=False)
+        answers[i, cls] = rng.uniform(0.3, 1.0, size=3)
+        votes[i, cls] = rng.integers(1, 10, size=3)
+    mask = np.ones((b,), np.float32)
+    mask[-1] = 0.0
+    return {"question": q.numpy(), "image": image.numpy(),
+            "qlen": qlen.numpy(), "answers": answers, "votes": votes,
+            "mask": mask}
+
+
+def train_step_card_vs_cpu(dev, gen, b=8):
+    """Phase 8: one full-width f32 training step (dropout 0) on the card
+    and on the CPU from the same weights and batch."""
+    cfg = ModelConfig(**{**FULL, "dropout": 0.0}, compute_dtype="float32")
+    cpu = GraphVQAModel(cfg, device="cpu", seed=SEED)
+    gpu = GraphVQAModel(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+    batch = random_train_batch(b, cfg, gen)
+    tcfg = TrainConfig(lr=1e-4)
+    m_cpu = train_step(cpu, make_optimizer(cpu, tcfg, 10)[0], None, batch)
+    reset_counts()
+    m_gpu = train_step(gpu, make_optimizer(gpu, tcfg, 10)[0], None, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"edge_aggregate_fwd": 0, "gru_scan_fwd": 16,
+            "edge_aggregate_fwd_res": 2, "edge_aggregate_bwd": 2,
+            "gru_scan_bwd_step": 16, "gru_wgrad": 1}
+    e_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(
+        float(m_cpu["loss"]))
+    gpu_params = dict(gpu.named_parameters())
+    grad_errs, worst_u = [], (0.0, "")
+    sq_diff = sq_norm = 0.0
+    for name, p in cpu.named_parameters():
+        q = gpu_params[name]
+        grad_errs.append((norm_err(q.grad.cpu(), p.grad), name))
+        sq_diff += float((q.grad.cpu().double() - p.grad.double()).square().sum())
+        sq_norm += float(p.grad.double().square().sum())
+        # Adam's first update is lr * g / (|g| + eps): compared where |g|
+        # is clear of 0 both against the tensor's scale and against eps
+        # (1e-8), which magnifies a rounding-level change of a tiny g
+        clear = ((p.grad.abs() > 1e-3 * float(p.grad.abs().max()))
+                 & (p.grad.abs() > 100 * ADAM_EPS))
+        du = ((q.detach().cpu() - p0[name]) - (p.detach() - p0[name]))
+        eu = float(du[clear].abs().max()) / tcfg.lr if clear.any() else 0.0
+        worst_u = max(worst_u, (eu, name))
+    grad_errs.sort(reverse=True)
+    e_all = math.sqrt(sq_diff / sq_norm)
+    # The two devices round differently, so a unit whose forward value
+    # lies within rounding of a relu boundary (or a max-pool tie) can
+    # pass its gradient on one and not on the other: that moves a small
+    # tensor's gradient by up to ~1e-2 of its scale (one conv1 relu flip
+    # in 589824 units gave 6.4e-3 on a Gaussian kernel's projection)
+    # while all gradients together stay within 1e-5. The kernels
+    # themselves are held to their plain versions in phase 7.
+    print(f"one f32 train step B={b}, card vs CPU: loss {float(m_gpu['loss']):.6f} "
+          f"vs {float(m_cpu['loss']):.6f} (rel err {e_loss:.2e} <= 1e-5); "
+          f"all gradients together rel L2 err {e_all:.2e} (<= 1e-5); worst "
+          f"per-tensor normalized err (<= 1e-2): "
+          + ", ".join(f"{n} {e:.2e}" for e, n in grad_errs[:3])
+          + f"; worst Adam update err {worst_u[0]:.2e} x lr ({worst_u[1]}; "
+          f"<= 1e-3); launches {counts}", flush=True)
+    require(counts == want, f"launches per train step {counts}, want {want}")
+    require(e_loss <= 1e-5, "train-step loss disagrees")
+    require(e_all <= 1e-5 and grad_errs[0][0] <= 1e-2, "gradients disagree")
+    require(worst_u[0] <= 1e-3, "Adam updates disagree")
+
+
+def train_main_path(dev, n_steps=20, val_batches=10):
+    """Phase 9, the main path: fit() at full VQA width, bf16, dropout 0.5,
+    batch 64, on an in-memory synthetic dataset of n_steps batches, with
+    one mini-validation at the end. Returns the launch counts."""
+    n_train = n_steps * TRAIN_B
+    ds = generate_synthetic_vqa(
+        n_images=128, n_questions=math.ceil(n_train / 0.75), n_obj=36,
+        feat_dim=FULL["feat_dim"] - 4, q_vocab=FULL["vocab_size"] - 1,
+        n_answers=FULL["out_dim"] - 1, n_classes=64,
+        class_encoding="binary", emb_dim=FULL["emb_dim"],
+        max_qlen=FULL["max_qlen"], seed=SEED)
+    mcfg = ModelConfig(**FULL)   # bf16 compute, dropout 0.5
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(lr=1e-4, epochs=1, batch_size=TRAIN_B,
+                           log_interval=1, eval_interval=n_steps,
+                           save_dir=tmp, seed=SEED)
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        reset_counts()
+        t0 = time.perf_counter()
+        model, _, acc = fit(tcfg, mcfg, ds["train"], ds["val"], device=dev,
+                            jsonl_path=jsonl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(jsonl) as f:
+            recs = [json.loads(line) for line in f]
+        saved = os.path.exists(os.path.join(tmp, "model_1.ckpt"))
+    losses = [r["loss"] for r in recs]
+    require(len(recs) == n_steps and all(map(math.isfinite, losses)),
+            f"losses {losses}")
+    # every parameter whose gradient Adam can act on has moved. A
+    # Gaussian kernel whose weights underflow on (nearly) every edge
+    # gives its projection a gradient far below Adam's eps, whose step
+    # then rounds away in f32, here as in the JAX model
+    fresh = dict(build_model(mcfg, ds["train"], device=dev,
+                             seed=SEED).named_parameters())
+    still = {k: float(p.grad.abs().max()) if p.grad is not None else 0.0
+             for k, p in model.named_parameters()
+             if torch.equal(p, fresh[k])}
+    stuck = {k: g for k, g in still.items() if g > 100 * ADAM_EPS}
+    require(len(still) < len(fresh) and not stuck,
+            f"parameters with a gradient that did not move: {stuck}")
+    require(saved, "no checkpoint at the mini-validation")
+    # the mini-validation's eval forwards launch A twice and B 16 times
+    per_step = dict(counts)
+    per_step["edge_aggregate_fwd"] -= 2 * val_batches
+    per_step["gru_scan_fwd"] -= 16 * val_batches
+    per_step = {k: v / n_steps for k, v in per_step.items()}
+    want = {"edge_aggregate_fwd": 0, "gru_scan_fwd": 16,
+            "edge_aggregate_fwd_res": 2, "edge_aggregate_bwd": 2,
+            "gru_scan_bwd_step": 16, "gru_wgrad": 1}
+    step_ms = [1e3 / r["steps_per_sec"] for r in recs[2:]]
+    med = statistics.median(step_ms)
+    print(f"training: {n_steps} steps of fit() at full width, batch "
+          f"{TRAIN_B}, bf16, dropout {mcfg.dropout}, in {wall:.3f} s with "
+          f"one mini-validation ({val_batches} batches); loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, all finite; epoch "
+          f"accuracy {acc:.2f}%; {len(fresh) - len(still)} of "
+          f"{len(fresh)} parameter tensors moved (unmoved, with the last "
+          f"step's max |gradient|: {still}); median step {med:.3f} ms "
+          f"(host clock, "
+          f"steps 3-{n_steps}, each ending in a fetch), {TRAIN_B * 1e3 / med:.1f} "
+          f"QA-pairs/s; launches {counts}, per train step {per_step}",
+          flush=True)
+    require(per_step == want, f"launches per train step {per_step}, "
+            f"want {want}")
+    require(counts["edge_aggregate_fwd"] == 2 * val_batches,
+            "kernel A ran outside the mini-validation")
+    return counts
+
+
+def profile(fn, label: str, n: int = 10) -> None:
+    """Device time per call by kernel (torch.profiler, CUPTI) beside the
+    wall time of the same calls: the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            forward()
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
     for evt in prof.key_averages():
-        # kernels only: an aten op's device time repeats its kernels'
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # kernels and copies only: an aten op's device time repeats its
+        # kernels', and so does a user range such as Optimizer.step's
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             rows.append((evt.self_device_time_total / n / 1e3, evt.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
-    print(f"profile of the bf16 forward at B={SERVE_B}: wall {wall_ms:.4f} ms "
-          f"per forward (profiler on), device busy {busy:.4f} ms "
-          f"({100 * busy / wall_ms:.1f}%); top device items (ms per "
-          f"forward): " + json.dumps([[round(ms, 5), key[:80]]
-                                      for ms, key in rows[:10]]),
+    print(f"profile of {label}: wall {wall_ms:.4f} ms per call (profiler "
+          f"on), device busy {busy:.4f} ms ({100 * busy / wall_ms:.1f}%); "
+          f"top device items (ms per call): "
+          + json.dumps([[round(ms, 5), key[:80]] for ms, key in rows[:12]]),
           flush=True)
 
 
 def measure(dev, gen, launches, errs, model):
-    """Phase 6: kernel, plain version and library call, on CUDA events,
-    and the whole bf16 forward that holds them."""
+    """Phase 6, serving: kernels A and B, their plain versions and the
+    library call, on CUDA events, and the whole bf16 forward that holds
+    them (timed right after serving, as in the first slice)."""
     entries, detail = [], []
     for b in (SERVE_B, 256):
         batch = [x.to(dev) for x in random_batch(b, model.cfg, gen)]
@@ -443,7 +765,7 @@ def measure(dev, gen, launches, errs, model):
 
         forward_ms = time_ms(forward, samples=20, reps=5)
         if b == SERVE_B:
-            profile_forward(forward)
+            profile(forward, f"the bf16 forward at B={SERVE_B}")
         a_in = [edge_inputs(b, 36, 16, 8, d, use_alpha, gen, dev)
                 for d, use_alpha in ((256, True), (128, False))]
         for x in a_in:
@@ -497,18 +819,204 @@ def measure(dev, gen, launches, errs, model):
                        g_f32})
         if b == SERVE_B:
             for name, t in (("edge_aggregate_fwd", a), ("gru_scan_fwd", g)):
-                src, rep = SOURCES[name]
-                entries.append({
-                    "name": name, "route": "cuda", "source": src,
-                    "replaces": rep, "launches": launches[name],
-                    "max_abs_err": errs[name], "ms": t["ms"],
-                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"],
-                    "library_ms": t["library_ms"]})
+                entries.append(entry(name, t, launches, errs))
     print("timing detail (bf16 forward; bf16 proj / bf16 W_hh; A = conv1 + "
           "conv2 launches; B = all 16 step launches): " + json.dumps(detail),
           flush=True)
     return entries
+
+
+def entry(name, t, launches, errs):
+    src, rep = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def residual_bound(sel, pseudo, proj, gparams):
+    """Kernel C: kernel A's bytes and operations, plus the residuals
+    written, the seeds read and ~50 Philox integer operations per output
+    element (counted at the f32 rate)."""
+    nbytes, ops_s = edge_bound(sel, pseudo, proj, gparams)
+    b, k, _ = sel.shape
+    n = gparams.shape[1]
+    nbytes += (n + 1) * b * k * k * 4 + b * 4
+    ops_s += 50 * proj.numel() / PEAK_FLOPS[torch.float32]
+    return nbytes, ops_s
+
+
+def vjp_bound(sel, pseudo, proj, gparams, epilogue):
+    """Kernel D: g, proj (and out) in, dproj out, in proj's dtype; sel,
+    ghat, denom, pseudo in and dsel, dpseudo out in f32; two K x K x n*d
+    products and ~40 flops per edge and Gaussian kernel."""
+    b, k, nd = proj.shape
+    n = gparams.shape[1]
+    slabs = 4 if epilogue else 3
+    nbytes = (slabs * proj.numel() * proj.element_size()
+              + b * k * k * 4 * (1 + n + 1 + 2 + 1 + 2)
+              + 2 * gparams.numel() * 4)
+    ops_s = (2 * 2 * b * k * k * nd / PEAK_FLOPS[proj.dtype]
+             + 40 * b * k * k * n / PEAK_FLOPS[torch.float32])
+    return nbytes, ops_s
+
+
+def sweep_bound(xp, w_hh, qlen):
+    """Kernel E's reverse sweep: xp, hs, W once and dxp (f32), dhp (W's
+    dtype) out; per step and active row the hp recompute, and for rows
+    active one step later the product dhp @ W, ~30 flops per unit."""
+    t, b, h3 = xp.shape
+    h = h3 // 3
+    q = qlen.clamp(max=t).long()
+    nbytes = (xp.numel() * 4 * 2 + w_hh.numel() * w_hh.element_size()
+              + t * b * h * 4 + b * h * 4 + h3 * 4 + b * 4
+              + xp.numel() * w_hh.element_size())
+    rows = int(q.sum()) + int((q - 1).clamp(min=0).sum())
+    ops_s = (2 * h * h3 * rows / PEAK_FLOPS[w_hh.dtype]
+             + 30 * h * int(q.sum()) / PEAK_FLOPS[torch.float32])
+    return nbytes, ops_s
+
+
+def wgrad_bound(dhp, hs, qlen):
+    """Kernel E's dW/db: dhp and hs in, dW and db out (f32); products only
+    where dhp and h_prev are both non-zero (steps 1 .. qlen-1)."""
+    t, b, h3 = dhp.shape
+    h = h3 // 3
+    nbytes = (dhp.numel() * dhp.element_size() + hs.numel() * 4
+              + h3 * h * 4 + h3 * 4)
+    rows = int((qlen.clamp(max=t).long() - 1).clamp(min=0).sum())
+    return nbytes, 2 * h3 * h * rows / PEAK_FLOPS[dhp.dtype]
+
+
+def timed(kernel, plain, nbytes, ops_s, library=None):
+    t = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, samples=10, reps=3),
+             library_ms=time_ms(library) if library else None)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops_s)
+    return t
+
+
+def measure_training(dev, gen, counts, errs):
+    """Phase 6, training: kernels C, D and E at the training shapes (B=64
+    main path, and B=256), each against its plain version, its bound and
+    the library call where one exists; the whole training step at B=64
+    and 256, and a profile of it at B=64."""
+    entries, detail = [], []
+    for b in (TRAIN_B, 256):
+        convs = []
+        for d, use_alpha in ((256, True), (128, False)):
+            sel, pseudo, proj, gp = edge_inputs(b, 36, 16, 8, d, use_alpha,
+                                                gen, dev)
+            rate = DROPOUT if use_alpha else 0.0
+            seeds = random_seeds(b, gen, dev) if rate else None
+            proj = proj.to(torch.bfloat16)
+            out, ghat, denom = sel_aggregate_act_residuals(
+                sel, pseudo, proj, gp, True, rate, seeds)
+            g = torch.randn(proj.shape, generator=gen).to(dev, torch.bfloat16)
+            convs.append((sel, pseudo, proj, gp, rate, seeds, out, ghat,
+                          denom, g))
+
+        def c_kernel():
+            for sel, pseudo, proj, gp, rate, seeds, *_ in convs:
+                sel_aggregate_act_residuals(sel, pseudo, proj, gp, True,
+                                            rate, seeds)
+
+        def c_plain():
+            for sel, pseudo, proj, gp, rate, seeds, *_ in convs:
+                sel_aggregate_act_residuals_reference(sel, pseudo, proj, gp,
+                                                      True, rate, seeds)
+
+        def d_kernel():
+            for sel, pseudo, proj, gp, rate, _, out, ghat, denom, g in convs:
+                sel_aggregate_act_vjp(g, sel, ghat, denom, pseudo, proj, gp,
+                                      out, rate)
+
+        def d_plain():
+            for sel, pseudo, proj, gp, rate, _, out, ghat, denom, g in convs:
+                sel_aggregate_act_vjp_reference(g, sel, ghat, denom, pseudo,
+                                                proj, gp, out, rate)
+
+        c_b = [residual_bound(*x[:4]) for x in convs]
+        d_b = [vjp_bound(*x[:4], True) for x in convs]
+        c = timed(c_kernel, c_plain, sum(x[0] for x in c_b),
+                  sum(x[1] for x in c_b))
+        d = timed(d_kernel, d_plain, sum(x[0] for x in d_b),
+                  sum(x[1] for x in d_b))
+
+        (xp, w_hh, b_hh, qlen), (emb, w_ih, b_ih) = gru_inputs(
+            b, 16, 300, 1024, gen, dev)
+        w16 = w_hh.to(torch.bfloat16)
+        _, hs = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
+        hid = w_hh.shape[1]
+        gh = torch.randn(b, hid, generator=gen).to(dev)
+        _, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
+        gru = torch.nn.GRU(300, hid, batch_first=True, device=dev,
+                           dtype=torch.bfloat16)
+        with torch.no_grad():
+            for name, x in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                            ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+                getattr(gru, name).copy_(x)
+        gru.flatten_parameters()
+        emb16 = emb.to(torch.bfloat16).requires_grad_(True)
+        gh16 = gh.to(torch.bfloat16)[None]
+
+        def cudnn_fwd_bwd():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                emb16, qlen.cpu().long(), batch_first=True,
+                enforce_sorted=False)
+            _, h_n = gru(packed)
+            h_n.backward(gh16)
+
+        e = timed(lambda: gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh),
+                  lambda: gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh),
+                  *sweep_bound(xp, w16, qlen), library=cudnn_fwd_bwd)
+        h_prev = hs[:-1].reshape(-1, hid).to(torch.bfloat16)
+        dhp_rows = dhp[1:].reshape(-1, 3 * hid)
+        wg = timed(lambda: gru_wgrad(dhp, hs),
+                   lambda: gru_wgrad_reference(dhp, hs),
+                   *wgrad_bound(dhp, hs, qlen),
+                   library=lambda: torch.mm(dhp_rows.t(), h_prev,
+                                            out_dtype=torch.float32))
+        step_ms = time_train_step(dev, gen, b)
+        detail.append({"batch": b, "train_step_ms": step_ms,
+                       "train_qa_pairs_per_s": b * 1e3 / step_ms,
+                       "edge_aggregate_fwd_res": c, "edge_aggregate_bwd": d,
+                       "gru_scan_bwd_step": e, "gru_wgrad": wg})
+        if b == TRAIN_B:
+            for name, t in (("edge_aggregate_fwd_res", c),
+                            ("edge_aggregate_bwd", d),
+                            ("gru_scan_bwd_step", e), ("gru_wgrad", wg)):
+                entries.append(entry(name, t, counts, errs))
+    print("training timing detail (bf16; C and D = conv1 with dropout + "
+          "conv2; E sweep = all 16 step launches, library = cuDNN nn.GRU "
+          "forward + backward together; E dW/db library = one cuBLAS mm "
+          "for dW alone; train step = host clock per step ending in a "
+          "fetch, median of 10): " + json.dumps(detail), flush=True)
+    return entries
+
+
+def time_train_step(dev, gen, b, n=10):
+    """Median host-clock ms of a full-width bf16 training step (dropout
+    0.5), each step ending in a fetch of its loss; profiled at B=64."""
+    cfg = ModelConfig(**FULL)
+    model = GraphVQAModel(cfg, device=dev, seed=SEED)
+    optimizer, _ = make_optimizer(model, TrainConfig(), 100)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    batch = random_train_batch(b, cfg, gen)
+
+    def step():
+        float(train_step(model, optimizer, None, batch, generator)["loss"])
+
+    for _ in range(3):
+        step()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if b == TRAIN_B:
+        profile(step, f"the bf16 training step at B={b}", n=5)
+    return statistics.median(times)
 
 
 def main() -> int:
@@ -540,8 +1048,17 @@ def main() -> int:
     model = full_width_forward(dev, gen)
     phase("5 serving (main path)")
     launches = serve(model, dev)
-    phase("6 timing")
+    phase("6 timing (serving)")
     entries = measure(dev, gen, launches, errs, model)
+    phase("7 training kernels against their plain versions")
+    check_edge_training(dev, gen, errs)
+    check_gru_training(dev, gen, errs)
+    phase("8 one training step, card against CPU")
+    train_step_card_vs_cpu(dev, gen)
+    phase("9 training (main path)")
+    counts = train_main_path(dev)
+    phase("6 timing (training)")
+    entries += measure_training(dev, gen, counts, errs)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

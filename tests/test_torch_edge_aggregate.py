@@ -73,10 +73,20 @@ def test_bf16_proj_keeps_dtype(rng):
 
 
 def test_dropout_not_ported(rng):
+    """In-kernel dropout is ported now: it needs per-image seeds, and
+    with them keeps a subset of the relu output, scaled by 1/(1-p)."""
     sel, pseudo, proj, gparams = _inputs(rng, 10, 5, True)
     args = [torch.from_numpy(a) for a in (sel, pseudo, proj, gparams)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seeds"):
         fused_sel_aggregate_act(*args, relu=True, dropout_rate=0.5)
+    seeds = torch.tensor([3, 4], dtype=torch.int32)
+    out = fused_sel_aggregate_act(*args, relu=True, dropout_rate=0.5,
+                                  seeds=seeds)
+    plain = sel_aggregate_act_reference(*args, relu=True)
+    kept = out != 0
+    assert 0 < int(kept.sum()) < int((plain > 0).sum())
+    np.testing.assert_allclose(out[kept].numpy(), 2 * plain[kept].numpy(),
+                               rtol=1e-6)
 
 
 def _bad(args, case):

@@ -113,7 +113,10 @@ def test_load_reference_checkpoint(tmp_path, layout):
 
 
 def test_bf16_forward_runs_and_train_raises(rng):
-    q, image, qlen = (torch.from_numpy(np.asarray(a))
+    """The bf16 forward runs; train mode (which raised before the
+    training slice) now runs too, with finite logits and a finite,
+    non-zero gradient on every parameter."""
+    q, image, qlen = (torch.from_numpy(np.array(a))
                       for a in make_batch(rng))
     cfg = dataclasses.replace(_port_cfg(), compute_dtype="bfloat16")
     model = GraphVQAModel(cfg, device="cpu", seed=5)
@@ -121,7 +124,13 @@ def test_bf16_forward_runs_and_train_raises(rng):
     assert logits.dtype == torch.float32 and adj.dtype == torch.float32
     assert torch.isfinite(logits).all()
     assert hmax.shape == (q.shape[0], CFG.hid_dim)
-    with pytest.raises(NotImplementedError):
-        model(q, image, qlen, train=True)
+    assert logits.grad_fn is None            # eval records no graph
+    logits, _, _ = model(q, image, qlen, train=True,
+                         generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(logits).all() and logits.grad_fn is not None
+    logits.square().mean().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().sum() > 0, name
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GraphVQAModel(cfg)  # the default device is the card

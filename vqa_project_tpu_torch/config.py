@@ -1,7 +1,7 @@
-"""Model configuration and device resolution.
+"""Model and training configuration, and device resolution.
 
-``ModelConfig`` carries the field names and defaults of
-``vqa_project_tpu/config.py::ModelConfig``. There is no switch between
+``ModelConfig`` and ``TrainConfig`` carry the field names and defaults
+of ``vqa_project_tpu/config.py``. There is no switch between
 kernel and plain code: the device of the tensors decides (CUDA tensors
 launch the kernels, CPU tensors take the plain versions).
 """
@@ -9,6 +9,7 @@ launch the kernels, CPU tensors take the plain versions).
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -32,6 +33,24 @@ class ModelConfig:
     # Numerics policy: params + reductions fp32, matmul compute bf16.
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training-harness settings; the fields and defaults of
+    ``vqa_project_tpu/config.py::TrainConfig`` that a single-card trainer
+    uses (reference run.py defaults)."""
+
+    lr: float = 1e-4               # --lr
+    epochs: int = 40               # --ep
+    batch_size: int = 64           # --bsize
+    lr_milestones: Tuple[int, ...] = (30,)   # MultiStepLR milestones (epochs)
+    lr_gamma: float = 0.5
+    seed: int = 1000               # weights, shuffle and dropout streams
+    log_interval: int = 40         # steps per logged loss/accuracy window
+    eval_interval: int = 400       # steps between mini-validations + ckpts
+    save_dir: str = "./save"
+    name: str = "model"
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -1,4 +1,4 @@
-// GRU recurrence (inference forward) for Hopper (sm_90a).
+// GRU recurrence (forward) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel vqa_project_tpu/ops/pallas/gru_scan.py
 // ::_gru_kernel (entries pallas_gru / gru_encode_pallas). Per step t:
@@ -18,8 +18,10 @@
 // streamed every step instead (they fit the 50 MB L2, which serves the
 // re-reads after the first step).
 //
-// Design: one launch per time step (T launches, h ping-ponged between
-// two f32 buffers by the host loop, which is ordered on one stream).
+// Design: one launch per time step (T launches ordered on one stream;
+// inference ping-pongs h between two f32 buffers, training writes every
+// step's h to hs (T, B, H), which the backward sweep reads,
+// csrc/gru_scan_bwd.cu).
 // A block owns kWarps hidden units and a tile of kRows batch rows. It
 // first stages its whole (kRows, H) h_prev tile in shared memory, already
 // rounded to W's dtype, with all 16-byte loads in flight together. Each
@@ -154,8 +156,8 @@ gru_step_kernel(const float* __restrict__ xp_t,    // (B, 3H) this step
 
 template <typename W>
 cudaError_t run(const float* xp, const void* w_hh, const float* b_hh,
-                const int* qlen, float* h_a, float* h_b, int T, int B, int H,
-                cudaStream_t stream) {
+                const int* qlen, float* h_a, float* h_b, float* hs, int T,
+                int B, int H, cudaStream_t stream) {
   const size_t smem = smem_bytes(H);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -164,9 +166,13 @@ cudaError_t run(const float* xp, const void* w_hh, const float* b_hh,
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(H / kWarps, (B + kRows - 1) / kRows);
+  const size_t step = static_cast<size_t>(B) * H;
   for (int t = 0; t < T; ++t) {
-    const float* src = (t % 2 == 0) ? h_a : h_b;
-    float* dst = (t % 2 == 0) ? h_b : h_a;
+    // training keeps every step's state in hs[t] (h0 = the zeros in h_a);
+    // inference ping-pongs between h_a and h_b
+    const float* src = hs ? (t == 0 ? h_a : hs + (t - 1) * step)
+                          : ((t % 2 == 0) ? h_a : h_b);
+    float* dst = hs ? hs + t * step : ((t % 2 == 0) ? h_b : h_a);
     gru_step_kernel<W><<<grid, kWarps * 32, smem, stream>>>(
         xp + static_cast<size_t>(t) * B * 3 * H, static_cast<const W*>(w_hh),
         b_hh, qlen, src, dst, B, H, t);
@@ -179,15 +185,16 @@ cudaError_t run(const float* xp, const void* w_hh, const float* b_hh,
 }  // namespace
 
 // xp (T, B, 3H) f32; w_hh (3H, H) f32 (dtype 0) or bf16 (dtype 1);
-// b_hh (3H) f32; qlen (B) int32; h_a holds h0 (zeros) and the two
-// (B, H) f32 buffers alternate: the final state is in h_a when T is
-// even, else in h_b. Needs H % 8 == 0 and H <= 3632 (the h_prev tile
-// lives in shared memory). Launches T kernels. Returns
-// cudaError_t.
+// b_hh (3H) f32; qlen (B) int32; h_a holds h0 (zeros). With hs null the
+// two (B, H) f32 buffers h_a and h_b alternate and the final state is in
+// h_a when T is even, else in h_b; with hs a (T, B, H) f32 buffer, step t
+// writes hs[t] (the final state is hs[T-1]) and h_b is not used. Needs
+// H % 8 == 0 and H <= 3632 (the h_prev tile lives in shared memory).
+// Launches T kernels. Returns cudaError_t.
 extern "C" int gru_scan_fwd(const void* xp, const void* w_hh,
                             const void* b_hh, const void* qlen, void* h_a,
-                            void* h_b, int T, int B, int H, int dtype,
-                            void* stream) {
+                            void* h_b, void* hs, int T, int B, int H,
+                            int dtype, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || H % 8 != 0 ||
       (B + kRows - 1) / kRows > 65535 || smem_bytes(H) > 227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -197,11 +204,12 @@ extern "C" int gru_scan_fwd(const void* xp, const void* w_hh,
   const int* q = static_cast<const int*>(qlen);
   float* a = static_cast<float*>(h_a);
   float* b = static_cast<float*>(h_b);
+  float* all = static_cast<float*>(hs);
   cudaError_t e;
   if (dtype == 0)
-    e = run<float>(x, w_hh, bias, q, a, b, T, B, H, s);
+    e = run<float>(x, w_hh, bias, q, a, b, all, T, B, H, s);
   else if (dtype == 1)
-    e = run<__nv_bfloat16>(x, w_hh, bias, q, a, b, T, B, H, s);
+    e = run<__nv_bfloat16>(x, w_hh, bias, q, a, b, all, T, B, H, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

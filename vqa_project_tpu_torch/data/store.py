@@ -2,7 +2,8 @@
 
 Copy of the in-memory part of ``vqa_project_tpu/data/datasets.py::
 FeatureStore``: region features, size-normalized xyxy boxes and the
-image-id -> row map. Loading from zarr comes with the training slice.
+image-id -> row map. Loading from zarr comes with the file-backed data
+layer.
 """
 
 from __future__ import annotations

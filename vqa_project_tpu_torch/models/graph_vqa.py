@@ -1,4 +1,5 @@
-"""The conditioned-graph VQA model as torch modules (inference forward).
+"""The conditioned-graph VQA model as torch modules (eval and train
+forward).
 
 Counterpart of ``vqa_project_tpu/models/graph_vqa.py``. ``forward``
 returns the same triple (logits, adjacency, h_max_indices). Parameters
@@ -12,7 +13,8 @@ Numerics follow the JAX policy: parameters in float32; matmuls with
 operands in the compute dtype and float32 accumulation; pseudo-
 coordinates, Gaussian weights, softmax and logits in float32. The GRU
 recurrence and both graph-convolution tails run in the CUDA kernels of
-``ops/gru_scan.py`` and ``ops/edge_aggregate.py`` on CUDA tensors.
+``ops/gru_scan.py`` and ``ops/edge_aggregate.py`` on CUDA tensors, and
+in training their backward kernels too.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from vqa_project_tpu_torch.ops import (bbox_centres,
                                        gru_encode_kernel,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
+from vqa_project_tpu_torch.ops.dropout import dropout
 from vqa_project_tpu_torch.ops.matmul import matmul
 
 
@@ -149,13 +152,15 @@ class GaussianGraphConv(nn.Module):
                          dim=1).t().float().contiguous()
 
     def forward(self, features: torch.Tensor, selection: torch.Tensor,
-                pseudo: torch.Tensor) -> torch.Tensor:
+                pseudo: torch.Tensor, dropout_rate: float = 0.0,
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         cdt = self.compute_dtype
         w = torch.cat([lin.weight.to(cdt) for lin in self.conv_weights])
         proj = matmul(features.to(cdt), w.t(), out_dtype=cdt)  # (B, K, nd)
         return fused_sel_aggregate_act(
             selection.float().contiguous(), pseudo.float().contiguous(),
-            proj.contiguous(), self.gparams(), relu=True)
+            proj.contiguous(), self.gparams(), relu=True,
+            dropout_rate=dropout_rate, seeds=seeds)
 
 
 class GRUWeights(nn.Module):
@@ -219,32 +224,47 @@ class GraphVQAModel(nn.Module):
             mod.reset_parameters(g)
 
     def forward(self, question: torch.Tensor, image: torch.Tensor,
-                qlen: torch.Tensor, *, train: bool = False
+                qlen: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if train:
-            raise NotImplementedError(
-                "training (dropout and the kernels' backward) is not "
-                "ported yet; the forward runs in eval mode only")
+        """Eval (the default) runs under ``torch.no_grad``; ``train=True``
+        records the graph for backward and applies dropout, drawn from
+        ``generator`` (a generator on the model's device), in the JAX
+        model's places: on the feat||bbox vector, fused into conv1's
+        epilogue with per-image int32 seeds, and after the classifier's
+        first layer (torch's default generator when none is given)."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(question, image, qlen, 0.0, None)
+        return self._forward(question, image, qlen, self.cfg.dropout,
+                             generator)
+
+    def _forward(self, question, image, qlen, rate, generator):
         cfg, cdt = self.cfg, self.compute_dtype
-        with torch.no_grad():
-            pseudo = polar_pseudo_coords(bbox_centres(image.float()))
-            nodes = image.to(cdt)
+        pseudo = polar_pseudo_coords(bbox_centres(image.float()))
+        nodes = dropout(image.to(cdt), rate, generator)
 
-            emb = F.embedding(question.long(), self.wembed.weight)
-            g = self.q_gru
-            qenc = gru_encode_kernel(emb, qlen, g.weight_ih_l0,
-                                     g.weight_hh_l0, g.bias_ih_l0,
-                                     g.bias_hh_l0, compute_dtype=cdt)
+        emb = F.embedding(question.long(), self.wembed.weight)
+        g = self.q_gru
+        qenc = gru_encode_kernel(emb, qlen, g.weight_ih_l0, g.weight_hh_l0,
+                                 g.bias_ih_l0, g.bias_hh_l0,
+                                 compute_dtype=cdt)
 
-            adjacency = self.adjacency_1(nodes, shared=qenc.to(cdt))
-            alpha, mask = masked_neighbourhood(adjacency,
-                                               cfg.neighbourhood_size)
-            hg1 = self.graph_convolution_1(nodes, alpha, pseudo)
-            hg2 = self.graph_convolution_2(hg1, mask, pseudo)
+        adjacency = self.adjacency_1(nodes, shared=qenc.to(cdt))
+        alpha, mask = masked_neighbourhood(adjacency, cfg.neighbourhood_size)
+        seeds = None
+        if rate > 0:
+            seeds = torch.randint(0, 2 ** 31 - 1, (question.shape[0],),
+                                  generator=generator, device=image.device,
+                                  dtype=torch.int32)
+        hg1 = self.graph_convolution_1(nodes, alpha, pseudo,
+                                       dropout_rate=rate, seeds=seeds)
+        hg2 = self.graph_convolution_2(hg1, mask, pseudo)
 
-            h_max_indices = torch.argmax(hg2, dim=1)         # (B, hid)
-            pooled = torch.amax(hg2, dim=1)
-            fused = torch.relu(qenc) * pooled                 # f32
-            h1 = torch.relu(self.out_1(fused))
-            logits = self.out_2(h1)                           # f32
+        h_max_indices = torch.argmax(hg2, dim=1)             # (B, hid)
+        # amax splits the gradient evenly among tied maxima, as jnp.max
+        pooled = torch.amax(hg2, dim=1)
+        fused = torch.relu(qenc) * pooled                     # f32
+        h1 = dropout(torch.relu(self.out_1(fused)), rate, generator)
+        logits = self.out_2(h1)                               # f32
         return logits, adjacency, h_max_indices

@@ -28,16 +28,33 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("edge_aggregate", "gru_scan")
+KERNELS = ("edge_aggregate", "edge_aggregate_bwd", "gru_scan",
+           "gru_scan_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's entry point (all return cudaError_t)
+_U = ctypes.c_uint
+_F = ctypes.c_float
+# C signature of each library's entry points (all return cudaError_t,
+# except edge_aggregate_bwd_tiles, a count)
 _SIGNATURES = {
-    "edge_aggregate": ("edge_aggregate_fwd",
-                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "gru_scan": ("gru_scan_fwd",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "edge_aggregate": {
+        "edge_aggregate_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
+        "edge_aggregate_fwd_res": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _U, _F, _I, _P],
+    },
+    "edge_aggregate_bwd": {
+        "edge_aggregate_bwd_tiles": [_I],
+        "edge_aggregate_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
+    },
+    "gru_scan": {
+        "gru_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "gru_scan_bwd": {
+        "gru_scan_bwd_step": [_P] * 11 + [_I, _I, _I, _I, _P],
+        "gru_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -108,10 +125,10 @@ def build_all(names: Iterable[str] = KERNELS) -> float:
 def _load_locked(name: str, d: Path) -> ctypes.CDLL:
     if name not in _loaded:
         lib = ctypes.CDLL(str(d / f"lib{name}.so"))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return _loaded[name]
 

@@ -24,6 +24,20 @@ def gaussian_kernel_weights(
 ) -> torch.Tensor:
     """(..., 2) pseudo-coordinates and four (n,) parameter vectors ->
     (..., n) float32 weights that sum to 1 over the kernel axis."""
+    w, denom = gaussian_kernel_terms(pseudo_coord, mean_rho, mean_theta,
+                                     precision_rho, precision_theta)
+    return w / denom
+
+
+def gaussian_kernel_terms(
+    pseudo_coord: torch.Tensor,
+    mean_rho: torch.Tensor,
+    mean_theta: torch.Tensor,
+    precision_rho: torch.Tensor,
+    precision_theta: torch.Tensor,
+):
+    """The unnormalized weights (..., n), NaN set to 0, and the clamped
+    denominator (..., 1) whose quotient ``gaussian_kernel_weights`` is."""
     pc = pseudo_coord.float()
     rho = pc[..., 0:1]                                   # (..., 1)
     theta = pc[..., 1:2]
@@ -43,4 +57,4 @@ def gaussian_kernel_weights(
     w = w_rho * w_theta
     w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
     denom = torch.sum(w, dim=-1, keepdim=True)
-    return w / torch.clamp(denom, min=1e-20)
+    return w, torch.clamp(denom, min=1e-20)
