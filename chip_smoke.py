@@ -25,11 +25,26 @@ Phases, in order; the first failure exits non-zero:
    full VQA width, batch 64, bf16, dropout 0.5, 20 steps and one
    mini-validation; the launch counts per step must be C 2, D 2, B 16,
    E 16 + 1 weight-gradient launch, and A 0;
-6. timing, in two parts: after phase 5 the serving kernels and the
+10. gather kernels against their plain versions, bit for bit: F on a
+    device-made VQA v2-size table (123,287 x 36 x 2048) in bf16, then
+    int8 with per-box scales into bf16 and f32, and f32 at N=4096; G on
+    the (N, 36, 4) boxes and odd row shapes; B in {1, 16, 33, 64, 256}
+    with rows 0 and N-1, duplicates and clamped -1 / N;
+11. training with the device cache, the main path: fit() as in phase 9
+    but with the bf16 feature cache, index batches and a resident
+    mini-validation; per step F 1, G 1, C 2, D 2, B 16, E 16 + 1, A 0,
+    and step 1's loss equal to phase 9's bit for bit;
+12. evaluate() to result.json with phase 11's model: val through the
+    cache (resident) and through host mode (streaming) give the same
+    result list; the unannotated test split; collect_adjacency; an int8
+    cache;
+6. timing, in three parts: after phase 5 the serving kernels and the
    forward at B=16 and 256, after phase 9 the training kernels and the
-   training step at B=64 and 256; each kernel beside its plain version,
-   the library call where one exists (CUDA events) and the least time
-   the card needs, and a profile of the forward and of the step.
+   training step at B=64 and 256, after phase 12 the gather kernels at
+   B=64 and 256, the cache-mode training step beside host mode and
+   evaluate's throughput; each kernel beside its plain version, the
+   library call where one exists (CUDA events) and the least time the
+   card needs, and profiles of the forward and of both steps.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Without a CUDA device, or without the repository beside it, the script
@@ -54,12 +69,15 @@ import torch
 
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import (FeatureStore, generate_synthetic_vqa,
-                                        tokenize)
+                                        pack_index_batch, tokenize)
 from vqa_project_tpu_torch.models import GraphVQAModel
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
 from vqa_project_tpu_torch.ops.dropout import philox_keep
+from vqa_project_tpu_torch.ops.gather_rows import (gather_rows_blocked,
+                                                   gather_rows_packed,
+                                                   gather_rows_reference)
 from vqa_project_tpu_torch.ops.edge_aggregate import (
     fused_sel_aggregate_act, sel_aggregate_act_reference,
     sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
@@ -70,7 +88,9 @@ from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
                                            input_projection)
 from vqa_project_tpu_torch.ops.gru_scan import gru_scan, gru_scan_bwd, gru_wgrad
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
-from vqa_project_tpu_torch.train import (build_model, fit, make_optimizer,
+from vqa_project_tpu_torch.train import (QuantizedFeatureCache, build_model,
+                                         evaluate, fit, make_feature_cache,
+                                         make_image_fn, make_optimizer,
                                          train_step)
 
 SEED = 20261016
@@ -87,6 +107,8 @@ ADAM_EPS = 1e-8
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 GAUSS_FLOPS = 25   # per (edge, kernel): two exp, two divides, ~20 more
+# VQA v2's feature table: train2014 + val2014 images, 36 boxes of 2048
+VQA_IMAGES = 123_287
 GATE_FLOPS = 20    # per (row, unit, step): two sigmoid, tanh, blend
 
 SOURCES = {
@@ -104,6 +126,10 @@ SOURCES = {
                           "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
     "gru_wgrad": ("vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
                   "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
+    "gather_rows_packed": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
+                           "vqa_project_tpu/ops/pallas/gather_rows.py:91"),
+    "gather_rows_blocked": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
+                            "vqa_project_tpu/ops/pallas/gather_rows.py:46"),
 }
 # each kernel's wrapper, which counts its launches
 WRAPPERS = {
@@ -113,7 +139,16 @@ WRAPPERS = {
     "edge_aggregate_bwd": sel_aggregate_act_vjp,               # D
     "gru_scan_bwd_step": gru_scan_bwd,                         # E, sweep
     "gru_wgrad": gru_wgrad,                                    # E, dW/db
+    "gather_rows_packed": gather_rows_packed,                  # F
+    "gather_rows_blocked": gather_rows_blocked,                # G
 }
+# launches of one training step (host mode: F and G 0)
+TRAIN_STEP_LAUNCHES = {
+    "edge_aggregate_fwd": 0, "gru_scan_fwd": 16, "edge_aggregate_fwd_res": 2,
+    "edge_aggregate_bwd": 2, "gru_scan_bwd_step": 16, "gru_wgrad": 1,
+    "gather_rows_packed": 0, "gather_rows_blocked": 0}
+CACHE_STEP_LAUNCHES = {**TRAIN_STEP_LAUNCHES, "gather_rows_packed": 1,
+                       "gather_rows_blocked": 1}
 
 
 def phase(name: str) -> None:
@@ -194,6 +229,28 @@ def time_ms(fn, samples: int = 50, reps: int = 10) -> float:
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def time_device_ms(fn, samples: int = 50, reps: int = 10,
+                   hold_cycles: int = 4_000_000) -> float:
+    """time_ms with each sample's launches queued behind a sleep kernel
+    (~2 ms), so that the host's time to enqueue them is hidden: the
+    device time per call of a call shorter than its own enqueue."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -607,9 +664,7 @@ def train_step_card_vs_cpu(dev, gen, b=8):
     m_gpu = train_step(gpu, make_optimizer(gpu, tcfg, 10)[0], None, batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {"edge_aggregate_fwd": 0, "gru_scan_fwd": 16,
-            "edge_aggregate_fwd_res": 2, "edge_aggregate_bwd": 2,
-            "gru_scan_bwd_step": 16, "gru_wgrad": 1}
+    want = TRAIN_STEP_LAUNCHES
     e_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(
         float(m_cpu["loss"]))
     gpu_params = dict(gpu.named_parameters())
@@ -650,17 +705,25 @@ def train_step_card_vs_cpu(dev, gen, b=8):
     require(worst_u[0] <= 1e-3, "Adam updates disagree")
 
 
-def train_main_path(dev, n_steps=20, val_batches=10):
-    """Phase 9, the main path: fit() at full VQA width, bf16, dropout 0.5,
-    batch 64, on an in-memory synthetic dataset of n_steps batches, with
-    one mini-validation at the end. Returns the launch counts."""
-    n_train = n_steps * TRAIN_B
-    ds = generate_synthetic_vqa(
-        n_images=128, n_questions=math.ceil(n_train / 0.75), n_obj=36,
-        feat_dim=FULL["feat_dim"] - 4, q_vocab=FULL["vocab_size"] - 1,
+def train_dataset(n_steps=20):
+    """Phases 9, 11 and 12's in-memory synthetic dataset at full VQA
+    width: n_steps training batches of TRAIN_B, val and an unannotated
+    test split."""
+    return generate_synthetic_vqa(
+        n_images=128, n_questions=math.ceil(n_steps * TRAIN_B / 0.75),
+        n_obj=36, feat_dim=FULL["feat_dim"] - 4, q_vocab=FULL["vocab_size"] - 1,
         n_answers=FULL["out_dim"] - 1, n_classes=64,
         class_encoding="binary", emb_dim=FULL["emb_dim"],
-        max_qlen=FULL["max_qlen"], seed=SEED)
+        max_qlen=FULL["max_qlen"], seed=SEED, with_test=True)
+
+
+def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10):
+    """fit() at full VQA width, bf16, dropout 0.5, batch 64, for the
+    n_steps batches of ds["train"], with one mini-validation at the end;
+    cache None is host mode. Checks the losses, the moved parameters and
+    the checkpoint, and the launches per step (the mini-validation's
+    forwards launch A twice, B 16 times, and with a cache F and G once,
+    per batch). Returns (model, per-step losses, launch counts)."""
     mcfg = ModelConfig(**FULL)   # bf16 compute, dropout 0.5
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(lr=1e-4, epochs=1, batch_size=TRAIN_B,
@@ -670,7 +733,7 @@ def train_main_path(dev, n_steps=20, val_batches=10):
         reset_counts()
         t0 = time.perf_counter()
         model, _, acc = fit(tcfg, mcfg, ds["train"], ds["val"], device=dev,
-                            jsonl_path=jsonl)
+                            jsonl_path=jsonl, cache=cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
@@ -693,32 +756,50 @@ def train_main_path(dev, n_steps=20, val_batches=10):
     require(len(still) < len(fresh) and not stuck,
             f"parameters with a gradient that did not move: {stuck}")
     require(saved, "no checkpoint at the mini-validation")
-    # the mini-validation's eval forwards launch A twice and B 16 times
     per_step = dict(counts)
     per_step["edge_aggregate_fwd"] -= 2 * val_batches
     per_step["gru_scan_fwd"] -= 16 * val_batches
+    want = TRAIN_STEP_LAUNCHES
+    if cache is not None:
+        per_step["gather_rows_packed"] -= val_batches
+        per_step["gather_rows_blocked"] -= val_batches
+        want = CACHE_STEP_LAUNCHES
     per_step = {k: v / n_steps for k, v in per_step.items()}
-    want = {"edge_aggregate_fwd": 0, "gru_scan_fwd": 16,
-            "edge_aggregate_fwd_res": 2, "edge_aggregate_bwd": 2,
-            "gru_scan_bwd_step": 16, "gru_wgrad": 1}
     step_ms = [1e3 / r["steps_per_sec"] for r in recs[2:]]
     med = statistics.median(step_ms)
-    print(f"training: {n_steps} steps of fit() at full width, batch "
-          f"{TRAIN_B}, bf16, dropout {mcfg.dropout}, in {wall:.3f} s with "
-          f"one mini-validation ({val_batches} batches); loss "
+    print(f"training ({label}): {n_steps} steps of fit() at full width, "
+          f"batch {TRAIN_B}, bf16, dropout {mcfg.dropout}, in {wall:.3f} s "
+          f"with one mini-validation ({val_batches} batches); loss "
           f"{losses[0]:.5f} -> {losses[-1]:.5f}, all finite; epoch "
           f"accuracy {acc:.2f}%; {len(fresh) - len(still)} of "
           f"{len(fresh)} parameter tensors moved (unmoved, with the last "
           f"step's max |gradient|: {still}); median step {med:.3f} ms "
-          f"(host clock, "
-          f"steps 3-{n_steps}, each ending in a fetch), {TRAIN_B * 1e3 / med:.1f} "
-          f"QA-pairs/s; launches {counts}, per train step {per_step}",
-          flush=True)
+          f"(host clock, steps 3-{n_steps}, each ending in a fetch), "
+          f"{TRAIN_B * 1e3 / med:.1f} QA-pairs/s; launches {counts}, per "
+          f"train step {per_step}", flush=True)
     require(per_step == want, f"launches per train step {per_step}, "
             f"want {want}")
     require(counts["edge_aggregate_fwd"] == 2 * val_batches,
             "kernel A ran outside the mini-validation")
-    return counts
+    return model, losses, counts
+
+
+def train_cache_main_path(dev, ds, cache, host_losses):
+    """Phase 11, the main path with the device cache: run_fit with the
+    bf16 cache; step 1's loss must equal host mode's (phase 9) bit for
+    bit, and every step's within 1e-3."""
+    require(isinstance(cache, tuple) and cache[0].dtype == torch.bfloat16
+            and cache[0].device.type == "cuda", "no bf16 cache on the card")
+    model, losses, counts = run_fit(dev, ds, cache, "device cache")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, host_losses)]
+    print("relative loss difference from host mode (phase 9), per step: "
+          + json.dumps(rel), flush=True)
+    require(losses[0] == host_losses[0],
+            f"step 1's loss {losses[0]!r} differs from host mode's "
+            f"{host_losses[0]!r}")
+    require(max(rel) <= 1e-3, "a cache-mode step's loss differs from host "
+            "mode's by more than 1e-3")
+    return model, counts
 
 
 def profile(fn, label: str, n: int = 10) -> None:
@@ -1019,6 +1100,341 @@ def time_train_step(dev, gen, b, n=10):
     return statistics.median(times)
 
 
+# ---------------- the device cache: kernels F and G ----------------
+
+
+def random_table(n, k, f, dtype, dev, seed=SEED):
+    """An (n, k, f) table made on the card: normal values, or int8 codes
+    in [-127, 127]; filled in chunks of 8192 rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.empty((n, k, f), dtype=dtype, device=dev)
+    for i in range(0, n, 8192):
+        part = table[i:i + 8192]
+        if dtype == torch.int8:
+            part.copy_(torch.randint(-127, 128, part.shape, generator=g,
+                                     device=dev, dtype=torch.int8))
+        else:
+            part.normal_(generator=g)
+    return table
+
+
+def gather_rows_for(b, n, rng):
+    """(B,) int32 rows: row N-1 and 0 first, a duplicate, the clamped -1
+    and N, the rest random."""
+    rows = rng.integers(0, n, b)
+    special = [n - 1, 0, -1, n]
+    rows[:min(b, 4)] = special[:min(b, 4)]
+    if b > 5:
+        rows[-1] = rows[4]
+    return rows.astype(np.int32)
+
+
+def check_gathers(dev):
+    """Phase 10: F and G against their plain versions on the card, bit
+    for bit. Returns {kernel: max abs error}."""
+    rng = np.random.default_rng(SEED)
+    errs = {"gather_rows_packed": 0.0, "gather_rows_blocked": 0.0}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        same = (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(got, want))
+        err = float((got.float() - want.float()).abs().max())
+        errs[name] = max(errs[name], err)
+        print(f"{what}: equal bit for bit {same} (max abs err {err:.3e})",
+              flush=True)
+        require(same, f"{name} disagrees with its plain version: {what}")
+
+    k, f = 36, 2048
+    for label, n, dtype, scales_out in (
+            ("bf16", VQA_IMAGES, torch.bfloat16, None),
+            ("int8", VQA_IMAGES, torch.int8, (torch.bfloat16, torch.float32)),
+            ("f32", 4096, torch.float32, None)):
+        table = random_table(n, k, f, dtype, dev)
+        scales = None
+        if scales_out:
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            scales = torch.rand((n, k), generator=g, device=dev) * 0.05
+        gb = table.numel() * table.element_size() / 1e9
+        for b in (1, 16, 33, 64, 256):
+            r = torch.from_numpy(gather_rows_for(b, n, rng)).to(dev)
+            for out in scales_out or (None,):
+                got = gather_rows_packed(table, r, scales, out)
+                want = gather_rows_reference(table, r, scales, out)
+                check("gather_rows_packed", got, want,
+                      f"kernel F {label} table {n} x {k} x {f} ({gb:.1f} GB)"
+                      + (f" -> {str(out)[6:]}" if out else "")
+                      + f", B={b}")
+        if label == "bf16":   # the last row of the 18 GB table, read back
+            last = gather_rows_packed(table, torch.tensor(
+                [n - 1, n], dtype=torch.int32, device=dev))
+            check("gather_rows_packed", last[0], table[n - 1],
+                  "kernel F bf16 rows N-1 and N against table[N-1]")
+            check("gather_rows_packed", last[1], table[n - 1],
+                  "kernel F bf16 row N (clamped) against table[N-1]")
+        del table, scales
+        torch.cuda.empty_cache()
+    # the int8 path's element-wise variant (F not a multiple of 16)
+    table = random_table(1000, 5, 20, torch.int8, dev)
+    scales = torch.rand((1000, 5), device=dev)
+    for b in (1, 33, 256):
+        r = torch.from_numpy(gather_rows_for(b, 1000, rng)).to(dev)
+        check("gather_rows_packed",
+              gather_rows_packed(table, r, scales, torch.bfloat16),
+              gather_rows_reference(table, r, scales, torch.bfloat16),
+              f"kernel F int8 table (1000, 5, 20) -> bfloat16, B={b}")
+    for label, shape, dtype in (
+            ("boxes", (VQA_IMAGES, 36, 4), torch.float32),
+            ("odd f32", (1000, 5, 3), torch.float32),
+            ("odd bf16", (1000, 7, 3), torch.bfloat16)):
+        table = random_table(*shape, dtype, dev)
+        for b in (1, 16, 33, 64, 256):
+            r = torch.from_numpy(gather_rows_for(b, shape[0], rng)).to(dev)
+            check("gather_rows_blocked", gather_rows_blocked(table, r),
+                  gather_rows_reference(table, r),
+                  f"kernel G {label} table {shape}, B={b}")
+    return errs
+
+
+def evaluate_checks(dev, model, ds, cache):
+    """Phase 12: evaluate() with phase 11's model. Returns the int8
+    cache's agreement with the bf16 cache."""
+    val = ds["val"]
+    words = set(val.a_itow.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "result.json")
+        f0 = gather_rows_packed.launches
+        acc_r, res_r, adj = evaluate(model, val, TRAIN_B, result_path=path,
+                                     cache=cache, device=dev)
+        with open(path) as f:
+            loaded = json.load(f)
+        f_launches = gather_rows_packed.launches - f0
+        acc_s, res_s, _ = evaluate(model, val, TRAIN_B, result_path=None,
+                                   cache=None, device=dev)
+        print(f"evaluate val ({val.n_questions} questions): resident "
+              f"(device cache, F launched {f_launches} times) accuracy "
+              f"{acc_r:.4f}%, streaming (host mode) {acc_s:.4f}%; result "
+              f"lists equal {res_r == res_s}; {len(res_r)} entries, "
+              f"{len({r['answer'] for r in res_r})} distinct answers; "
+              f"result.json parses to the same list {loaded == res_r}",
+              flush=True)
+        require(adj is None and f_launches == math.ceil(
+            val.n_questions / TRAIN_B), "the resident path did not gather "
+            "every batch through kernel F")
+        require(res_r == res_s, "resident and streaming results differ")
+        require(abs(acc_r - acc_s) <= 1e-4, "accuracies differ")
+        require(len(res_r) == val.n_questions and loaded == res_r,
+                "result.json entries")
+        require(all(r["answer"] in words for r in res_r),
+                "an answer outside a_itow")
+        test = ds["test"]
+        acc_t, res_t, _ = evaluate(model, test, TRAIN_B,
+                                   result_path=path, device=dev)
+        with open(path) as f:
+            loaded = json.load(f)
+    print(f"evaluate test ({test.n_questions} unannotated questions, its "
+          f"own {test.store.features.shape[0]}-image cache): accuracy "
+          f"{acc_t}, {len(res_t)} entries", flush=True)
+    require(acc_t == 0.0 and len(res_t) == test.n_questions
+            and loaded == res_t, "test split")
+    _, res_a, adj = evaluate(model, val, TRAIN_B, result_path=None,
+                             collect_adjacency=True, max_batches=2,
+                             cache=cache, device=dev)
+    shapes = {a.shape for a in adj.values()}
+    print(f"collect_adjacency over 2 batches: {len(adj)} adjacencies of "
+          f"shapes {shapes}, {len(res_a)} answers", flush=True)
+    require(len(adj) == len(res_a) == min(2 * TRAIN_B, val.n_questions)
+            and shapes == {(36, 36)}, "adjacencies")
+    qc = make_feature_cache(val, TrainConfig(feature_cache_dtype="int8"),
+                            model.cfg.compute_dtype, dev)
+    require(isinstance(qc, QuantizedFeatureCache)
+            and qc.features.dtype == torch.int8, "no int8 cache")
+    f0 = gather_rows_packed.launches
+    acc_q, res_q, _ = evaluate(model, val, TRAIN_B, result_path=None,
+                               cache=qc, device=dev)
+    f_launches = gather_rows_packed.launches - f0
+    agree = float(np.mean([a == b for a, b in zip(res_q, res_r)]))
+    print(f"evaluate val with the int8 cache: F launched {f_launches} "
+          f"times on the int8 table; accuracy {acc_q:.4f}%; answers equal "
+          f"to the bf16 cache's: {agree:.4f}", flush=True)
+    require(f_launches == math.ceil(val.n_questions / TRAIN_B)
+            and len(res_q) == val.n_questions, "int8 evaluate")
+    return agree
+
+
+def timed_gather(kernel, plain, library):
+    """Device times (time_device_ms: a gather is shorter than its
+    wrapper's host time), and the kernel's back-to-back time with the
+    host's enqueue in it (time_ms)."""
+    return dict(ms=time_device_ms(kernel), plain_ms=time_device_ms(plain),
+                library_ms=library and time_device_ms(library),
+                back_to_back_ms=time_ms(kernel))
+
+
+def time_gathers(dev, counts, errs):
+    """Phase 6, the cache part, kernels: F on the VQA v2-size bf16 table
+    (and at N=4096, and int8 -> bf16), G on its boxes, at B=64 and 256;
+    each call takes the next of 16 random row sets, so the rows come from
+    all over the table."""
+    rng = np.random.default_rng(SEED + 2)
+    entries, detail = [], {}
+    k, f = 36, 2048
+    for label, n, dtype in (("bf16", VQA_IMAGES, torch.bfloat16),
+                            ("bf16 N=4096", 4096, torch.bfloat16),
+                            ("int8 -> bf16", VQA_IMAGES, torch.int8)):
+        table = random_table(n, k, f, dtype, dev)
+        scales = (torch.rand((n, k), device=dev) * 0.05
+                  if dtype == torch.int8 else None)
+        out = torch.bfloat16 if scales is not None else None
+        for b in (TRAIN_B, 256):
+            sets = [torch.from_numpy(rng.integers(0, n, b).astype(np.int32)
+                                     ).to(dev) for _ in range(16)]
+            it = iter(range(10 ** 9))
+
+            def rows():
+                return sets[next(it) % len(sets)]
+
+            t = timed_gather(
+                lambda: gather_rows_packed(table, rows(), scales, out),
+                lambda: gather_rows_reference(table, rows(), scales, out),
+                None if scales is not None else
+                (lambda: torch.index_select(table, 0, rows())))
+            row_bytes = k * f * table.element_size()
+            out_bytes = k * f * 2 if scales is not None else row_bytes
+            t["bound_ms"], t["bound_by"] = bound(
+                b * (row_bytes + out_bytes) + b * 4
+                + (b * k * 4 if scales is not None else 0), 0.0)
+            detail[f"F {label} B={b}"] = t
+            if label == "bf16" and b == TRAIN_B:
+                entries.append(entry("gather_rows_packed", t, counts, errs))
+        del table, scales
+        torch.cuda.empty_cache()
+    boxes = random_table(VQA_IMAGES, 36, 4, torch.float32, dev)
+    for b in (TRAIN_B, 256):
+        sets = [torch.from_numpy(rng.integers(0, VQA_IMAGES, b).astype(
+            np.int32)).to(dev) for _ in range(16)]
+        it = iter(range(10 ** 9))
+
+        def rows():
+            return sets[next(it) % len(sets)]
+
+        t = timed_gather(lambda: gather_rows_blocked(boxes, rows()),
+                         lambda: gather_rows_reference(boxes, rows()),
+                         lambda: torch.index_select(boxes, 0, rows()))
+        t["bound_ms"], t["bound_by"] = bound(2 * b * 36 * 4 * 4 + b * 4, 0.0)
+        detail[f"G boxes B={b}"] = t
+        if b == TRAIN_B:
+            entries.append(entry("gather_rows_blocked", t, counts, errs))
+    del boxes
+    torch.cuda.empty_cache()
+    print("gather timing detail (CUDA events, launches queued behind a "
+          "sleep kernel; back_to_back_ms = the kernel's calls timed back to "
+          "back with the host's enqueue in them; F plain = clamp + "
+          "index_select (+ dequant), library = one torch.index_select; "
+          "bound = rows read + written at 3.35 TB/s): "
+          + json.dumps(detail), flush=True)
+    return entries
+
+
+def random_index_batch(b, cfg, n_images, rng):
+    """An index batch as the Batcher yields it: random questions, image
+    rows and sparse labels (3 answers a row), the last row padding."""
+    s, pad = 16, cfg.out_dim - 1
+    ans_idx = np.full((b, s), pad, np.int32)
+    ans_score = np.zeros((b, s), np.float32)
+    vote_val = np.zeros((b, s), np.float32)
+    for i in range(b):
+        ans_idx[i, :3] = rng.choice(pad, size=3, replace=False)
+        ans_score[i, :3] = rng.uniform(0.3, 1.0, size=3)
+        vote_val[i, :3] = rng.integers(1, 10, size=3)
+    mask = np.ones((b,), np.float32)
+    mask[-1] = 0.0
+    return {"question": rng.integers(1, cfg.vocab_size, (b, cfg.max_qlen)
+                                     ).astype(np.int32),
+            "qlen": rng.integers(3, 15, b).astype(np.int32),
+            "image_row": rng.integers(0, n_images, b).astype(np.int32),
+            "ans_idx": ans_idx, "ans_score": ans_score,
+            "vote_idx": ans_idx.copy(), "vote_val": vote_val, "mask": mask}
+
+
+def time_cache_steps(dev, gen, n=10, n_images=4096):
+    """Phase 6, the cache part, steps: the full-width bf16 training step
+    (dropout 0.5) in host mode and with a bf16 device cache of n_images
+    images, in turns (host, cache, cache, host), at B=64 and 256; each
+    step ends in a fetch of its loss (host clock). Profiles the cache
+    step at B=64."""
+    cfg = ModelConfig(**FULL)
+    cache = (random_table(n_images, 36, FULL["feat_dim"] - 4,
+                          torch.bfloat16, dev),
+             torch.cat([torch.rand(n_images, 36, 2, device=dev) * 0.5,
+                        0.55 + torch.rand(n_images, 36, 2, device=dev) * 0.45],
+                       -1))
+    image_fn = make_image_fn(cache)
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for b in (TRAIN_B, 256):
+        model = GraphVQAModel(cfg, device=dev, seed=SEED)
+        optimizer, _ = make_optimizer(model, TrainConfig(), 100)
+        generator = torch.Generator(device=dev).manual_seed(SEED)
+        dense = random_train_batch(b, cfg, gen)
+        index = pack_index_batch(random_index_batch(b, cfg, n_images, rng))
+
+        def host_step():
+            float(train_step(model, optimizer, None, dense, generator)["loss"])
+
+        def cache_step():
+            float(train_step(model, optimizer, None, index, generator,
+                             image_fn)["loss"])
+
+        def median_ms(step):
+            for _ in range(3):
+                step()
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                step()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        runs = [("host", host_step), ("cache", cache_step),
+                ("cache", cache_step), ("host", host_step)]
+        ms = {"host": [], "cache": []}
+        for mode, step in runs:
+            ms[mode].append(median_ms(step))
+        out[b] = ms
+        if b == TRAIN_B:
+            profile(cache_step, f"the bf16 cache-mode training step at B={b}",
+                    n=5)
+    print("train step, host mode vs device cache (ms, host clock, median of "
+          f"{n} steps each, run host, cache, cache, host): "
+          + json.dumps({f"B={b}": v for b, v in out.items()}), flush=True)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_evaluate(dev, model, ds, cache):
+    """Phase 6, the cache part: evaluate()'s throughput on the trainval
+    split, resident (device cache) and streaming (host mode), each timed
+    on its second call."""
+    split = ds["trainval"]
+    out = {}
+    for mode, kw in (("resident", {"cache": cache}),
+                     ("streaming", {"cache": None})):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate(model, split, TRAIN_B, result_path=None, device=dev,
+                     **kw)
+            wall = time.perf_counter() - t0
+        out[mode] = split.n_questions / wall
+    print(f"evaluate throughput, trainval split ({split.n_questions} "
+          f"questions, batch {TRAIN_B}, second call, host clock): "
+          f"resident {out['resident']:.1f} questions/s, streaming "
+          f"{out['streaming']:.1f} questions/s", flush=True)
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1056,9 +1472,22 @@ def main() -> int:
     phase("8 one training step, card against CPU")
     train_step_card_vs_cpu(dev, gen)
     phase("9 training (main path)")
-    counts = train_main_path(dev)
+    ds = train_dataset()
+    _, host_losses, counts = run_fit(dev, ds, None, "host mode")
     phase("6 timing (training)")
     entries += measure_training(dev, gen, counts, errs)
+    phase("10 gather kernels against their plain versions")
+    errs.update(check_gathers(dev))
+    phase("11 training with the device cache (main path)")
+    cache = make_feature_cache(ds["train"], TrainConfig(),
+                               ModelConfig().compute_dtype, dev)
+    model, cache_counts = train_cache_main_path(dev, ds, cache, host_losses)
+    phase("12 evaluate to result.json")
+    evaluate_checks(dev, model, ds, cache)
+    phase("6 timing (device cache)")
+    entries += time_gathers(dev, cache_counts, errs)
+    time_cache_steps(dev, gen)
+    time_evaluate(dev, model, ds, cache)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

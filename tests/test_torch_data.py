@@ -1,6 +1,7 @@
 """The port's data layer against the JAX package's: QuestionTable, the
-host-mode Batcher's order and batches, and the synthetic generator
-(whose JAX counterpart writes files that its loader reads back)."""
+host-mode Batcher's order and batches, and the synthetic generator with
+its test split (whose JAX counterpart writes files that its loader reads
+back)."""
 
 import numpy as np
 import pytest
@@ -95,10 +96,15 @@ def test_batcher_matches_jax_host_mode(rng, shuffle, drop_last):
 def test_synthetic_matches_jax_files(tmp_path):
     kw = dict(n_images=24, n_questions=96, n_obj=36, feat_dim=64,
               q_vocab=40, n_answers=12, seed=1000, n_classes=5,
-              class_encoding="binary")
+              class_encoding="binary", with_test=True)
     j_gen(str(tmp_path), **kw)
     port = generate_synthetic_vqa(**kw, emb_dim=300, max_qlen=16)
-    for split in ("train", "val", "trainval"):
+    assert set(port) == {"train", "val", "trainval", "test"}
+    # the test split: its own store over the first n_images // 4 images,
+    # unannotated questions
+    assert port["test"].store.features.shape[0] == 6
+    assert not any("answers" in row for row in port["test"].vqa)
+    for split in ("train", "val", "trainval", "test"):
         jds = j_ds.GraphVQADataset.vqa2(str(tmp_path), split)
         pds = port[split]
         assert pds.store.id_to_row == jds.store.id_to_row

@@ -51,6 +51,15 @@ class TrainConfig:
     eval_interval: int = 400       # steps between mini-validations + ckpts
     save_dir: str = "./save"
     name: str = "model"
+    prefetch: int = 2              # host->device prefetch depth (batches)
+    # device-resident feature cache (train/loop.py::make_feature_cache):
+    # used when the table in the cache dtype fits this budget, else
+    # batches carry dense images from the host
+    device_cache_bytes: int = 8 << 30
+    # dtype of the cached feature table: "auto" follows the compute
+    # dtype (exactly the model's inputs); "int8" quantizes each box row
+    # (ops/quant.py) and dequantizes in the gather kernel
+    feature_cache_dtype: str = "auto"  # auto | float32 | bfloat16 | int8
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -1,28 +1,39 @@
-"""Fixed-shape host batches.
+"""Fixed-shape host batches, and their prefetch to the device.
 
-Copy of the host mode of ``vqa_project_tpu/data/loader.py::Batcher``:
-each batch is a handful of vectorized numpy gathers from the dataset's
-tables, with dense images, answers and votes; the final partial batch is
-padded to the fixed shape with rows whose mask is 0.
+Copy of ``vqa_project_tpu/data/loader.py``: each batch is a handful of
+vectorized numpy gathers from the dataset's tables; the final partial
+batch is padded to the fixed shape with rows whose mask is 0. Host mode
+(``materialize=True``) carries dense images, answers and votes; index
+mode (``materialize=False``) carries the image row and the sparse label
+entries for a device feature cache, a few KB per batch.
 """
 
 from __future__ import annotations
 
+import collections
+import queue
+import threading
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
+
+# the fields a host-mode step reads on the device
+DENSE_KEYS = ("question", "image", "qlen", "answers", "votes", "mask")
 
 
 class Batcher:
     """Iterable over fixed-shape numpy batches.
 
     Yields dicts with:
-      question (B, T) int32 | answers (B, C) f32 | votes (B, C) f32 |
-      image (B, K, F) f32 | qlen (B,) int32 | qid (B,) int64 |
+      question (B, T) int32 | qlen (B,) int32 | qid (B,) int64 |
       mask (B,) f32 (0 for padding rows of the final batch) |
       index (B,) int64 (row into dataset.vqa, for result emission)
+    and in host mode answers (B, C) f32 | votes (B, C) f32 |
+    image (B, K, F) f32, in index mode image_row (B,) int32 |
+    ans_idx, vote_idx (B, S) int32 | ans_score, vote_val (B, S) f32.
 
     Epoch e's order is a pure function of (seed, e), shuffled by
     ``default_rng([seed, e])``: a run resumed at epoch e sees the batches
@@ -31,11 +42,12 @@ class Batcher:
 
     def __init__(self, dataset: GraphVQADataset, batch_size: int,
                  shuffle: bool = False, seed: int = 1000,
-                 drop_last: bool = False):
+                 drop_last: bool = False, materialize: bool = True):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.materialize = materialize
         self.seed = seed
         self._epoch = 0
         self._skip_next = 0
@@ -72,14 +84,145 @@ class Batcher:
         t = ds.table
         mask = np.zeros((bs,), dtype=np.float32)
         mask[:valid] = 1.0
-        answers, votes = t.dense_answers(rows)
-        return {
+        batch = {
             "question": t.tokens[rows],
             "qlen": t.qlen[rows],
             "qid": t.qid[rows],
             "mask": mask,
             "index": rows.astype(np.int64),
-            "answers": answers,
-            "votes": votes,
-            "image": ds.store.batch(t.image_row[rows]),
         }
+        if self.materialize:
+            answers, votes = t.dense_answers(rows)
+            batch.update(answers=answers, votes=votes,
+                         image=ds.store.batch(t.image_row[rows]))
+        else:
+            batch.update(
+                image_row=t.image_row[rows],
+                ans_idx=t.ans_idx[rows], ans_score=t.ans_score[rows],
+                vote_idx=t.vote_idx[rows], vote_val=t.vote_val[rows])
+        return batch
+
+
+def pack_index_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """An index batch's device-bound fields as TWO arrays (S = answer-slot
+    capacity, T = max_qlen):
+      ints   (B, T+2+2S) int32:  [question | qlen | image_row | ans_idx
+                                  | vote_idx]
+      floats (B, 2S+1)  float32: [ans_score | vote_val | mask]
+    Host-only fields (qid, index) stay on the host. The step unpacks them
+    with ``train.steps.unpack_index_batch``."""
+    return {
+        "ints": np.concatenate([
+            batch["question"].astype(np.int32),
+            batch["qlen"][:, None].astype(np.int32),
+            batch["image_row"][:, None].astype(np.int32),
+            batch["ans_idx"].astype(np.int32),
+            batch["vote_idx"].astype(np.int32),
+        ], axis=1),
+        "floats": np.concatenate([
+            batch["ans_score"].astype(np.float32),
+            batch["vote_val"].astype(np.float32),
+            batch["mask"][:, None].astype(np.float32),
+        ], axis=1),
+    }
+
+
+def _host_tensors(batch: Dict[str, np.ndarray],
+                  pin: bool) -> Dict[str, torch.Tensor]:
+    """The device-bound fields of a host or index batch as CPU tensors,
+    in pinned memory when ``pin``."""
+    arrays = (pack_index_batch(batch) if "image_row" in batch
+              else {k: batch[k] for k in DENSE_KEYS})
+    out = {k: torch.from_numpy(np.ascontiguousarray(v))
+           for k, v in arrays.items()}
+    return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+
+def prefetch_to_device(iterator, device, depth: int = 2):
+    """Yield ``(host_batch, device_batch)`` for each batch of
+    ``iterator``, up to ``depth`` batches ahead.
+
+    A worker thread assembles the host batches and packs their
+    device-bound fields (``pack_index_batch`` for index batches, the
+    dense fields otherwise) into pinned memory. This thread issues the
+    non-blocking copies on a stream of its own; the current stream waits
+    for a batch's copies before the batch is yielded, and each pinned
+    buffer is held until its copy has completed. On the CPU the tensors
+    share the numpy batch's memory and nothing is copied.
+    """
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    depth = max(1, int(depth))
+    ready: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    sentinel = object()
+    errors: list = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                ready.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for batch in iterator:
+                if not put((batch, _host_tensors(batch, cuda))):
+                    return
+        except BaseException as e:  # raised again in the consumer
+            errors.append(e)
+        finally:
+            put(sentinel)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    copy_stream = torch.cuda.Stream(dev) if cuda else None
+    staged = collections.deque()     # (host, device tensors, copy event)
+    in_flight = collections.deque()  # (copy event, pinned buffers)
+
+    def stage(item):
+        host, pinned = item
+        if not cuda:
+            return host, pinned, None
+        with torch.cuda.stream(copy_stream):
+            tensors = {k: v.to(dev, non_blocking=True)
+                       for k, v in pinned.items()}
+            event = torch.cuda.Event()
+            event.record(copy_stream)
+        in_flight.append((event, pinned))
+        return host, tensors, event
+
+    try:
+        done = False
+        while True:
+            while not done and len(staged) < depth:
+                try:
+                    item = ready.get(block=not staged)
+                except queue.Empty:
+                    break
+                if item is sentinel:
+                    done = True
+                else:
+                    staged.append(stage(item))
+            if not staged:
+                break
+            host, tensors, event = staged.popleft()
+            if event is not None:
+                current = torch.cuda.current_stream(dev)
+                current.wait_event(event)
+                for t in tensors.values():
+                    t.record_stream(current)
+            while in_flight and in_flight[0][0].query():
+                in_flight.popleft()
+            yield host, tensors
+        if errors:
+            raise errors[0]
+    finally:
+        stop.set()
+        for event, _ in in_flight:
+            event.synchronize()
+        in_flight.clear()
+        thread.join(timeout=10)

@@ -29,9 +29,14 @@ def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
                            q_vocab: int = 40, n_answers: int = 12,
                            seed: int = 1000, n_classes: int = 0,
                            class_encoding: str = "scalar",
-                           emb_dim: int = 300, max_qlen: int = 16
+                           emb_dim: int = 300, max_qlen: int = 16,
+                           with_test: bool = False
                            ) -> Dict[str, GraphVQADataset]:
-    """Splits "train" (75% of the questions), "val" and "trainval".
+    """Splits "train" (75% of the questions), "val" and "trainval", and
+    with ``with_test`` a "test" split: n_questions // 4 unannotated
+    questions over the first max(2, n_images // 4) images, with a store
+    of its own (as the test2015 features are), drawn after the other
+    splits so that their draws are unchanged.
 
     feat_dim is the region feature width without the 4 box channels;
     n_answers the answer vocabulary (the datasets' n_answers is one more,
@@ -111,6 +116,20 @@ def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
     splits = {"train": make_rows(n_train, 0),
               "val": make_rows(n_questions - n_train, 10_000)}
     splits["trainval"] = splits["train"] + splits["val"]
+    stores = dict.fromkeys(splits, store)
+    if with_test:
+        tids = ids[:max(2, n_images // 4)]
+        rows = make_rows(n_questions // 4, 20_000)
+        for r in rows:
+            r["image_id"] = tids[int(rng.integers(0, len(tids)))]
+            del r["answers"], r["answers_w_scores"], r["answer"]
+        splits["test"] = rows
+        test_order = sorted(tids)
+        stores["test"] = FeatureStore(
+            np.stack([feats[i] for i in test_order]),
+            np.stack([boxes[i] for i in test_order]),
+            {iid: row for row, iid in enumerate(test_order)})
     return {name: GraphVQADataset.from_rows(
-        store, rows, q_itow, q_wtoi, a_itow, a_wtoi, emb_dim=emb_dim,
-        max_qlen=max_qlen) for name, rows in splits.items()}
+        stores[name], rows, q_itow, q_wtoi, a_itow, a_wtoi,
+        emb_dim=emb_dim, max_qlen=max_qlen)
+        for name, rows in splits.items()}

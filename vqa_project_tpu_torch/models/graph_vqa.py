@@ -186,7 +186,8 @@ class GraphVQAModel(nn.Module):
     """Full conditioned-graph VQA forward pass.
 
     ``forward(question (B, T) int, image (B, K, feat_dim) float32 with
-    the xyxy box in the last 4 channels, qlen (B,) int)`` returns
+    the xyxy box in the last 4 channels, or a (features (B, K,
+    feat_dim - 4), boxes (B, K, 4) float32) pair, qlen (B,) int)`` returns
     (logits (B, out_dim) f32, adjacency (B, K, K) f32, h_max_indices
     (B, hid_dim) int64). Weights are made from ``seed`` with torch's
     default initializers; ``load_state_dict`` replaces them.
@@ -241,8 +242,17 @@ class GraphVQAModel(nn.Module):
 
     def _forward(self, question, image, qlen, rate, generator):
         cfg, cdt = self.cfg, self.compute_dtype
-        pseudo = polar_pseudo_coords(bbox_centres(image.float()))
-        nodes = dropout(image.to(cdt), rate, generator)
+        if isinstance(image, (tuple, list)):
+            # the device cache's (features, boxes) pair: features in the
+            # table's dtype, boxes in f32 for the pseudo-coordinates; the
+            # node tensor is the same as from the concatenated image
+            feats, boxes = image
+            pseudo = polar_pseudo_coords(bbox_centres(boxes.float()))
+            nodes = torch.cat([feats.to(cdt), boxes.to(cdt)], dim=-1)
+        else:
+            pseudo = polar_pseudo_coords(bbox_centres(image.float()))
+            nodes = image.to(cdt)
+        nodes = dropout(nodes, rate, generator)
 
         emb = F.embedding(question.long(), self.wembed.weight)
         g = self.q_gru
@@ -255,7 +265,7 @@ class GraphVQAModel(nn.Module):
         seeds = None
         if rate > 0:
             seeds = torch.randint(0, 2 ** 31 - 1, (question.shape[0],),
-                                  generator=generator, device=image.device,
+                                  generator=generator, device=nodes.device,
                                   dtype=torch.int32)
         hg1 = self.graph_convolution_1(nodes, alpha, pseudo,
                                        dropout_rate=rate, seeds=seeds)

@@ -28,13 +28,14 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("edge_aggregate", "edge_aggregate_bwd", "gru_scan",
-           "gru_scan_bwd")
+KERNELS = ("edge_aggregate", "edge_aggregate_bwd", "gather_rows",
+           "gru_scan", "gru_scan_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each library's entry points (all return cudaError_t,
 # except edge_aggregate_bwd_tiles, a count)
 _SIGNATURES = {
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "edge_aggregate_bwd": {
         "edge_aggregate_bwd_tiles": [_I],
         "edge_aggregate_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
+    },
+    "gather_rows": {
+        "gather_rows_packed": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+        "gather_rows_blocked": [_P, _P, _P, _L, _I, _L, _I, _P],
     },
     "gru_scan": {
         "gru_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

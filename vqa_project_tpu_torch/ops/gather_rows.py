@@ -1,0 +1,149 @@
+"""Row gathers from the device feature cache as CUDA kernels.
+
+Counterpart of ``vqa_project_tpu/ops/pallas/gather_rows.py``. On CUDA
+tensors:
+
+- ``gather_rows_packed`` launches kernel F of ``csrc/gather_rows.cu``
+  (the TPU's ring-buffered DMA gather, ``gather_rows_dma``): all B rows
+  of an (N, K, F) table in one launch, and for an int8 table the per-box
+  dequantization ``(float(q) * scales[row, k])`` rounded once to
+  ``out_dtype``;
+- ``gather_rows_blocked`` launches kernel G (the TPU's blocked gather):
+  one block per row, any row shape; the cache uses it for the (N, K, 4)
+  boxes.
+
+Rows are clamped to [0, N), as ``jnp.take(mode="clip")`` does. On CPU
+tensors each takes ``gather_rows_reference``: ``index_select`` of the
+clamped rows plus the same dequantization. There is no VJP: the table is
+data, not a parameter.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vqa_project_tpu_torch.ops import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def gather_rows_reference(table: torch.Tensor, rows: torch.Tensor,
+                          scales: Optional[torch.Tensor] = None,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """table[clamp(rows, 0, N-1)]; with ``scales`` (N, K) the int8 rows
+    are dequantized as ``(q.float() * scale).to(out_dtype)`` (default
+    float32)."""
+    r = rows.clamp(0, table.shape[0] - 1)
+    out = table.index_select(0, r)
+    if scales is None:
+        return out
+    sc = scales.index_select(0, r)
+    return (out.float() * sc[:, :, None]).to(out_dtype or torch.float32)
+
+
+def _check_rows(table: torch.Tensor, rows: torch.Tensor) -> None:
+    if rows.dim() != 1 or rows.dtype != torch.int32:
+        raise TypeError(f"rows must be a (B,) int32 tensor, got "
+                        f"{rows.dtype} {tuple(rows.shape)}")
+    if rows.device != table.device:
+        raise ValueError(f"rows on {rows.device}, table on {table.device}")
+    if table.dim() < 1 or table.shape[0] == 0:
+        raise ValueError("the table has no rows")
+
+
+def gather_rows_packed(table: torch.Tensor, rows: torch.Tensor,
+                       scales: Optional[torch.Tensor] = None,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """(B, K, F) rows of an (N, K, F) table in one launch (kernel F).
+
+    table: float32, bfloat16 or int8; rows (B,) int32, clamped. With
+    ``scales`` (N, K) float32 the table must be int8 and the rows come
+    out dequantized in ``out_dtype`` (float32 or bfloat16); without, they
+    come out in the table's dtype.
+    """
+    _check_rows(table, rows)
+    if table.dim() != 3:
+        raise ValueError(f"table must be (N, K, F), got {tuple(table.shape)}")
+    n, k, f = table.shape
+    if scales is not None:
+        if table.dtype != torch.int8:
+            raise TypeError("scales need an int8 table")
+        if (scales.dtype != torch.float32 or tuple(scales.shape) != (n, k)
+                or scales.device != table.device):
+            raise ValueError(f"scales must be float32 {(n, k)} on "
+                             f"{table.device}")
+        out_dtype = out_dtype or torch.float32
+        if out_dtype not in _OUT_CODE:
+            raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                            f"{out_dtype}")
+    elif out_dtype not in (None, table.dtype):
+        raise TypeError("out_dtype differs from the table's dtype only "
+                        "when dequantizing an int8 table with scales")
+    if table.device.type == "cpu":
+        return gather_rows_reference(table, rows, scales, out_dtype)
+    if table.dtype not in _DTYPE_CODE:
+        raise TypeError(f"table must be float32, bfloat16 or int8, got "
+                        f"{table.dtype}")
+    if not (table.is_contiguous() and rows.is_contiguous()
+            and (scales is None or scales.is_contiguous())):
+        raise ValueError("table, rows and scales must be contiguous")
+    if scales is None and ((k * f * table.element_size()) % 16
+                           or table.data_ptr() % 16):
+        raise ValueError("kernel F copies 16-byte vectors: the row bytes "
+                         "and the table's address must be multiples of 16 "
+                         "(gather_rows_blocked takes any row)")
+    b = rows.shape[0]
+    out = torch.empty((b, k, f), dtype=out_dtype or table.dtype,
+                      device=table.device)
+    if b == 0:
+        return out
+    lib = _build.load("gather_rows")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = lib.gather_rows_packed(
+        table.data_ptr(), None if scales is None else scales.data_ptr(),
+        rows.data_ptr(), out.data_ptr(), n, b, k, f,
+        _DTYPE_CODE[table.dtype],
+        _OUT_CODE.get(out.dtype, 0) if scales is not None else 0, stream)
+    _build.check(rc, "gather_rows_packed")
+    gather_rows_packed.launches += 1
+    return out
+
+
+gather_rows_packed.launches = 0
+
+
+def gather_rows_blocked(table: torch.Tensor, rows: torch.Tensor
+                        ) -> torch.Tensor:
+    """table[clamp(rows)] for a table of any row shape and dtype, one
+    block per row (kernel G)."""
+    _check_rows(table, rows)
+    if table.device.type == "cpu":
+        return gather_rows_reference(table, rows)
+    if not (table.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("table and rows must be contiguous")
+    b = rows.shape[0]
+    out = torch.empty((b, *table.shape[1:]), dtype=table.dtype,
+                      device=table.device)
+    row_bytes = table[0].numel() * table.element_size()
+    if b == 0 or row_bytes == 0:
+        return out
+    # the widest element that divides the row and both addresses
+    width = next(w for w in (16, 8, 4, 2, 1)
+                 if row_bytes % w == 0 and table.data_ptr() % w == 0
+                 and out.data_ptr() % w == 0)
+    lib = _build.load("gather_rows")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = lib.gather_rows_blocked(table.data_ptr(), rows.data_ptr(),
+                                 out.data_ptr(), table.shape[0], b,
+                                 row_bytes, width, stream)
+    _build.check(rc, "gather_rows_blocked")
+    gather_rows_blocked.launches += 1
+    return out
+
+
+gather_rows_blocked.launches = 0

@@ -1,32 +1,54 @@
-"""The training loop.
+"""The training loop, the device feature cache and evaluation.
 
-Counterpart of ``vqa_project_tpu/train/loop.py::fit`` in host mode (what
-``run.py --train`` / ``--trainval`` call): shuffled fixed-shape batches,
-one ``train_step`` each, the loss and accuracy logged per window of
-``log_interval`` steps (one device-to-host fetch per window), the epoch
-accuracy, and every ``eval_interval`` steps a 10-batch mini-validation
-plus a checkpoint. (Resuming from a checkpoint, and evaluation to
-``result.json``, come with the CLI.)
+Counterpart of ``vqa_project_tpu/train/loop.py`` on one card:
+
+- ``make_feature_cache`` puts the dataset's feature table on the device
+  when it fits ``device_cache_bytes`` (as a (features, boxes) pair in
+  the cache dtype, or int8 with per-box scales), else returns None:
+  host mode, dense batches from the host;
+- ``fit`` (what ``run.py --train`` / ``--trainval`` call): shuffled
+  fixed-shape batches prefetched to the device, one ``train_step`` each,
+  the loss and accuracy logged per window of ``log_interval`` steps (one
+  device-to-host fetch per window), the epoch accuracy, and every
+  ``eval_interval`` steps a 10-batch mini-validation plus a checkpoint;
+- ``evaluate`` (``--eval`` / ``--test``): the accuracy over a split and
+  the EvalAI ``result.json`` ([{question_id, answer}]), through a
+  resident epoch with a cache, else streaming.
+
+(Resuming from a checkpoint comes with the CLI.)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import json
 import os
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vqa_project_tpu_torch.config import (ModelConfig, TrainConfig,
-                                          resolve_device)
+                                          resolve_device, torch_dtype)
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
-from vqa_project_tpu_torch.data.loader import Batcher
+from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
 from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
+from vqa_project_tpu_torch.ops.quant import quantize_feature_table
 from vqa_project_tpu_torch.train.metrics import MetricLogger
 from vqa_project_tpu_torch.train.state import (make_optimizer,
                                                save_checkpoint)
-from vqa_project_tpu_torch.train.steps import eval_step, train_step
+from vqa_project_tpu_torch.train.steps import (QuantizedFeatureCache,
+                                               eval_epoch, eval_step,
+                                               make_image_fn,
+                                               stack_epoch_batches,
+                                               train_step)
+
+# images per host chunk while a cache is uploaded (~300 MB of f32 at the
+# VQA v2 widths)
+_UPLOAD_ROWS = 1024
+# sentinel telling "not passed" (build a cache) from None (host mode)
+_UNSET = object()
 
 
 def build_model(model_cfg: ModelConfig, ds: GraphVQADataset, *,
@@ -44,49 +66,145 @@ def build_model(model_cfg: ModelConfig, ds: GraphVQADataset, *,
     return model
 
 
+def _upload(table: np.ndarray, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """``table`` on ``device`` in ``dtype``, sent in f32 chunks and cast
+    there, so no full-size host copy in the cache dtype is made."""
+    out = torch.empty(table.shape, dtype=dtype, device=device)
+    for i in range(0, table.shape[0], _UPLOAD_ROWS):
+        chunk = np.ascontiguousarray(table[i:i + _UPLOAD_ROWS], np.float32)
+        out[i:i + len(chunk)].copy_(torch.from_numpy(chunk).to(device))
+    return out
+
+
+def _make_int8_cache(store, train_cfg: TrainConfig, compute_dtype: str,
+                     device: torch.device):
+    """The int8 row-quantized cache, or None when even int8 exceeds the
+    budget. Quantized on the host one chunk at a time."""
+    n, k, f = store.features.shape
+    nbytes = n * k * f + n * k * 4 + store.boxes.nbytes
+    if nbytes > train_cfg.device_cache_bytes:
+        print(f"int8 feature table {nbytes / 1e9:.1f} GB still exceeds "
+              "the device cache budget; using the host mode at the "
+              "compute dtype", flush=True)
+        return None
+    q = torch.empty((n, k, f), dtype=torch.int8, device=device)
+    scales = torch.empty((n, k), dtype=torch.float32, device=device)
+    for i in range(0, n, _UPLOAD_ROWS):
+        qc, sc = quantize_feature_table(store.features[i:i + _UPLOAD_ROWS])
+        q[i:i + len(qc)].copy_(torch.from_numpy(qc).to(device))
+        scales[i:i + len(sc)].copy_(torch.from_numpy(sc).to(device))
+    boxes = _upload(store.boxes, torch.float32, device)
+    return QuantizedFeatureCache(features=q, scales=scales, boxes=boxes,
+                                 out_dtype=compute_dtype or "float32")
+
+
+def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
+                       compute_dtype: Optional[str] = None, device="cuda"):
+    """The dataset's feature table on ``device``, or None (host mode).
+
+    Mode selection by ``train_cfg.device_cache_bytes``: a table that fits
+    in the cache dtype (``feature_cache_dtype``; "auto" means the compute
+    dtype) becomes a (features, boxes f32) pair; "int8" becomes a
+    ``QuantizedFeatureCache``, or the compute dtype when even int8 does
+    not fit; a table over the budget gives None.
+    """
+    dev = resolve_device(device)
+    store = ds.store
+    cache_dtype = train_cfg.feature_cache_dtype
+    if cache_dtype == "auto":
+        cache_dtype = compute_dtype or "float32"
+    if cache_dtype == "int8":
+        qc = _make_int8_cache(store, train_cfg, compute_dtype, dev)
+        if qc is not None:
+            return qc
+        cache_dtype = compute_dtype or "float32"
+    dtype = torch_dtype(cache_dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = store.features.size * itemsize + store.boxes.nbytes
+    if nbytes > train_cfg.device_cache_bytes:
+        print(f"feature table {nbytes / 1e9:.1f} GB exceeds device cache "
+              "budget; streaming features from host", flush=True)
+        return None
+    return (_upload(store.features, dtype, dev),
+            _upload(store.boxes, torch.float32, dev))
+
+
 def _batches_forever(batcher: Batcher):
     while True:
         yield from batcher
 
 
 def mini_validation(model, val_iter, n_batches: int = 10) -> float:
-    """Accuracy (%) over ``n_batches`` random validation batches; the
-    denominator counts only unpadded rows."""
+    """Accuracy (%) over ``n_batches`` random host-mode validation
+    batches, streamed; the denominator counts only unpadded rows."""
     correct, n_valid = 0.0, 0.0
     for _ in range(n_batches):
         batch = next(val_iter)
         n_valid += float(batch["mask"].sum())
-        _, score = eval_step(model, batch)
+        _, score, _ = eval_step(model, batch)
         correct += float(score)
     return correct / max(n_valid, 1.0) * 100.0
+
+
+def mini_validation_resident(model, val_iter, image_fn, device,
+                             n_batches: int = 10) -> float:
+    """``mini_validation`` with a device feature cache: the 10 index
+    batches go to the device in one copy and the summed score comes back
+    in one fetch."""
+    hosts = [next(val_iter) for _ in range(n_batches)]
+    n_valid = float(sum(h["mask"].sum() for h in hosts))
+    epoch, _ = stack_epoch_batches(hosts, device)
+    total, _ = eval_epoch(model, epoch, image_fn)
+    return float(total) / max(n_valid, 1.0) * 100.0
 
 
 def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         train_ds: GraphVQADataset,
         val_ds: Optional[GraphVQADataset] = None, *, device="cuda",
-        jsonl_path: Optional[str] = None
+        jsonl_path: Optional[str] = None, cache=_UNSET
         ) -> Tuple[GraphVQAModel, torch.optim.Optimizer, float]:
     """Train for ``train_cfg.epochs`` epochs; returns (model, optimizer,
-    accuracy % of the last epoch). Batches are shuffled per epoch from
-    ``train_cfg.seed`` and the last partial batch is dropped; dropout
-    draws from one generator on the device, seeded likewise. With
-    ``val_ds``, every ``eval_interval`` steps runs a mini-validation and
-    writes ``{save_dir}/{name}_{epoch+1}.ckpt``; ``jsonl_path`` receives
-    one record per logged window."""
+    accuracy % of the last epoch).
+
+    ``cache`` is a prebuilt device feature cache, None for host mode, or
+    (by default) built by ``make_feature_cache``. Batches are shuffled
+    per epoch from ``train_cfg.seed`` and the last partial batch is
+    dropped: index batches with a cache, dense ones without, prefetched
+    ``train_cfg.prefetch`` deep. Dropout draws from one generator on the
+    device, seeded likewise. With ``val_ds``, every ``eval_interval``
+    steps runs a mini-validation (resident with a cache) and writes
+    ``{save_dir}/{name}_{epoch+1}.ckpt``; ``jsonl_path`` receives one
+    record per logged window."""
     dev = resolve_device(device)
     bs = train_cfg.batch_size
     model = build_model(model_cfg, train_ds, device=dev,
                         seed=train_cfg.seed)
+    if cache is _UNSET:
+        cache = make_feature_cache(train_ds, train_cfg,
+                                   model_cfg.compute_dtype, dev)
+    image_fn = make_image_fn(cache)
     loader = Batcher(train_ds, bs, shuffle=True, seed=train_cfg.seed,
-                     drop_last=True)
+                     drop_last=True, materialize=cache is None)
     steps_per_epoch = len(loader)
     optimizer, scheduler = make_optimizer(model, train_cfg, steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(train_cfg.seed)
     step = 0
-    val_iter = None
+    val_iter = val_fn = None
     if val_ds is not None:
-        val_iter = _batches_forever(Batcher(val_ds, bs, shuffle=True,
-                                            seed=train_cfg.seed + 1))
+        # the train split's cache serves val when both read one store
+        val_cache = (cache if val_ds.store is train_ds.store
+                     else make_feature_cache(val_ds, train_cfg,
+                                             model_cfg.compute_dtype, dev))
+        val_iter = _batches_forever(Batcher(
+            val_ds, bs, shuffle=True, seed=train_cfg.seed + 1,
+            materialize=val_cache is None))
+        if val_cache is None:
+            val_fn = lambda: mini_validation(model, val_iter)  # noqa: E731
+        else:
+            val_image_fn = make_image_fn(val_cache)
+            val_fn = lambda: mini_validation_resident(  # noqa: E731
+                model, val_iter, val_image_fn, dev)
     logger = MetricLogger(train_cfg.log_interval, jsonl_path, batch_size=bs)
 
     def checkpoint(ep: int, step_in_epoch: int) -> None:
@@ -114,16 +232,17 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
                               lr=scheduler.get_last_lr()[0])
             window.clear()
 
-        for batch in loader:
+        for _, batch in prefetch_to_device(iter(loader), dev,
+                                           train_cfg.prefetch):
             window.append(train_step(model, optimizer, scheduler, batch,
-                                     generator))
+                                     generator, image_fn))
             step += 1
             n_steps += 1
             if len(window) >= logger.log_interval:
                 flush_window()
-            if (val_iter is not None and train_cfg.eval_interval
+            if (val_fn is not None and train_cfg.eval_interval
                     and n_steps % train_cfg.eval_interval == 0):
-                acc = mini_validation(model, val_iter)
+                acc = val_fn()
                 print(f"Validation accuracy: {acc:.2f} %", flush=True)
                 checkpoint(ep, n_steps % steps_per_epoch)
         if window:
@@ -134,3 +253,72 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
               flush=True)
     logger.close()
     return model, optimizer, epoch_acc
+
+
+def _emit(ds: GraphVQADataset, host_batch: Dict[str, np.ndarray],
+          preds: np.ndarray, result: List[dict]) -> None:
+    qids = host_batch["qid"]
+    for i in np.flatnonzero(host_batch["mask"] > 0):
+        result.append({"question_id": int(qids[i]),
+                       "answer": ds.a_itow[int(preds[i])]})
+
+
+def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
+             result_path: Optional[str] = "result.json",
+             collect_adjacency: bool = False,
+             max_batches: Optional[int] = None, cache=_UNSET,
+             train_cfg: Optional[TrainConfig] = None, device="cuda"
+             ) -> Tuple[float, List[dict], Optional[Dict[int, np.ndarray]]]:
+    """Sequential evaluation: (accuracy %, the EvalAI result list
+    [{question_id, answer}], adjacencies).
+
+    With a device feature cache (``cache``, or built from ``train_cfg``'s
+    cache fields) and no adjacency, the whole split runs as one resident
+    epoch (one copy in, one fetch of the score and the predictions out);
+    host mode or ``collect_adjacency`` streams batch by batch, and then
+    ``adjacencies`` is a {dataset row: (K, K) array} dict, else None.
+    ``max_batches`` stops early. The accuracy is over the valid rows
+    seen; ``result_path`` (unless None) receives the result list.
+    """
+    dev = resolve_device(device)
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"the model is on {next(model.parameters()).device}"
+                         f", evaluate was asked for {dev}")
+    if cache is _UNSET:
+        cache = make_feature_cache(ds, train_cfg or TrainConfig(
+            batch_size=batch_size), model.cfg.compute_dtype, dev)
+    image_fn = make_image_fn(cache)
+    batches = iter(Batcher(ds, batch_size, shuffle=False,
+                           materialize=cache is None))
+    if max_batches is not None:
+        batches = itertools.islice(batches, max_batches)
+
+    result: List[dict] = []
+    adjacencies = {} if collect_adjacency else None
+    correct = n_valid = 0.0
+    if cache is not None and not collect_adjacency:
+        host_batches = list(batches)
+        if host_batches:
+            epoch, _ = stack_epoch_batches(host_batches, dev)
+            total, preds_all = eval_epoch(model, epoch, image_fn)
+            correct = float(total)
+            preds_all = preds_all.cpu().numpy()
+            for host, preds in zip(host_batches, preds_all):
+                n_valid += float(host["mask"].sum())
+                _emit(ds, host, preds, result)
+    else:
+        for host, batch in prefetch_to_device(batches, dev, 2):
+            preds, score, adjacency = eval_step(model, batch, image_fn)
+            correct += float(score)
+            n_valid += float(host["mask"].sum())
+            preds = preds.cpu().numpy()
+            _emit(ds, host, preds, result)
+            if collect_adjacency:
+                adj = adjacency.float().cpu().numpy()
+                for i in np.flatnonzero(host["mask"] > 0):
+                    adjacencies[int(host["index"][i])] = adj[i]
+    acc = correct / max(n_valid, 1.0) * 100.0
+    if result_path:
+        with open(result_path, "w") as f:
+            json.dump(result, f)
+    return acc, result, adjacencies

@@ -1,23 +1,45 @@
-"""Train and eval steps.
+"""Train and eval steps, in host mode and with a device feature cache.
 
-Counterpart of ``vqa_project_tpu/train/steps.py`` in host mode: batches
-carry dense images, answers and votes (``data.loader.Batcher``), and one
-step is forward, masked loss, backward, Adam and the score. The sparse
-label helpers (``densify_labels``, ``sparse_vqa_score``) are the JAX
-package's device-side ones, for batches that carry only sparse entries.
+Counterpart of ``vqa_project_tpu/train/steps.py``. Ingest modes:
+
+- device-cache mode: region features and boxes live on the device
+  (a ``(features, boxes)`` pair or a ``QuantizedFeatureCache``); a batch
+  carries token ids, lengths, image rows and SPARSE answer/vote entries
+  (``data.loader.pack_index_batch``), and the step gathers its images
+  with kernels F and G (``make_image_fn``) and densifies its labels on
+  the device;
+- host mode: the batch carries dense images, answers and votes.
+
+One training step is forward, masked loss, backward, Adam and the score;
+``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
+loop.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from vqa_project_tpu_torch.config import torch_dtype
+from vqa_project_tpu_torch.data.loader import DENSE_KEYS, pack_index_batch
+from vqa_project_tpu_torch.ops.gather_rows import (gather_rows_blocked,
+                                                   gather_rows_packed)
 from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
                                               vqa_score)
 
-_KEYS = ("question", "image", "qlen", "answers", "votes", "mask")
+
+class QuantizedFeatureCache(NamedTuple):
+    """int8 device feature table with per-box dequantization scales
+    (``ops.quant.quantize_feature_table``): a quarter of the f32 table's
+    memory, half of bf16's. Kernel F dequantizes the gathered rows to
+    ``out_dtype`` (the compute dtype); the model is unchanged."""
+
+    features: torch.Tensor   # (N, K, F) int8
+    scales: torch.Tensor     # (N, K) float32
+    boxes: torch.Tensor      # (N, K, 4) float32
+    out_dtype: str           # dequantization target
 
 
 def densify_labels(idx: torch.Tensor, val: torch.Tensor,
@@ -46,46 +68,183 @@ def sparse_vqa_score(logits: torch.Tensor, vote_idx: torch.Tensor,
     return score.sum()
 
 
-def to_device(batch: Dict[str, np.ndarray],
+def make_image_fn(feature_cache) -> Optional[Callable]:
+    """``rows (B,) int32 -> (features (B, K, F), boxes (B, K, 4) f32)``
+    for a device feature cache, or None in host mode (no cache).
+
+    The features come from kernel F (dequantized there for an int8
+    cache), the boxes from kernel G; a feature table whose rows are not
+    16-byte vectors goes through G as well."""
+    if feature_cache is None:
+        return None
+    if isinstance(feature_cache, QuantizedFeatureCache):
+        features, scales, boxes, out = feature_cache
+        out_dtype = torch_dtype(out)
+
+        def image_fn(rows):
+            return (gather_rows_packed(features, rows, scales, out_dtype),
+                    gather_rows_blocked(boxes, rows))
+
+        return image_fn
+    features, boxes = feature_cache
+    row_bytes = features[0].numel() * features.element_size()
+    gather = (gather_rows_packed
+              if row_bytes % 16 == 0 and features.data_ptr() % 16 == 0
+              else gather_rows_blocked)
+
+    def image_fn(rows):
+        return gather(features, rows), gather_rows_blocked(boxes, rows)
+
+    return image_fn
+
+
+def unpack_index_batch(batch: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``data.loader.pack_index_batch``, on the device; every
+    field contiguous."""
+    ints, floats = batch["ints"], batch["floats"]
+    s = (floats.shape[1] - 1) // 2
+    t = ints.shape[1] - 2 - 2 * s
+    fields = {
+        "question": ints[:, :t],
+        "qlen": ints[:, t],
+        "image_row": ints[:, t + 1],
+        "ans_idx": ints[:, t + 2:t + 2 + s],
+        "vote_idx": ints[:, t + 2 + s:],
+        "ans_score": floats[:, :s],
+        "vote_val": floats[:, s:2 * s],
+        "mask": floats[:, 2 * s],
+    }
+    return {k: v.contiguous() for k, v in fields.items()}
+
+
+def to_device(batch: Dict[str, object],
               device: torch.device) -> Dict[str, torch.Tensor]:
-    """The fields a step reads, as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
-            for k in _KEYS}
+    """The fields a step reads, as tensors on ``device``: an index
+    batch's packed pair (``ints``/``floats``; a host index batch is
+    packed first) or a host batch's dense fields."""
+    if "image_row" in batch:
+        batch = pack_index_batch(batch)
+    keys = ("ints", "floats") if "ints" in batch else DENSE_KEYS
+    out = {}
+    for k in keys:
+        v = batch[k]
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = v.to(device)
+    return out
 
 
-def train_step(model, optimizer, scheduler, batch: Dict[str, np.ndarray],
-               generator: Optional[torch.Generator] = None
+def _assemble_inputs(batch: Dict[str, torch.Tensor],
+                     image_fn: Optional[Callable], n_answers: int):
+    """(question, image, qlen, mask, answers_fn, score_fn) of a device
+    batch: host mode reads the dense fields, cache mode gathers the
+    images and densifies the labels on the device."""
+    if "ints" in batch:
+        batch = {**batch, **unpack_index_batch(batch)}
+    if image_fn is None:
+        if "image" not in batch:
+            raise ValueError("an index batch needs a device feature cache")
+        return (batch["question"], batch["image"], batch["qlen"],
+                batch["mask"], lambda: batch["answers"],
+                lambda logits, mask=None: vqa_score(logits, batch["votes"],
+                                                    mask))
+    image = image_fn(batch["image_row"])
+    return (batch["question"], image, batch["qlen"], batch["mask"],
+            lambda: densify_labels(batch["ans_idx"], batch["ans_score"],
+                                   n_answers),
+            lambda logits, mask=None: sparse_vqa_score(
+                logits, batch["vote_idx"], batch["vote_val"], mask))
+
+
+def train_step(model, optimizer, scheduler, batch: Dict[str, object],
+               generator: Optional[torch.Generator] = None,
+               image_fn: Optional[Callable] = None
                ) -> Dict[str, torch.Tensor]:
     """One step: train-mode forward (dropout from ``generator``), the
     masked soft-margin loss, backward, the optimizer and the scheduler.
 
-    Returns 0-d tensors on the model's device (reading them waits for
-    the step): loss, score (the summed VQA score of the train-mode
-    logits, padded rows 0) and valid (the count of unpadded rows).
+    ``batch`` is a host batch (numpy or tensors) or, with ``image_fn``
+    from ``make_image_fn``, an index batch (packed or not). Returns 0-d
+    tensors on the model's device (reading them waits for the step):
+    loss, score (the summed VQA score of the train-mode logits, padded
+    rows 0) and valid (the count of unpadded rows).
     """
     dev = next(model.parameters()).device
-    b = to_device(batch, dev)
-    logits, _, _ = model(b["question"], b["image"], b["qlen"], train=True,
+    question, image, qlen, mask, answers_fn, score_fn = _assemble_inputs(
+        to_device(batch, dev), image_fn, model.cfg.out_dim)
+    logits, _, _ = model(question, image, qlen, train=True,
                          generator=generator)
-    loss = multilabel_soft_margin_loss(logits, b["answers"], b["mask"])
+    loss = multilabel_soft_margin_loss(logits, answers_fn(), mask)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
     with torch.no_grad():
-        score = vqa_score(logits, b["votes"], b["mask"])
-    return {"loss": loss.detach(), "score": score, "valid": b["mask"].sum()}
+        score = score_fn(logits, mask)
+    return {"loss": loss.detach(), "score": score, "valid": mask.sum()}
 
 
-def eval_step(model, batch: Dict[str, np.ndarray]
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval forward: (preds (B,) int32, summed VQA score). The last
-    column, the answer vocabulary's pad slot, never wins: it has no word
-    and is never a label."""
-    dev = next(model.parameters()).device
-    b = to_device(batch, dev)
-    logits, _, _ = model(b["question"], b["image"], b["qlen"])
+def _eval_forward(model, b, image_fn):
+    question, image, qlen, mask, _, score_fn = _assemble_inputs(
+        b, image_fn, model.cfg.out_dim)
+    logits, adjacency, _ = model(question, image, qlen)
+    # the last column, the answer vocabulary's pad slot, never wins: it
+    # has no word and is never a label
     logits[:, -1] = float("-inf")
     preds = torch.argmax(logits, dim=-1).to(torch.int32)
-    return preds, vqa_score(logits, b["votes"], b["mask"])
+    return preds, score_fn(logits, mask), adjacency
+
+
+def eval_step(model, batch: Dict[str, object],
+              image_fn: Optional[Callable] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Eval forward of a host batch, or of an index batch with
+    ``image_fn``: (preds (B,) int32, summed VQA score, adjacency
+    (B, K, K) f32), on the model's device."""
+    dev = next(model.parameters()).device
+    return _eval_forward(model, to_device(batch, dev), image_fn)
+
+
+def stack_epoch_batches(batches: Sequence[Dict[str, np.ndarray]],
+                        device) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Index batches as one resident epoch: each is packed
+    (``pack_index_batch``), the (S, B, ...) stack of ints and float bits
+    goes to ``device`` in ONE copy, and the result is the pair of views
+    ``{"ints": (S, B, Wi) int32, "floats": (S, B, Wf) float32}`` with
+    S = the number of batches."""
+    if not batches:
+        raise ValueError("an empty epoch")
+    if "image_row" not in batches[0]:
+        raise ValueError("a resident epoch needs index batches "
+                         "(a device feature cache)")
+    packed = [pack_index_batch(b) for b in batches]
+    ints = np.stack([p["ints"] for p in packed])
+    floats = np.ascontiguousarray(np.stack([p["floats"] for p in packed]))
+    buf = torch.from_numpy(np.concatenate(
+        [ints, floats.view(np.int32)], axis=-1)).to(device)
+    wi = ints.shape[-1]
+    return ({"ints": buf[..., :wi],
+             "floats": buf[..., wi:].view(torch.float32)}, len(batches))
+
+
+def eval_epoch(model, epoch: Dict[str, torch.Tensor],
+               image_fn: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval forward over every batch of a resident epoch
+    (``stack_epoch_batches``): (summed VQA score, 0-d f32; preds (S, B)
+    int32), both on the device. The loop over steps fetches nothing; the
+    caller fetches the two results once."""
+    if image_fn is None:
+        raise ValueError("a resident eval epoch needs a device feature "
+                         "cache")
+    ints, floats = epoch["ints"], epoch["floats"]
+    s_steps, b = ints.shape[:2]
+    total = torch.zeros((), dtype=torch.float32, device=ints.device)
+    preds = torch.empty((s_steps, b), dtype=torch.int32, device=ints.device)
+    for s in range(s_steps):
+        p, score, _ = _eval_forward(
+            model, {"ints": ints[s], "floats": floats[s]}, image_fn)
+        preds[s] = p
+        total += score
+    return total, preds
