@@ -38,13 +38,26 @@ Phases, in order; the first failure exits non-zero:
     cache (resident) and through host mode (streaming) give the same
     result list; the unannotated test split; collect_adjacency; an int8
     cache;
-6. timing, in three parts: after phase 5 the serving kernels and the
+13. the merged block's kernels against their plain versions: the bare
+    GEMM against torch.mm at the block's six products (NN, NT, TN; f32
+    and bf16) and its epilogues; H and I at the VQA widths (B=64) and
+    the medical K=51, m=19 (B=8), f32 and bf16, dropout 0.5, with H's
+    conv1 output equal to kernel C's bit for bit;
+14. training with the merged block, the main path: fit() as in phase 11
+    with ModelConfig(merged_block=True); per step H 1, I 1, A, C, D 0,
+    B 16, E 16 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
+    11's; the merged serving forward at B=16 launches H and not A and
+    picks the unmerged answer on >= 75% of rows;
+6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256, after phase 9 the training kernels and the
-   training step at B=64 and 256, after phase 12 the gather kernels at
-   B=64 and 256, the cache-mode training step beside host mode and
-   evaluate's throughput; each kernel beside its plain version, the
-   library call where one exists (CUDA events) and the least time the
-   card needs, and profiles of the forward and of both steps.
+   training step at B=64 and 256, after phase 14 the gather kernels at
+   B=64 and 256, the cache-mode training step beside host mode,
+   evaluate's throughput, then H, I and the hand GEMM at B=64 and 256,
+   the merged block beside the unmerged one and the merged training
+   step beside the unmerged one; each kernel's device time (launches
+   queued behind a sleep kernel) beside its plain version, the library
+   call where one exists and the least time the card needs, and
+   profiles of the forward and of the steps.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Without a CUDA device, or without the repository beside it, the script
@@ -53,6 +66,7 @@ fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import math
@@ -71,6 +85,7 @@ from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import (FeatureStore, generate_synthetic_vqa,
                                         pack_index_batch, tokenize)
 from vqa_project_tpu_torch.models import GraphVQAModel
+from vqa_project_tpu_torch.models.graph_vqa import GaussianGraphConv
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
@@ -82,6 +97,10 @@ from vqa_project_tpu_torch.ops.edge_aggregate import (
     fused_sel_aggregate_act, sel_aggregate_act_reference,
     sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
     sel_aggregate_act_vjp, sel_aggregate_act_vjp_reference)
+from vqa_project_tpu_torch.ops.graph_block import (
+    fused_graph_block, graph_block_bwd, graph_block_bwd_reference,
+    graph_block_fwd, graph_block_fwd_reference, tile_gemm,
+    tile_gemm_reference)
 from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
                                            gru_scan_sweep_reference,
                                            gru_wgrad_reference,
@@ -130,6 +149,10 @@ SOURCES = {
                            "vqa_project_tpu/ops/pallas/gather_rows.py:91"),
     "gather_rows_blocked": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
                             "vqa_project_tpu/ops/pallas/gather_rows.py:46"),
+    "graph_block_fwd": ("vqa_project_tpu_torch/csrc/graph_block.cu",
+                        "vqa_project_tpu/ops/pallas/graph_block.py:77"),
+    "graph_block_bwd": ("vqa_project_tpu_torch/csrc/graph_block_bwd.cu",
+                        "vqa_project_tpu/ops/pallas/graph_block.py:217"),
 }
 # each kernel's wrapper, which counts its launches
 WRAPPERS = {
@@ -141,14 +164,21 @@ WRAPPERS = {
     "gru_wgrad": gru_wgrad,                                    # E, dW/db
     "gather_rows_packed": gather_rows_packed,                  # F
     "gather_rows_blocked": gather_rows_blocked,                # G
+    "graph_block_fwd": graph_block_fwd,                        # H
+    "graph_block_bwd": graph_block_bwd,                        # I
 }
 # launches of one training step (host mode: F and G 0)
 TRAIN_STEP_LAUNCHES = {
     "edge_aggregate_fwd": 0, "gru_scan_fwd": 16, "edge_aggregate_fwd_res": 2,
     "edge_aggregate_bwd": 2, "gru_scan_bwd_step": 16, "gru_wgrad": 1,
-    "gather_rows_packed": 0, "gather_rows_blocked": 0}
+    "gather_rows_packed": 0, "gather_rows_blocked": 0,
+    "graph_block_fwd": 0, "graph_block_bwd": 0}
 CACHE_STEP_LAUNCHES = {**TRAIN_STEP_LAUNCHES, "gather_rows_packed": 1,
                        "gather_rows_blocked": 1}
+# the merged block (ModelConfig.merged_block) replaces C and D by H and I
+MERGED_STEP_LAUNCHES = {**CACHE_STEP_LAUNCHES, "edge_aggregate_fwd_res": 0,
+                        "edge_aggregate_bwd": 0, "graph_block_fwd": 1,
+                        "graph_block_bwd": 1}
 
 
 def phase(name: str) -> None:
@@ -717,14 +747,16 @@ def train_dataset(n_steps=20):
         max_qlen=FULL["max_qlen"], seed=SEED, with_test=True)
 
 
-def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10):
+def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
+            merged=False):
     """fit() at full VQA width, bf16, dropout 0.5, batch 64, for the
     n_steps batches of ds["train"], with one mini-validation at the end;
-    cache None is host mode. Checks the losses, the moved parameters and
-    the checkpoint, and the launches per step (the mini-validation's
-    forwards launch A twice, B 16 times, and with a cache F and G once,
-    per batch). Returns (model, per-step losses, launch counts)."""
-    mcfg = ModelConfig(**FULL)   # bf16 compute, dropout 0.5
+    cache None is host mode, merged the merged graph block. Checks the
+    losses, the moved parameters and the checkpoint, and the launches per
+    step (the mini-validation's forwards launch A twice, or H once with
+    the merged block, B 16 times, and with a cache F and G once, per
+    batch). Returns (model, per-step losses, launch counts)."""
+    mcfg = ModelConfig(**FULL, merged_block=merged)  # bf16, dropout 0.5
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(lr=1e-4, epochs=1, batch_size=TRAIN_B,
                            log_interval=1, eval_interval=n_steps,
@@ -757,13 +789,16 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10):
             f"parameters with a gradient that did not move: {stuck}")
     require(saved, "no checkpoint at the mini-validation")
     per_step = dict(counts)
-    per_step["edge_aggregate_fwd"] -= 2 * val_batches
+    if merged:
+        per_step["graph_block_fwd"] -= val_batches
+    else:
+        per_step["edge_aggregate_fwd"] -= 2 * val_batches
     per_step["gru_scan_fwd"] -= 16 * val_batches
     want = TRAIN_STEP_LAUNCHES
     if cache is not None:
         per_step["gather_rows_packed"] -= val_batches
         per_step["gather_rows_blocked"] -= val_batches
-        want = CACHE_STEP_LAUNCHES
+        want = MERGED_STEP_LAUNCHES if merged else CACHE_STEP_LAUNCHES
     per_step = {k: v / n_steps for k, v in per_step.items()}
     step_ms = [1e3 / r["steps_per_sec"] for r in recs[2:]]
     med = statistics.median(step_ms)
@@ -779,7 +814,8 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10):
           f"train step {per_step}", flush=True)
     require(per_step == want, f"launches per train step {per_step}, "
             f"want {want}")
-    require(counts["edge_aggregate_fwd"] == 2 * val_batches,
+    require(counts["edge_aggregate_fwd"] == (0 if merged
+                                             else 2 * val_batches),
             "kernel A ran outside the mini-validation")
     return model, losses, counts
 
@@ -799,7 +835,7 @@ def train_cache_main_path(dev, ds, cache, host_losses):
             f"{host_losses[0]!r}")
     require(max(rel) <= 1e-3, "a cache-mode step's loss differs from host "
             "mode's by more than 1e-3")
-    return model, counts
+    return model, losses, counts
 
 
 def profile(fn, label: str, n: int = 10) -> None:
@@ -862,10 +898,8 @@ def measure(dev, gen, launches, errs, model):
 
         nbytes = sum(edge_bound(*x)[0] for x in a_in)
         ops_s = sum(edge_bound(*x)[1] for x in a_in)
-        a = dict(ms=time_ms(kernel_a), plain_ms=time_ms(plain_a),
-                 library_ms=None)
-        a["bound_ms"], a["bound_by"] = bound(nbytes, ops_s)
-        per_conv = [time_ms(lambda x=x: fused_sel_aggregate_act(
+        a = timed(kernel_a, plain_a, nbytes, ops_s)
+        per_conv = [time_device_ms(lambda x=x: fused_sel_aggregate_act(
             *x, relu=True)) for x in a_in]
 
         (xp, w_hh, b_hh, qlen), (emb, w_ih, b_ih) = gru_inputs(
@@ -887,12 +921,10 @@ def measure(dev, gen, launches, errs, model):
             with torch.no_grad():
                 gru(packed)
 
-        g = dict(ms=time_ms(lambda: gru_scan(xp, w16, b_hh, qlen)),
-                 plain_ms=time_ms(
-                     lambda: gru_scan_reference(xp, w16, b_hh, qlen)),
-                 library_ms=time_ms(library_b))
-        g["bound_ms"], g["bound_by"] = bound(*gru_bound(xp, w16, b_hh, qlen))
-        g_f32 = time_ms(lambda: gru_scan(xp, w_hh, b_hh, qlen))
+        g = timed(lambda: gru_scan(xp, w16, b_hh, qlen),
+                  lambda: gru_scan_reference(xp, w16, b_hh, qlen),
+                  *gru_bound(xp, w16, b_hh, qlen), library=library_b)
+        g_f32 = time_device_ms(lambda: gru_scan(xp, w_hh, b_hh, qlen))
         detail.append({"batch": b, "forward_ms": forward_ms,
                        "edge_aggregate_fwd": a,
                        "edge_aggregate_fwd_per_conv_ms": per_conv,
@@ -901,9 +933,11 @@ def measure(dev, gen, launches, errs, model):
         if b == SERVE_B:
             for name, t in (("edge_aggregate_fwd", a), ("gru_scan_fwd", g)):
                 entries.append(entry(name, t, launches, errs))
-    print("timing detail (bf16 forward; bf16 proj / bf16 W_hh; A = conv1 + "
-          "conv2 launches; B = all 16 step launches): " + json.dumps(detail),
-          flush=True)
+    print("timing detail (bf16 forward, CUDA events back to back; kernels: "
+          "device times, launches queued behind a sleep kernel, and "
+          "back_to_back_ms with the host's enqueue in them; bf16 proj / "
+          "bf16 W_hh; A = conv1 + conv2 launches; B = all 16 step "
+          "launches): " + json.dumps(detail), flush=True)
     return entries
 
 
@@ -971,8 +1005,14 @@ def wgrad_bound(dhp, hs, qlen):
 
 
 def timed(kernel, plain, nbytes, ops_s, library=None):
-    t = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, samples=10, reps=3),
-             library_ms=time_ms(library) if library else None)
+    """Device times (time_device_ms) of the kernel, its plain version and
+    the library call beside the bound, and the kernel's back-to-back
+    event time, which holds the host's enqueue where a call is shorter
+    on the card than on the host."""
+    t = dict(ms=time_device_ms(kernel),
+             plain_ms=time_device_ms(plain, samples=10, reps=3),
+             library_ms=time_device_ms(library) if library else None,
+             back_to_back_ms=time_ms(kernel))
     t["bound_ms"], t["bound_by"] = bound(nbytes, ops_s)
     return t
 
@@ -1068,7 +1108,9 @@ def measure_training(dev, gen, counts, errs):
                             ("edge_aggregate_bwd", d),
                             ("gru_scan_bwd_step", e), ("gru_wgrad", wg)):
                 entries.append(entry(name, t, counts, errs))
-    print("training timing detail (bf16; C and D = conv1 with dropout + "
+    print("training timing detail (bf16; kernels: device times, launches "
+          "queued behind a sleep kernel, and back_to_back_ms; C and D = "
+          "conv1 with dropout + "
           "conv2; E sweep = all 16 step launches, library = cuDNN nn.GRU "
           "forward + backward together; E dW/db library = one cuBLAS mm "
           "for dW alone; train step = host clock per step ending in a "
@@ -1088,16 +1130,10 @@ def time_train_step(dev, gen, b, n=10):
     def step():
         float(train_step(model, optimizer, None, batch, generator)["loss"])
 
-    for _ in range(3):
-        step()
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        step()
-        times.append((time.perf_counter() - t0) * 1e3)
+    ms = median_step_ms(step, n)
     if b == TRAIN_B:
         profile(step, f"the bf16 training step at B={b}", n=5)
-    return statistics.median(times)
+    return ms
 
 
 # ---------------- the device cache: kernels F and G ----------------
@@ -1357,6 +1393,29 @@ def random_index_batch(b, cfg, n_images, rng):
             "vote_idx": ans_idx.copy(), "vote_val": vote_val, "mask": mask}
 
 
+def random_cache(dev, n_images):
+    """A bf16 device cache of n_images random images at full width, with
+    f32 boxes."""
+    return (random_table(n_images, 36, FULL["feat_dim"] - 4, torch.bfloat16,
+                         dev),
+            torch.cat([torch.rand(n_images, 36, 2, device=dev) * 0.5,
+                       0.55 + torch.rand(n_images, 36, 2, device=dev) * 0.45],
+                      -1))
+
+
+def median_step_ms(step, n):
+    """Median host-clock ms of n calls of step (each ending in a fetch),
+    after 3 warm-up calls."""
+    for _ in range(3):
+        step()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def time_cache_steps(dev, gen, n=10, n_images=4096):
     """Phase 6, the cache part, steps: the full-width bf16 training step
     (dropout 0.5) in host mode and with a bf16 device cache of n_images
@@ -1364,11 +1423,7 @@ def time_cache_steps(dev, gen, n=10, n_images=4096):
     step ends in a fetch of its loss (host clock). Profiles the cache
     step at B=64."""
     cfg = ModelConfig(**FULL)
-    cache = (random_table(n_images, 36, FULL["feat_dim"] - 4,
-                          torch.bfloat16, dev),
-             torch.cat([torch.rand(n_images, 36, 2, device=dev) * 0.5,
-                        0.55 + torch.rand(n_images, 36, 2, device=dev) * 0.45],
-                       -1))
+    cache = random_cache(dev, n_images)
     image_fn = make_image_fn(cache)
     rng = np.random.default_rng(SEED + 3)
     out = {}
@@ -1386,21 +1441,11 @@ def time_cache_steps(dev, gen, n=10, n_images=4096):
             float(train_step(model, optimizer, None, index, generator,
                              image_fn)["loss"])
 
-        def median_ms(step):
-            for _ in range(3):
-                step()
-            times = []
-            for _ in range(n):
-                t0 = time.perf_counter()
-                step()
-                times.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(times)
-
         runs = [("host", host_step), ("cache", cache_step),
                 ("cache", cache_step), ("host", host_step)]
         ms = {"host": [], "cache": []}
         for mode, step in runs:
-            ms[mode].append(median_ms(step))
+            ms[mode].append(median_step_ms(step, n))
         out[b] = ms
         if b == TRAIN_B:
             profile(cache_step, f"the bf16 cache-mode training step at B={b}",
@@ -1435,6 +1480,401 @@ def time_evaluate(dev, model, ds, cache):
     return out
 
 
+# ---------------- the merged block: kernels H and I ----------------
+
+
+def block_inputs(b, k, m, gen, dev, n=8):
+    """Kernel H's inputs at the VQA v2 widths (F1 2052, d1 256, d2 128):
+    an adjacency, pseudo from box centres, region features, the convs'
+    torch-default projections side by side (W1cat (F1, n d1), W2cat
+    (n d1, n d2), f32), gparams from the init ranges and seeds."""
+    f1, hid = FULL["feat_dim"], FULL["hid_dim"]
+    d1, d2 = 2 * hid // n, hid // n
+
+    def u(rows, cols):
+        return (torch.rand(rows, cols, generator=gen) * 2 - 1) / math.sqrt(
+            rows)
+
+    def gp():
+        return torch.stack([
+            torch.rand(n, generator=gen),
+            (torch.rand(n, generator=gen) * 2 - 1) * math.pi,
+            torch.rand(n, generator=gen), torch.rand(n, generator=gen)])
+
+    adj = torch.randn(b, k, k, generator=gen)
+    pseudo = polar_pseudo_coords(bbox_centres(random_boxes(b, k, gen)))
+    feats = torch.randn(b, k, f1, generator=gen)
+    xs = [t.contiguous().to(dev) for t in (adj, pseudo, feats, u(f1, n * d1),
+                                           u(n * d1, n * d2), gp(), gp())]
+    return xs + [random_seeds(b, gen, dev)]
+
+
+def block_gemm_shapes(b, k=36):
+    """The block's six products at B*K rows: (label, layout, a shape,
+    b shape), operands row-major as tile_gemm takes them."""
+    r, f1, nd1, nd2 = b * k, FULL["feat_dim"], 2 * FULL["hid_dim"], \
+        FULL["hid_dim"]
+    return [("proj1 = feats W1", "nn", (r, f1), (f1, nd1)),
+            ("proj2 = h1 W2", "nn", (r, nd1), (nd1, nd2)),
+            ("dW2 = h1^T dp2", "tn", (r, nd1), (r, nd2)),
+            ("dh1 = dp2 W2^T", "nt", (r, nd2), (nd1, nd2)),
+            ("dW1 = feats^T dp1", "tn", (r, f1), (r, nd1)),
+            ("dfeats = dp1 W1^T", "nt", (r, nd1), (f1, nd1))]
+
+
+def library_mm(a, b, layout):
+    """One torch.mm (cuBLAS) of the same product, f32 out: the yardstick
+    for tile_gemm (bf16 operands: f32 sums, as the hand GEMM)."""
+    a = a.t() if layout == "tn" else a
+    b = b.t() if layout == "nt" else b
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def check_tile_gemm(dev, gen):
+    """Phase 13: the bare GEMM against torch.mm in each layout at the
+    block's six product shapes (B=64) and at B*K = 408 (B=8, K=51), f32
+    (exact SIMT) and bf16 (tensor cores); its epilogues."""
+    worst = 0.0
+    for b, k in ((TRAIN_B, 36), (8, 51)):
+        for label, layout, sa, sb in block_gemm_shapes(b, k):
+            a = torch.randn(*sa, generator=gen).to(dev)
+            bm = torch.randn(*sb, generator=gen).to(dev)
+            errs = []
+            for dtype in (torch.float32, torch.bfloat16):
+                x, y = a.to(dtype), bm.to(dtype)
+                got = tile_gemm(x, y, layout)
+                want = library_mm(x.float(), y.float(), layout)
+                errs.append(norm_err(got, want))
+            torch.cuda.synchronize()
+            worst = max(worst, errs[1])
+            print(f"tile_gemm {layout} {label} a{sa} b{sb}: normalized err "
+                  f"vs torch.mm f32 {errs[0]:.2e}, bf16 operands "
+                  f"{errs[1]:.2e} (<= 1e-5)", flush=True)
+            require(max(errs) <= 1e-5, f"tile_gemm {layout} {label} disagrees")
+    # epilogues: the relu/dropout gate and the operand-dtype store
+    _, layout, sa, sb = block_gemm_shapes(TRAIN_B)[3]
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn(*sa, generator=gen).to(dev, dtype)
+        bm = torch.randn(*sb, generator=gen).to(dev, dtype)
+        gate = torch.randn(sa[0], sb[0], generator=gen).to(dev, dtype)
+        got = tile_gemm(a, bm, layout, "gate", gate, 2.0)
+        want = tile_gemm_reference(a, bm, layout, "gate", gate, 2.0)
+        got_t = tile_gemm(a, bm, layout, "operand")
+        want_t = tile_gemm_reference(a, bm, layout, "operand")
+        torch.cuda.synchronize()
+        e_g, e_t = norm_err(got, want), norm_err(got_t, want_t)
+        print(f"tile_gemm epilogues {str(dtype)[6:]}: gate {e_g:.2e} (<= "
+              f"1e-5), operand dtype {e_t:.2e} (<= {8e-3 if dtype != torch.float32 else 1e-5}); "
+              f"zeros where gate <= 0: "
+              f"{bool((got[gate.float() <= 0] == 0).all())}", flush=True)
+        require(e_g <= 1e-5 and got_t.dtype == dtype
+                and e_t <= (1e-5 if dtype == torch.float32 else 8e-3)
+                and bool((got[gate.float() <= 0] == 0).all()),
+                "tile_gemm epilogues disagree")
+    return worst
+
+
+def check_graph_block(dev, gen, errs):
+    """Phase 13, kernels H and I: every output against the plain version
+    on the same inputs (I from H's residuals), f32 and bf16, with conv1's
+    dropout at 0.5; in f32 H's h1 equal to kernel C's output bit for bit
+    for the same alpha, f32 projection and seeds (the same Philox mask);
+    the mask equal to the plain selection's."""
+    for b, k, m, label in ((TRAIN_B, 36, 16, "vqa"),
+                           (8, 51, 19, "medical")):
+        adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds = block_inputs(
+            b, k, m, gen, dev)
+        g = torch.randn(b, k, w2cat.shape[1], generator=gen).to(dev)
+        for dtype, tol_h, tol_i in ((torch.float32, 1e-5, 1e-5),
+                                    (torch.bfloat16, 1e-2, 1e-2)):
+            args = (feats.to(dtype), w1cat.to(dtype), w2cat.to(dtype))
+            res = graph_block_fwd(adj, pseudo, *args, gp1, gp2, seeds, m,
+                                  DROPOUT)
+            ref = graph_block_fwd_reference(adj, pseudo, *args, gp1, gp2,
+                                            seeds, m, DROPOUT)
+            grads = graph_block_bwd(g, res, pseudo, *args, gp1, gp2,
+                                    DROPOUT, need_dfeats=True)
+            ref_g = graph_block_bwd_reference(g, res, pseudo, *args, gp1,
+                                              gp2, DROPOUT, need_dfeats=True)
+            torch.cuda.synchronize()
+            e_h = {f: norm_err(x, y) for f, x, y in zip(res._fields, res,
+                                                          ref)}
+            e_i = [norm_err(x, y) for x, y in zip(grads, ref_g)]
+            same_mask = torch.equal(res.mask, ref.mask)
+            print(f"kernel H {label} B={b} K={k} m={m} {str(dtype)[6:]} "
+                  f"dropout {DROPOUT}: normalized err "
+                  + ", ".join(f"{f} {e:.2e}" for f, e in e_h.items())
+                  + f" (<= {tol_h}); mask equal {same_mask}; kernel I "
+                  f"dadj/dpseudo/dfeats/dW1/dW2/dgp1/dgp2 "
+                  + "/".join(f"{e:.2e}" for e in e_i)
+                  + f" (<= {tol_i})", flush=True)
+            require(same_mask and max(e_h.values()) <= tol_h,
+                    f"kernel H {label} {dtype} disagrees")
+            require(max(e_i) <= tol_i, f"kernel I {label} {dtype} disagrees")
+            if label == "vqa" and dtype == torch.bfloat16:
+                errs["graph_block_fwd"] = max(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(res, ref))
+                errs["graph_block_bwd"] = max(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(grads, ref_g))
+            if dtype != torch.float32:
+                continue
+            c_out = sel_aggregate_act_residuals(
+                res.alpha, pseudo, res.proj1.view(b, k, -1), gp1, True,
+                DROPOUT, seeds)[0]
+            plain = sel_aggregate_act_residuals_reference(
+                res.alpha, pseudo, res.proj1.view(b, k, -1), gp1, True)[0]
+            keep = philox_keep(seeds, plain.shape[1:], DROPOUT)
+            clear = plain > 1e-6 * float(plain.max())
+            mismatched = int(((res.h1 != 0) != keep)[clear].sum())
+            torch.cuda.synchronize()
+            print(f"kernel H {label} conv1 dropout: h1 equal to kernel C's "
+                  f"output bit for bit {torch.equal(c_out, res.h1)}; mask "
+                  f"mismatches vs plain Philox {mismatched} of "
+                  f"{int(clear.sum())} (want 0)", flush=True)
+            require(torch.equal(c_out, res.h1) and mismatched == 0,
+                    "kernel H's dropout differs from kernel C's")
+
+
+def block_bound(adj, feats, w1cat, w2cat, n, m):
+    """Kernel H: inputs read once (adj, pseudo, feats, both weights,
+    gparams, seeds) and out, h1, alpha, mask, den1, den2, ghat1, ghat2
+    written; the two projections at the operands' peak, the two K x K
+    aggregations, the Gaussians and the K^3 rank at the f32 rate."""
+    b, k, f1 = feats.shape
+    nd1, nd2 = w2cat.shape
+    es = feats.element_size()
+    nbytes = (b * k * k * 4 * 3 + feats.numel() * es
+              + (w1cat.numel() + w2cat.numel()) * es + 2 * 4 * n * 4 + b * 4
+              + b * k * (nd1 + nd2) * es + b * k * k * 4 * (4 + 2 * n))
+    ops_s = (2 * b * k * (f1 * nd1 + nd1 * nd2) / PEAK_FLOPS[feats.dtype]
+             + (2 * b * k * k * (nd1 + nd2) + 2 * GAUSS_FLOPS * b * k * k * n
+                + b * k * k * k) / PEAK_FLOPS[torch.float32])
+    return nbytes, ops_s
+
+
+def block_vjp_bound(feats, w1cat, w2cat, n, need_dfeats):
+    """Kernel I: g (f32), out, h1, feats, both weights, the f32
+    projections and H's K x K residuals read once; dadj, dpseudo, dW1,
+    dW2 (f32), dfeats if asked and the gparams partials written; the
+    products dW2, dh1, dW1 (and dfeats) at the operands' peak, the two
+    aggregation backwards (two K x K x n d products each) and ~40 flops
+    per edge and kernel at the f32 rate."""
+    b, k, f1 = feats.shape
+    nd1, nd2 = w2cat.shape
+    es = feats.element_size()
+    rows = b * k
+    nbytes = (rows * nd2 * (4 + es) + rows * nd1 * es + feats.numel() * es
+              + (w1cat.numel() + w2cat.numel()) * es
+              + rows * (nd1 + nd2) * 4 + b * k * k * 4 * (4 + 2 * n + 2)
+              + b * k * k * 4 * 3 + (f1 * nd1 + nd1 * nd2) * 4
+              + (feats.numel() * es if need_dfeats else 0) + 2 * b * 4 * n * 4)
+    gemm = 2 * rows * (2 * nd1 * nd2 + f1 * nd1 * (2 if need_dfeats else 1))
+    ops_s = (gemm / PEAK_FLOPS[feats.dtype]
+             + (4 * b * k * k * (nd1 + nd2) + 2 * 40 * b * k * k * n)
+             / PEAK_FLOPS[torch.float32])
+    return nbytes, ops_s
+
+
+def time_graph_block(dev, gen, counts, errs):
+    """Phase 6, the merged block's part: H and I at B=64 (the main path)
+    and 256, beside their plain versions and bounds; the hand GEMM at the
+    block's six products beside one torch.mm each; the merged block's
+    forward + backward beside the unmerged one (cuBLAS projections + C +
+    D, selection by masked_neighbourhood) in turns."""
+    entries, detail = [], {}
+    bf = torch.bfloat16
+    n = FULL["n_kernels"]
+    for b in (TRAIN_B, 256):
+        adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds = block_inputs(
+            b, 36, 16, gen, dev)
+        x, w1, w2 = feats.to(bf), w1cat.to(bf), w2cat.to(bf)
+        fargs = (adj, pseudo, x, w1, w2, gp1, gp2, seeds, 16, DROPOUT)
+        res = graph_block_fwd(*fargs)
+        g = torch.randn(b, 36, w2.shape[1], generator=gen).to(dev)
+        bargs = (g, res, pseudo, x, w1, w2, gp1, gp2, DROPOUT)
+        h = timed(lambda: graph_block_fwd(*fargs),
+                         lambda: graph_block_fwd_reference(*fargs),
+                         *block_bound(adj, x, w1, w2, n, 16))
+        i = timed(lambda: graph_block_bwd(*bargs, need_dfeats=False),
+                         lambda: graph_block_bwd_reference(
+                             *bargs, need_dfeats=False),
+                         *block_vjp_bound(x, w1, w2, n, False))
+        i_dfeats = time_device_ms(lambda: graph_block_bwd(*bargs))
+        gemms = {}
+        for label, layout, sa, sb in block_gemm_shapes(b):
+            a_ = torch.randn(*sa, generator=gen).to(dev, bf)
+            b_ = torch.randn(*sb, generator=gen).to(dev, bf)
+            mm, kk = (sa[1], sa[0]) if layout == "tn" else sa
+            nn = sb[0] if layout == "nt" else sb[1]
+            t = dict(ms=time_device_ms(lambda: tile_gemm(a_, b_, layout)),
+                     library_ms=time_device_ms(
+                         lambda: library_mm(a_, b_, layout)))
+            t["bound_ms"], t["bound_by"] = bound(
+                2 * (a_.numel() + b_.numel()) + 4 * mm * nn,
+                2 * mm * nn * kk / PEAK_FLOPS[bf])
+            t["tflops"] = 2 * mm * nn * kk / t["ms"] / 1e9
+            gemms[f"{layout} {label} ({mm}x{nn}x{kk})"] = t
+        detail[f"B={b}"] = {"graph_block_fwd": h, "graph_block_bwd": i,
+                            "graph_block_bwd_with_dfeats_ms": i_dfeats,
+                            "tile_gemm": gemms,
+                            "block_fwd_bwd": block_fwd_bwd(
+                                dev, gen, b, adj, pseudo, x, seeds, g)}
+        if b == TRAIN_B:
+            for name, t in (("graph_block_fwd", h), ("graph_block_bwd", i)):
+                entries.append(entry(name, t, counts, errs))
+        del res, fargs, bargs
+        torch.cuda.empty_cache()
+    print("merged block timing detail (bf16, dropout 0.5, device times "
+          "behind a sleep kernel; H = 4 launches, I without dfeats = 7, "
+          "with = 8; tile_gemm library = one torch.mm, bf16 operands, f32 "
+          "out; block_fwd_bwd = forward + backward of both convs, merged "
+          "vs unmerged, CUDA events back to back and device time, run "
+          "unmerged, merged, merged, unmerged): " + json.dumps(detail),
+          flush=True)
+    return entries
+
+
+def block_fwd_bwd(dev, gen, b, adj, pseudo, x, seeds, g):
+    """Forward + backward of both graph convolutions at full width,
+    merged (H + I) and unmerged (selection, cuBLAS projections, C + D),
+    on the same weights, adjacency, features and seeds: ms of each, in
+    turns (unmerged, merged, merged, unmerged)."""
+    bf = torch.bfloat16
+    n = FULL["n_kernels"]
+    conv1 = GaussianGraphConv(FULL["feat_dim"], 2 * FULL["hid_dim"], n,
+                              compute_dtype=bf)
+    conv2 = GaussianGraphConv(2 * FULL["hid_dim"], FULL["hid_dim"], n,
+                              compute_dtype=bf)
+    wgen = torch.Generator().manual_seed(SEED)
+    conv1.reset_parameters(wgen)
+    conv2.reset_parameters(wgen)
+    conv1.to(dev)
+    conv2.to(dev)
+    adj_p = adj.clone().requires_grad_(True)
+    g16 = g.to(bf)
+
+    def unmerged():
+        alpha, mask = masked_neighbourhood(adj_p, 16)
+        hg1 = conv1(x, alpha, pseudo, dropout_rate=DROPOUT, seeds=seeds)
+        conv2(hg1, mask, pseudo).backward(g16)
+
+    def merged():
+        w1 = torch.stack([lin.weight.t() for lin in conv1.conv_weights])
+        w2 = torch.stack([lin.weight.t() for lin in conv2.conv_weights])
+        fused_graph_block(adj_p, pseudo, x, w1, conv1.gparams(), w2,
+                          conv2.gparams(), seeds, 16, DROPOUT).backward(g16)
+
+    out = {"unmerged": [], "merged": []}
+    for name, fn in (("unmerged", unmerged), ("merged", merged),
+                     ("merged", merged), ("unmerged", unmerged)):
+        out[name].append({"events_ms": time_ms(fn, samples=10, reps=5),
+                          "device_ms": time_device_ms(
+                              fn, samples=10, reps=5,
+                              hold_cycles=20_000_000)})
+    return out
+
+
+def merged_serving_forward(dev, gen, model16, n_batches=4):
+    """Phase 14, serving: the bf16 forward at B=16 with the merged block
+    on the serving model's weights launches H once and A never per
+    forward, and picks the unmerged forward's answer on most rows (the
+    block keeps the projections in f32 where the unmerged path rounds
+    them to bf16; random weights leave near-ties)."""
+    cfg = dataclasses.replace(model16.cfg, merged_block=True)
+    merged = GraphVQAModel(cfg, device=dev, seed=SEED)
+    merged.load_state_dict(model16.state_dict())
+    same = total = 0
+    worst = 0.0
+    for _ in range(n_batches):
+        batch = [x.to(dev) for x in random_batch(SERVE_B, cfg, gen)]
+        reset_counts()
+        logits_m, adj_m, _ = merged(*batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        logits_u, adj_u, _ = model16(*batch)
+        require(counts["graph_block_fwd"] == 1
+                and counts["edge_aggregate_fwd"] == 0
+                and counts["gru_scan_fwd"] == FULL["max_qlen"],
+                f"launches per merged forward {counts}")
+        require(bool(torch.isfinite(logits_m).all())
+                and torch.equal(adj_m, adj_u), "merged forward outputs")
+        same += int((logits_m.argmax(-1) == logits_u.argmax(-1)).sum())
+        total += SERVE_B
+        worst = max(worst, norm_err(logits_m, logits_u))
+    share = same / total
+    print(f"serving forward B={SERVE_B} with the merged block: launches per "
+          f"forward H 1, A 0, B {FULL['max_qlen']}; argmax equal to the "
+          f"unmerged forward on {same}/{total} rows ({share:.4f}, >= 0.75); "
+          f"logits normalized difference {worst:.3e}; adjacency equal",
+          flush=True)
+    require(share >= 0.75, "merged serving argmax agreement below 0.75")
+
+
+def train_merged_main_path(dev, ds, cache, cache_losses):
+    """Phase 14, this slice's main path: run_fit with the merged block and
+    the bf16 device cache; per step H 1, I 1, A/C/D 0, B 16, E 16 + 1,
+    F 1, G 1; step 1's loss (same weights, batch and dropout draws as
+    phase 11) within 1e-2 relative of phase 11's: the block keeps the
+    projections in f32, where the unmerged path rounds them to bf16."""
+    model, losses, counts = run_fit(dev, ds, cache, "merged block, device "
+                                    "cache", merged=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cache_losses)]
+    print("relative loss difference from the unmerged cache mode (phase "
+          "11), per step: " + json.dumps(rel), flush=True)
+    require(rel[0] <= 1e-2, f"step 1's loss {losses[0]!r} is not within "
+            f"1e-2 of phase 11's {cache_losses[0]!r}")
+    return model, counts
+
+
+def time_merged_steps(dev, n=10, n_images=4096):
+    """Phase 6, the merged block's part: the full-width bf16 cache-mode
+    training step (dropout 0.5) unmerged and merged on the same weights,
+    in turns (unmerged, merged, merged, unmerged), at B=64 and 256; each
+    step ends in a fetch of its loss (host clock). Profiles one merged
+    step at B=64."""
+    cfg = ModelConfig(**FULL)
+    cache = random_cache(dev, n_images)
+    image_fn = make_image_fn(cache)
+    rng = np.random.default_rng(SEED + 4)
+    out = {}
+    for b in (TRAIN_B, 256):
+        index = pack_index_batch(random_index_batch(b, cfg, n_images, rng))
+        steps = {}
+        for merged in (False, True):
+            model = GraphVQAModel(dataclasses.replace(cfg,
+                                                      merged_block=merged),
+                                  device=dev, seed=SEED)
+            optimizer, _ = make_optimizer(model, TrainConfig(), 100)
+            generator = torch.Generator(device=dev).manual_seed(SEED)
+
+            def step(model=model, optimizer=optimizer, generator=generator):
+                float(train_step(model, optimizer, None, index, generator,
+                                 image_fn)["loss"])
+
+            steps["merged" if merged else "unmerged"] = step
+
+        ms = {"unmerged": [], "merged": []}
+        for mode in ("unmerged", "merged", "merged", "unmerged"):
+            ms[mode].append(median_step_ms(steps[mode], n))
+        out[b] = ms
+        if b == TRAIN_B:
+            profile(steps["merged"], f"the bf16 merged-block cache-mode "
+                    f"training step at B={b}", n=5)
+        del steps
+        torch.cuda.empty_cache()
+    print("train step, unmerged vs merged block, device cache (ms, host "
+          f"clock, median of {n} steps each, run unmerged, merged, merged, "
+          "unmerged): " + json.dumps({f"B={b}": v for b, v in out.items()}),
+          flush=True)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1461,11 +1901,11 @@ def main() -> int:
     phase("3 kernels against their plain versions")
     errs = check_kernels(dev, gen)
     phase("4 full-width forward")
-    model = full_width_forward(dev, gen)
+    serve_model = full_width_forward(dev, gen)
     phase("5 serving (main path)")
-    launches = serve(model, dev)
+    launches = serve(serve_model, dev)
     phase("6 timing (serving)")
-    entries = measure(dev, gen, launches, errs, model)
+    entries = measure(dev, gen, launches, errs, serve_model)
     phase("7 training kernels against their plain versions")
     check_edge_training(dev, gen, errs)
     check_gru_training(dev, gen, errs)
@@ -1481,13 +1921,23 @@ def main() -> int:
     phase("11 training with the device cache (main path)")
     cache = make_feature_cache(ds["train"], TrainConfig(),
                                ModelConfig().compute_dtype, dev)
-    model, cache_counts = train_cache_main_path(dev, ds, cache, host_losses)
+    model, cache_losses, cache_counts = train_cache_main_path(
+        dev, ds, cache, host_losses)
     phase("12 evaluate to result.json")
     evaluate_checks(dev, model, ds, cache)
+    phase("13 merged-block kernels against their plain versions")
+    errs["tile_gemm"] = check_tile_gemm(dev, gen)
+    check_graph_block(dev, gen, errs)
+    phase("14 training with the merged block (main path)")
+    _, merged_counts = train_merged_main_path(dev, ds, cache, cache_losses)
+    merged_serving_forward(dev, gen, serve_model)
     phase("6 timing (device cache)")
     entries += time_gathers(dev, cache_counts, errs)
     time_cache_steps(dev, gen)
     time_evaluate(dev, model, ds, cache)
+    phase("6 timing (merged block)")
+    entries += time_graph_block(dev, gen, merged_counts, errs)
+    time_merged_steps(dev)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

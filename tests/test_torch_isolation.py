@@ -32,6 +32,7 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
     assert "vqa_project_tpu_torch/serve.py" in names
     assert "vqa_project_tpu_torch/ops/edge_aggregate.py" in names
+    assert "vqa_project_tpu_torch/ops/graph_block.py" in names
 
 
 @pytest.mark.parametrize("path", FILES,

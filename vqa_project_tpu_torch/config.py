@@ -33,6 +33,11 @@ class ModelConfig:
     # Numerics policy: params + reductions fp32, matmul compute bf16.
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # both graph convolutions, their projections and the neighbourhood
+    # selection in one merged block per direction (ops/graph_block.py,
+    # kernels H and I); the counterpart of the JAX package's
+    # VQAX_MERGED_BLOCK=1, off by default as there
+    merged_block: bool = False
 
 
 @dataclasses.dataclass

@@ -14,7 +14,10 @@ operands in the compute dtype and float32 accumulation; pseudo-
 coordinates, Gaussian weights, softmax and logits in float32. The GRU
 recurrence and both graph-convolution tails run in the CUDA kernels of
 ``ops/gru_scan.py`` and ``ops/edge_aggregate.py`` on CUDA tensors, and
-in training their backward kernels too.
+in training their backward kernels too. With ``ModelConfig.merged_block``
+the neighbourhood selection, both convolutions and their projections
+run instead as one merged block (``ops/graph_block.py``, kernels H and
+I), on the same parameters.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch import nn
 
 from vqa_project_tpu_torch.config import (ModelConfig, resolve_device,
                                           torch_dtype)
-from vqa_project_tpu_torch.ops import (bbox_centres,
+from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
                                        fused_sel_aggregate_act,
                                        gru_encode_kernel,
                                        masked_neighbourhood,
@@ -261,15 +264,22 @@ class GraphVQAModel(nn.Module):
                                  compute_dtype=cdt)
 
         adjacency = self.adjacency_1(nodes, shared=qenc.to(cdt))
-        alpha, mask = masked_neighbourhood(adjacency, cfg.neighbourhood_size)
+        # the seeds come at the same point of the generator's stream on
+        # both paths (the selection draws nothing), so the later dropout
+        # draws line up too
         seeds = None
         if rate > 0:
             seeds = torch.randint(0, 2 ** 31 - 1, (question.shape[0],),
                                   generator=generator, device=nodes.device,
                                   dtype=torch.int32)
-        hg1 = self.graph_convolution_1(nodes, alpha, pseudo,
-                                       dropout_rate=rate, seeds=seeds)
-        hg2 = self.graph_convolution_2(hg1, mask, pseudo)
+        if cfg.merged_block:
+            hg2 = self._graph_block(nodes, adjacency, pseudo, rate, seeds)
+        else:
+            alpha, mask = masked_neighbourhood(adjacency,
+                                               cfg.neighbourhood_size)
+            hg1 = self.graph_convolution_1(nodes, alpha, pseudo,
+                                           dropout_rate=rate, seeds=seeds)
+            hg2 = self.graph_convolution_2(hg1, mask, pseudo)
 
         h_max_indices = torch.argmax(hg2, dim=1)             # (B, hid)
         # amax splits the gradient evenly among tied maxima, as jnp.max
@@ -278,3 +288,15 @@ class GraphVQAModel(nn.Module):
         h1 = dropout(torch.relu(self.out_1(fused)), rate, generator)
         logits = self.out_2(h1)                               # f32
         return logits, adjacency, h_max_indices
+
+    def _graph_block(self, nodes, adjacency, pseudo, rate, seeds):
+        """Both convolutions as one merged block (kernels H and I): each
+        conv's Linears stacked into the block's (n, in, d) layout, the
+        neighbourhood selected inside the block from the adjacency."""
+        c1, c2 = self.graph_convolution_1, self.graph_convolution_2
+        w1 = torch.stack([lin.weight.t() for lin in c1.conv_weights])
+        w2 = torch.stack([lin.weight.t() for lin in c2.conv_weights])
+        return fused_graph_block(
+            adjacency.float(), pseudo.float(), nodes.to(self.compute_dtype),
+            w1, c1.gparams(), w2, c2.gparams(), seeds,
+            self.cfg.neighbourhood_size, rate)

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 KERNELS = ("edge_aggregate", "edge_aggregate_bwd", "gather_rows",
-           "gru_scan", "gru_scan_bwd")
+           "graph_block", "graph_block_bwd", "gru_scan", "gru_scan_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +52,13 @@ _SIGNATURES = {
     "gather_rows": {
         "gather_rows_packed": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
         "gather_rows_blocked": [_P, _P, _P, _L, _I, _L, _I, _P],
+    },
+    "graph_block": {
+        "graph_block_fwd": [_P] * 18 + [_I] * 7 + [_U, _F, _I, _P],
+        "tile_gemm_run": [_P] * 4 + [_I] * 9 + [_F, _P],
+    },
+    "graph_block_bwd": {
+        "graph_block_bwd": [_P] * 28 + [_I] * 6 + [_F, _I, _P],
     },
     "gru_scan": {
         "gru_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
