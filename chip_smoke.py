@@ -8,7 +8,12 @@ Phases, in order; the first failure exits non-zero:
 1. device: needs CUDA; prints the card's name and power limit; TF32 off;
 2. build: compiles the CUDA kernels of vqa_project_tpu_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving shapes (f32 and bf16);
+   at the serving shapes (f32 and bf16); kernel B at B = 1, 16, 64, 200
+   and 256 (past 128 rows the persistent kernel splits the batch) with
+   qlen spread over 0..T and all equal, persistent (bf16) and per step
+   (f32), two runs equal bit for bit; in bf16 also the persistent kernel
+   at B=150 (96-wide K chunks) and H = 128, 256, and the per-step kernel
+   at B=257;
 4. full-width forward (VQA v2 widths, random weights from a seed): the
    port on the card against the same port on the CPU;
 5. serving, the main path: InferenceServer behind its HTTP front-end
@@ -17,14 +22,17 @@ Phases, in order; the first failure exits non-zero:
 7. training kernels against their plain versions on the card: C and D
    at the VQA conv1/conv2 shapes (B=64) and the medical K=51, m=19
    (B=8), f32 and bf16, with conv1's dropout epilogue (masks bit for bit,
-   kept fraction, repeatability, per-image seeds); E at T=16, H=1024,
-   B=64 and 256;
+   kept fraction, repeatability, per-image seeds); B's states and E at
+   T=16, H=1024, B = 8, 50, 64 and 256: hs16 equal to hs in bf16 bit for
+   bit, E's sweep, and its weight gradient (the wgmma product from hs16
+   for bf16 weights) repeating bit for bit, the wgmma product also at
+   H = 64, 128, 192 (B = 8, 50), its second run into NaN-filled outputs;
 8. one full-width f32 training step (dropout 0) on the card against the
    same step on the CPU: loss, every gradient, the Adam update;
 9. training, the main path: fit() on an in-memory synthetic dataset at
    full VQA width, batch 64, bf16, dropout 0.5, 20 steps and one
-   mini-validation; the launch counts per step must be C 2, D 2, B 16,
-   E 16 + 1 weight-gradient launch, and A 0;
+   mini-validation; the launch counts per step must be C 2, D 2, B 1
+   (the persistent kernel), E 16 + 1 weight-gradient launch, and A 0;
 10. gather kernels against their plain versions, bit for bit: F on a
     device-made VQA v2-size table (123,287 x 36 x 2048) in bf16, then
     int8 with per-box scales into bf16 and f32, and f32 at N=4096; G on
@@ -32,7 +40,7 @@ Phases, in order; the first failure exits non-zero:
     with rows 0 and N-1, duplicates and clamped -1 / N;
 11. training with the device cache, the main path: fit() as in phase 9
     but with the bf16 feature cache, index batches and a resident
-    mini-validation; per step F 1, G 1, C 2, D 2, B 16, E 16 + 1, A 0,
+    mini-validation; per step F 1, G 1, C 2, D 2, B 1, E 16 + 1, A 0,
     and step 1's loss equal to phase 9's bit for bit;
 12. evaluate() to result.json with phase 11's model: val through the
     cache (resident) and through host mode (streaming) give the same
@@ -45,12 +53,14 @@ Phases, in order; the first failure exits non-zero:
     conv1 output equal to kernel C's bit for bit;
 14. training with the merged block, the main path: fit() as in phase 11
     with ModelConfig(merged_block=True); per step H 1, I 1, A, C, D 0,
-    B 16, E 16 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
-    11's; the merged serving forward at B=16 launches H and not A and
-    picks the unmerged answer on >= 75% of rows;
+    B 1, E 16 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
+    11's; the merged serving forward at B=16 launches H and B once and
+    not A and picks the unmerged answer on >= 75% of rows;
 6. timing, in four parts: after phase 5 the serving kernels and the
-   forward at B=16 and 256, after phase 9 the training kernels and the
-   training step at B=64 and 256, after phase 14 the gather kernels at
+   forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
+   the per-step kernel), after phase 9 the training kernels and the
+   training step at B=64 and 256 (E's dW/db beside cuBLAS and the SIMT
+   reduction), after phase 14 the gather kernels at
    B=64 and 256, the cache-mode training step beside host mode,
    evaluate's throughput, then H, I and the hand GEMM at B=64 and 256,
    the merged block beside the unmerged one and the merged training
@@ -105,7 +115,9 @@ from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
                                            gru_scan_sweep_reference,
                                            gru_wgrad_reference,
                                            input_projection)
-from vqa_project_tpu_torch.ops.gru_scan import gru_scan, gru_scan_bwd, gru_wgrad
+from vqa_project_tpu_torch.ops.gru_scan import (gru_scan, gru_scan_bwd,
+                                                gru_wgrad, scan_kernel,
+                                                wgrad_kernel)
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
 from vqa_project_tpu_torch.train import (QuantizedFeatureCache, build_model,
                                          evaluate, fit, make_feature_cache,
@@ -143,7 +155,7 @@ SOURCES = {
         "vqa_project_tpu/ops/pallas/edge_aggregate.py:282"),
     "gru_scan_bwd_step": ("vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
                           "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
-    "gru_wgrad": ("vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
+    "gru_wgrad": ("vqa_project_tpu_torch/csrc/gru_wgrad.cu",
                   "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
     "gather_rows_packed": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
                            "vqa_project_tpu/ops/pallas/gather_rows.py:91"),
@@ -167,9 +179,10 @@ WRAPPERS = {
     "graph_block_fwd": graph_block_fwd,                        # H
     "graph_block_bwd": graph_block_bwd,                        # I
 }
-# launches of one training step (host mode: F and G 0)
+# launches of one bf16 training step (host mode: F and G 0); kernel B is
+# the persistent kernel, one launch for all 16 steps
 TRAIN_STEP_LAUNCHES = {
-    "edge_aggregate_fwd": 0, "gru_scan_fwd": 16, "edge_aggregate_fwd_res": 2,
+    "edge_aggregate_fwd": 0, "gru_scan_fwd": 1, "edge_aggregate_fwd_res": 2,
     "edge_aggregate_bwd": 2, "gru_scan_bwd_step": 16, "gru_wgrad": 1,
     "gather_rows_packed": 0, "gather_rows_blocked": 0,
     "graph_block_fwd": 0, "graph_block_bwd": 0}
@@ -268,25 +281,61 @@ def time_ms(fn, samples: int = 50, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def time_device_ms(fn, samples: int = 50, reps: int = 10,
-                   hold_cycles: int = 4_000_000) -> float:
-    """time_ms with each sample's launches queued behind a sleep kernel
-    (~2 ms), so that the host's time to enqueue them is hidden: the
-    device time per call of a call shorter than its own enqueue."""
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep per ms on this card (measured
+    once, on events: one launch, so no enqueue is in it)."""
+    if not hasattr(sleep_cycles_per_ms, "rate"):
+        torch.cuda._sleep(1_000_000)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(100_000_000)
+        end.record()
+        end.synchronize()
+        sleep_cycles_per_ms.rate = 1e8 / start.elapsed_time(end)
+    return sleep_cycles_per_ms.rate
+
+
+def time_device_ms(fn, samples: int = 50, reps: int = 10) -> float:
+    """time_ms with each sample's launches queued behind a sleep kernel,
+    so that the host's time to enqueue them is hidden: the device time
+    per call of a call shorter than its own enqueue. The sleep lasts
+    twice the host time of one sample's enqueue, plus 1 ms; a sample
+    whose enqueue still outlasted its sleep (the host was descheduled)
+    is taken again behind a sleep twice as long, up to four times. A
+    sample still uncovered then is kept and reported, since its time
+    holds host time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    hold_ms = 2 * enqueue_ms + 1
+    times, uncovered = [], 0
     for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(hold_cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
+        for attempt in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            hold = hold_ms * 2 ** attempt
+            t0 = time.perf_counter()
+            torch.cuda._sleep(int(hold * sleep_cycles_per_ms()))
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            covered = (time.perf_counter() - t0) * 1e3 < 0.9 * hold
+            end.synchronize()
+            if covered:
+                break
+        uncovered += not covered
         times.append(start.elapsed_time(end) / reps)
+    if uncovered:
+        print(f"time_device_ms: {uncovered} of {samples} samples of "
+              f"{getattr(fn, '__qualname__', fn)} held the host's enqueue",
+              flush=True)
     return statistics.median(times)
 
 
@@ -351,22 +400,57 @@ def check_kernels(dev, gen):
         if label == "vqa conv1":
             errs["edge_aggregate_fwd"] = float(
                 (out16.float() - ref16.float()).abs().max())
-    # kernel B: T=16, H=1024, B=16 and 256, qlen spread over 1..16
-    for b in (SERVE_B, 256):
-        (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, 16, 300, 1024, gen, dev)
-        h = gru_scan(xp, w_hh, b_hh, qlen)
-        ref = gru_scan_reference(xp, w_hh, b_hh, qlen)
+    # kernel B: T=16, H=1024, the persistent kernel (bf16 weights) and
+    # the per-step one (f32) at B = 1, 16, 64, 200 (a ragged second batch
+    # half) and 256, qlen spread over 0..T (0 and T included) and all
+    # equal to T; a second run must give the same bits
+    t = FULL["max_qlen"]
+    for b in (1, SERVE_B, TRAIN_B, 200, 256):
+        require(scan_kernel(torch.bfloat16, b, 1024) == "persistent"
+                and scan_kernel(torch.float32, b, 1024) == "per_step",
+                f"kernel B's rule at B={b}")
+        (xp, w_hh, b_hh, _), _ = gru_inputs(b, t, 300, 1024, gen, dev)
+        spread = torch.arange(b) % (t + 1)
+        spread[:2] = torch.tensor([0, t])[:b]
+        for label, qlen in (("spread", spread),
+                            ("all T", torch.full((b,), t))):
+            qlen = qlen.to(dev, torch.int32)
+            e_b, same = [], []
+            for w in (w_hh, w_hh.to(torch.bfloat16)):
+                h = gru_scan(xp, w, b_hh, qlen)
+                again = gru_scan(xp, w, b_hh, qlen)
+                ref = gru_scan_reference(xp, w, b_hh, qlen)
+                torch.cuda.synchronize()
+                e_b.append(float((h - ref).abs().max()))
+                same.append(torch.equal(h, again))
+            print(f"kernel B B={b} T={t} H=1024 qlen {label}: max abs err "
+                  f"f32 per-step {e_b[0]:.3e} (<= 1e-5), bf16 persistent "
+                  f"{e_b[1]:.3e} (<= 2e-3); second run equal bit for bit "
+                  f"{same}", flush=True)
+            require(e_b[0] <= 1e-5 and e_b[1] <= 2e-3 and all(same),
+                    f"kernel B B={b} qlen {label} disagrees")
+            if b == SERVE_B and label == "spread":
+                errs["gru_scan_fwd"] = e_b[1]
+    # the rest of kernel B's bf16 rule: the persistent kernel's 96-wide K
+    # chunks (B = 129..160), narrower widths, and the per-step kernel
+    # past 256 rows
+    for b, h in ((150, 1024), (16, 128), (150, 256), (257, 1024)):
+        want = "per_step" if b > 256 else "persistent"
+        require(scan_kernel(torch.bfloat16, b, h) == want,
+                f"kernel B's rule at B={b} H={h}")
+        (xp, w_hh, b_hh, _), _ = gru_inputs(b, t, 300, h, gen, dev)
         w16 = w_hh.to(torch.bfloat16)
-        h16 = gru_scan(xp, w16, b_hh, qlen)
-        ref16 = gru_scan_reference(xp, w16, b_hh, qlen)
+        qlen = (torch.arange(b) % (t + 1)).to(dev, torch.int32)
+        out = gru_scan(xp, w16, b_hh, qlen)
+        again = gru_scan(xp, w16, b_hh, qlen)
+        ref = gru_scan_reference(xp, w16, b_hh, qlen)
         torch.cuda.synchronize()
-        e32 = float((h - ref).abs().max())
-        e16 = float((h16 - ref16).abs().max())
-        print(f"kernel B B={b} T=16 H=1024: max abs err f32 {e32:.3e} "
-              f"(<= 1e-5), bf16 weights {e16:.3e} (<= 2e-3)", flush=True)
-        require(e32 <= 1e-5 and e16 <= 2e-3, f"kernel B B={b} disagrees")
-        if b == SERVE_B:
-            errs["gru_scan_fwd"] = e16
+        err = float((out - ref).abs().max())
+        same = torch.equal(out, again)
+        print(f"kernel B B={b} T={t} H={h} bf16 {want}, qlen spread: max "
+              f"abs err {err:.3e} (<= 2e-3); second run equal bit for bit "
+              f"{same}", flush=True)
+        require(err <= 2e-3 and same, f"kernel B B={b} H={h} disagrees")
     return errs
 
 
@@ -629,36 +713,89 @@ def check_dropout(sel, pseudo, proj, gp, seeds, out, label):
 
 def check_gru_training(dev, gen, errs):
     """Phase 7, kernel B's states and kernel E (sweep, then dW/db), each
-    against its plain version on the same inputs."""
-    for b in (TRAIN_B, 256):
+    against its plain version on the same inputs, at B = 8, 50 (R = 750
+    rows, not a multiple of the weight gradient's 64-row K step), 64 and
+    256: with bf16 weights the persistent kernel's hs16 equal to hs in
+    bf16 bit for bit and the wgmma weight gradient taking it, with f32
+    weights the SIMT one taking hs; dW/db repeating bit for bit."""
+    for b in (8, 50, TRAIN_B, 256):
         (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, 16, 300, 1024, gen, dev)
         gh = torch.randn(b, w_hh.shape[1], generator=gen).to(dev)
         for w, tol_hs, tol in ((w_hh, 1e-5, 1e-4),
                                (w_hh.to(torch.bfloat16), 2e-3, 1e-2)):
-            _, hs = gru_scan(xp, w, b_hh, qlen, return_hs=True)
+            kernel = wgrad_kernel(w.dtype, w.shape[1])
+            require(kernel == ("wgmma" if w.dtype == torch.bfloat16
+                               else "simt"), "kernel E's weight-gradient rule")
+            _, hs, hs16 = gru_scan(xp, w, b_hh, qlen, return_hs=True)
             _, r_hs = gru_scan_reference(xp, w, b_hh, qlen, return_hs=True)
             dxp, dhp = gru_scan_bwd(xp, w, b_hh, qlen, hs, gh)
             r_dxp, r_dhp = gru_scan_sweep_reference(xp, w, b_hh, qlen, hs, gh)
-            dw, db = gru_wgrad(dhp, hs)
+            states = hs16 if kernel == "wgmma" else hs
+            dw, db = gru_wgrad(dhp, states)
+            dw2, db2 = (wgrad_into_nan(dhp, states) if kernel == "wgmma"
+                        else gru_wgrad(dhp, states))
             r_dw, r_db = gru_wgrad_reference(dhp, hs)
             torch.cuda.synchronize()
             e_hs = float((hs - r_hs).abs().max())
+            same16 = (hs16 is None if w.dtype == torch.float32 else
+                      torch.equal(hs16, hs.to(torch.bfloat16)))
             e_sweep = max(norm_err(dxp, r_dxp), norm_err(dhp, r_dhp))
             e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
+            repeat = torch.equal(dw, dw2) and torch.equal(db, db2)
             print(f"kernel B states / E B={b} T=16 H=1024 "
                   f"{str(w.dtype)[6:]} weights: hs max abs err {e_hs:.2e} "
-                  f"(<= {tol_hs}); sweep dxp/dhp normalized {e_sweep:.2e} "
-                  f"(<= {tol}); dW/db normalized {e_w:.2e} (<= 1e-4)",
-                  flush=True)
-            require(e_hs <= tol_hs, f"kernel B states B={b} disagree")
+                  f"(<= {tol_hs}); hs16 = hs in bf16 bit for bit {same16}; "
+                  f"sweep dxp/dhp normalized {e_sweep:.2e} (<= {tol}); "
+                  f"dW/db ({kernel}) normalized {e_w:.2e} (<= 1e-4), second "
+                  f"run equal bit for bit {repeat}", flush=True)
+            require(e_hs <= tol_hs and same16,
+                    f"kernel B states B={b} disagree")
             require(e_sweep <= tol, f"kernel E sweep B={b} disagrees")
-            require(e_w <= 1e-4, f"kernel E dW/db B={b} disagrees")
+            require(e_w <= 1e-4 and repeat, f"kernel E dW/db B={b} disagrees")
             if b == TRAIN_B and w.dtype == torch.bfloat16:
                 errs["gru_scan_bwd_step"] = max(
                     float((dxp - r_dxp).abs().max()),
                     float((dhp.float() - r_dhp.float()).abs().max()))
                 errs["gru_wgrad"] = max(float((dw - r_dw).abs().max()),
                                         float((db - r_db).abs().max()))
+    # the wgmma weight gradient at the narrow widths its rule admits:
+    # one or two row tiles, a column tile past H (H = 64, 192), and db
+    # spread over few blocks (192 columns a block at H = 64 and 128)
+    for h in (64, 128, 192):
+        for b in (8, 50):
+            (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, 16, 300, h, gen, dev)
+            w16 = w_hh.to(torch.bfloat16)
+            require(wgrad_kernel(w16.dtype, h) == "wgmma",
+                    "kernel E's weight-gradient rule")
+            _, hs, hs16 = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
+            gh = torch.randn(b, h, generator=gen).to(dev)
+            _, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
+            dw, db = gru_wgrad(dhp, hs16)
+            dw2, db2 = wgrad_into_nan(dhp, hs16)
+            r_dw, r_db = gru_wgrad_reference(dhp, hs)
+            torch.cuda.synchronize()
+            e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
+            repeat = torch.equal(dw, dw2) and torch.equal(db, db2)
+            same16 = torch.equal(hs16, hs.to(torch.bfloat16))
+            print(f"kernel E dW/db (wgmma) B={b} T=16 H={h}: normalized "
+                  f"{e_w:.2e} (<= 1e-4); a second run into NaN-filled "
+                  f"outputs equal bit for bit {repeat}; hs16 = hs in bf16 "
+                  f"{same16}", flush=True)
+            require(e_w <= 1e-4 and repeat and same16,
+                    f"kernel E dW/db B={b} H={h} disagrees")
+
+
+def wgrad_into_nan(dhp, hs16):
+    """The wgmma weight gradient through its C entry into outputs filled
+    with NaN, so that an element it leaves unwritten shows."""
+    t, b, h3 = dhp.shape
+    dw = torch.full((h3, h3 // 3), float("nan"), device=dhp.device)
+    db = torch.full((h3,), float("nan"), device=dhp.device)
+    rc = _build.load("gru_wgrad").gru_wgrad_wgmma(
+        dhp.data_ptr(), hs16.data_ptr(), dw.data_ptr(), db.data_ptr(), t, b,
+        h3 // 3, torch.cuda.current_stream(dhp.device).cuda_stream)
+    _build.check(rc, "gru_wgrad_wgmma")
+    return dw, db
 
 
 def random_train_batch(b, cfg, gen):
@@ -694,7 +831,8 @@ def train_step_card_vs_cpu(dev, gen, b=8):
     m_gpu = train_step(gpu, make_optimizer(gpu, tcfg, 10)[0], None, batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = TRAIN_STEP_LAUNCHES
+    # f32 weights: kernel B runs per step, one launch for each of T
+    want = {**TRAIN_STEP_LAUNCHES, "gru_scan_fwd": cfg.max_qlen}
     e_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(
         float(m_cpu["loss"]))
     gpu_params = dict(gpu.named_parameters())
@@ -754,8 +892,8 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
     cache None is host mode, merged the merged graph block. Checks the
     losses, the moved parameters and the checkpoint, and the launches per
     step (the mini-validation's forwards launch A twice, or H once with
-    the merged block, B 16 times, and with a cache F and G once, per
-    batch). Returns (model, per-step losses, launch counts)."""
+    the merged block, B once, and with a cache F and G once, per batch).
+    Returns (model, per-step losses, launch counts)."""
     mcfg = ModelConfig(**FULL, merged_block=merged)  # bf16, dropout 0.5
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(lr=1e-4, epochs=1, batch_size=TRAIN_B,
@@ -793,7 +931,7 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
         per_step["graph_block_fwd"] -= val_batches
     else:
         per_step["edge_aggregate_fwd"] -= 2 * val_batches
-    per_step["gru_scan_fwd"] -= 16 * val_batches
+    per_step["gru_scan_fwd"] -= val_batches
     want = TRAIN_STEP_LAUNCHES
     if cache is not None:
         per_step["gather_rows_packed"] -= val_batches
@@ -861,11 +999,12 @@ def profile(fn, label: str, n: int = 10) -> None:
             rows.append((evt.self_device_time_total / n / 1e3, evt.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
+    gru = [[round(ms, 5), key[:60]] for ms, key in rows if "gru_" in key]
     print(f"profile of {label}: wall {wall_ms:.4f} ms per call (profiler "
           f"on), device busy {busy:.4f} ms ({100 * busy / wall_ms:.1f}%); "
           f"top device items (ms per call): "
-          + json.dumps([[round(ms, 5), key[:80]] for ms, key in rows[:12]]),
-          flush=True)
+          + json.dumps([[round(ms, 5), key[:80]] for ms, key in rows[:12]])
+          + "; the GRU kernels: " + json.dumps(gru), flush=True)
 
 
 def measure(dev, gen, launches, errs, model):
@@ -902,9 +1041,40 @@ def measure(dev, gen, launches, errs, model):
         per_conv = [time_device_ms(lambda x=x: fused_sel_aggregate_act(
             *x, relu=True)) for x in a_in]
 
+        detail.append({"batch": b, "forward_ms": forward_ms,
+                       "edge_aggregate_fwd": a,
+                       "edge_aggregate_fwd_per_conv_ms": per_conv})
+        if b == SERVE_B:
+            entries.append(entry("edge_aggregate_fwd", a, launches, errs))
+    g = time_gru_scan(dev, gen)
+    entries.append(entry("gru_scan_fwd", g[SERVE_B], launches, errs))
+    print("timing detail (bf16 forward, CUDA events back to back; kernels: "
+          "device times, launches queued behind a sleep kernel, and "
+          "back_to_back_ms with the host's enqueue in them; bf16 proj; A = "
+          "conv1 + conv2 launches): " + json.dumps(detail), flush=True)
+    print("kernel B timing (bf16 W_hh, T=16, H=1024; ms = the persistent "
+          "kernel, one launch; per_step_ms = the per-step kernel of the "
+          "first slice through its C entry gru_scan_fwd on the same bf16 "
+          "weights, 16 launches; f32_weights_ms = the per-step kernel with "
+          "f32 weights; library = cuDNN nn.GRU on a packed bf16 batch, "
+          "input projection included): "
+          + json.dumps({f"B={b}": t for b, t in g.items()}), flush=True)
+    return entries
+
+
+def time_gru_scan(dev, gen):
+    """Phase 6, kernel B at B = 16, 64 and 256: the persistent kernel
+    (bf16 W_hh) beside its plain version, its bound, cuDNN nn.GRU and the
+    per-step kernel it replaced (the first slice's gru_scan_fwd entry,
+    same bf16 weights), and the per-step kernel with f32 weights."""
+    lib = _build.load("gru_scan")
+    out = {}
+    for b in (SERVE_B, TRAIN_B, 256):
         (xp, w_hh, b_hh, qlen), (emb, w_ih, b_ih) = gru_inputs(
             b, 16, 300, 1024, gen, dev)
         w16 = w_hh.to(torch.bfloat16)
+        require(scan_kernel(w16.dtype, b, 1024) == "persistent",
+                "kernel B's rule")
         gru = torch.nn.GRU(300, 1024, batch_first=True, device=dev,
                            dtype=torch.bfloat16)
         with torch.no_grad():
@@ -921,24 +1091,25 @@ def measure(dev, gen, launches, errs, model):
             with torch.no_grad():
                 gru(packed)
 
-        g = timed(lambda: gru_scan(xp, w16, b_hh, qlen),
+        h_a = torch.zeros((b, 1024), device=dev)
+        h_b = torch.empty_like(h_a)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def per_step():
+            return lib.gru_scan_fwd(
+                xp.data_ptr(), w16.data_ptr(), b_hh.data_ptr(),
+                qlen.data_ptr(), h_a.data_ptr(), h_b.data_ptr(), None, 16,
+                b, 1024, 1, stream)
+
+        _build.check(per_step(), "gru_scan_fwd")
+        t = timed(lambda: gru_scan(xp, w16, b_hh, qlen),
                   lambda: gru_scan_reference(xp, w16, b_hh, qlen),
                   *gru_bound(xp, w16, b_hh, qlen), library=library_b)
-        g_f32 = time_device_ms(lambda: gru_scan(xp, w_hh, b_hh, qlen))
-        detail.append({"batch": b, "forward_ms": forward_ms,
-                       "edge_aggregate_fwd": a,
-                       "edge_aggregate_fwd_per_conv_ms": per_conv,
-                       "gru_scan_fwd": g, "gru_scan_fwd_f32_weights_ms":
-                       g_f32})
-        if b == SERVE_B:
-            for name, t in (("edge_aggregate_fwd", a), ("gru_scan_fwd", g)):
-                entries.append(entry(name, t, launches, errs))
-    print("timing detail (bf16 forward, CUDA events back to back; kernels: "
-          "device times, launches queued behind a sleep kernel, and "
-          "back_to_back_ms with the host's enqueue in them; bf16 proj / "
-          "bf16 W_hh; A = conv1 + conv2 launches; B = all 16 step "
-          "launches): " + json.dumps(detail), flush=True)
-    return entries
+        t["per_step_ms"] = time_device_ms(per_step)
+        t["f32_weights_ms"] = time_device_ms(
+            lambda: gru_scan(xp, w_hh, b_hh, qlen))
+        out[b] = t
+    return out
 
 
 def entry(name, t, launches, errs):
@@ -994,11 +1165,12 @@ def sweep_bound(xp, w_hh, qlen):
 
 
 def wgrad_bound(dhp, hs, qlen):
-    """Kernel E's dW/db: dhp and hs in, dW and db out (f32); products only
-    where dhp and h_prev are both non-zero (steps 1 .. qlen-1)."""
+    """Kernel E's dW/db: dhp and the states hs (hs16 for the wgmma
+    product) in, dW and db out (f32); products only where dhp and h_prev
+    are both non-zero (steps 1 .. qlen-1)."""
     t, b, h3 = dhp.shape
     h = h3 // 3
-    nbytes = (dhp.numel() * dhp.element_size() + hs.numel() * 4
+    nbytes = (dhp.numel() * dhp.element_size() + hs.numel() * hs.element_size()
               + h3 * h * 4 + h3 * 4)
     rows = int((qlen.clamp(max=t).long() - 1).clamp(min=0).sum())
     return nbytes, 2 * h3 * h * rows / PEAK_FLOPS[dhp.dtype]
@@ -1008,10 +1180,11 @@ def timed(kernel, plain, nbytes, ops_s, library=None):
     """Device times (time_device_ms) of the kernel, its plain version and
     the library call beside the bound, and the kernel's back-to-back
     event time, which holds the host's enqueue where a call is shorter
-    on the card than on the host."""
+    on the card than on the host. The plain version, hundreds of small
+    launches, is taken one call a sample."""
     t = dict(ms=time_device_ms(kernel),
-             plain_ms=time_device_ms(plain, samples=10, reps=3),
-             library_ms=time_device_ms(library) if library else None,
+             plain_ms=time_device_ms(plain, samples=10, reps=1),
+             library_ms=(time_device_ms(library) if library else None),
              back_to_back_ms=time_ms(kernel))
     t["bound_ms"], t["bound_by"] = bound(nbytes, ops_s)
     return t
@@ -1067,7 +1240,7 @@ def measure_training(dev, gen, counts, errs):
         (xp, w_hh, b_hh, qlen), (emb, w_ih, b_ih) = gru_inputs(
             b, 16, 300, 1024, gen, dev)
         w16 = w_hh.to(torch.bfloat16)
-        _, hs = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
+        _, hs, hs16 = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
         hid = w_hh.shape[1]
         gh = torch.randn(b, hid, generator=gen).to(dev)
         _, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
@@ -1078,26 +1251,31 @@ def measure_training(dev, gen, counts, errs):
                             ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
                 getattr(gru, name).copy_(x)
         gru.flatten_parameters()
-        emb16 = emb.to(torch.bfloat16).requires_grad_(True)
         gh16 = gh.to(torch.bfloat16)[None]
+        # packed once, its data a leaf: packing copies the sort order to
+        # the card from pageable memory, which waits on the device
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            emb.to(torch.bfloat16), qlen.cpu().long(), batch_first=True,
+            enforce_sorted=False)
+        packed = torch.nn.utils.rnn.PackedSequence(
+            packed.data.requires_grad_(True), packed.batch_sizes,
+            packed.sorted_indices, packed.unsorted_indices)
 
         def cudnn_fwd_bwd():
-            packed = torch.nn.utils.rnn.pack_padded_sequence(
-                emb16, qlen.cpu().long(), batch_first=True,
-                enforce_sorted=False)
             _, h_n = gru(packed)
             h_n.backward(gh16)
 
         e = timed(lambda: gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh),
                   lambda: gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh),
                   *sweep_bound(xp, w16, qlen), library=cudnn_fwd_bwd)
-        h_prev = hs[:-1].reshape(-1, hid).to(torch.bfloat16)
+        h_prev = hs16[:-1].reshape(-1, hid)
         dhp_rows = dhp[1:].reshape(-1, 3 * hid)
-        wg = timed(lambda: gru_wgrad(dhp, hs),
-                   lambda: gru_wgrad_reference(dhp, hs),
-                   *wgrad_bound(dhp, hs, qlen),
+        wg = timed(lambda: gru_wgrad(dhp, hs16),
+                   lambda: gru_wgrad_reference(dhp, hs16),
+                   *wgrad_bound(dhp, hs16, qlen),
                    library=lambda: torch.mm(dhp_rows.t(), h_prev,
                                             out_dtype=torch.float32))
+        wg["simt_ms"] = time_wgrad_simt(dhp, hs)
         step_ms = time_train_step(dev, gen, b)
         detail.append({"batch": b, "train_step_ms": step_ms,
                        "train_qa_pairs_per_s": b * 1e3 / step_ms,
@@ -1112,10 +1290,33 @@ def measure_training(dev, gen, counts, errs):
           "queued behind a sleep kernel, and back_to_back_ms; C and D = "
           "conv1 with dropout + "
           "conv2; E sweep = all 16 step launches, library = cuDNN nn.GRU "
-          "forward + backward together; E dW/db library = one cuBLAS mm "
-          "for dW alone; train step = host clock per step ending in a "
-          "fetch, median of 10): " + json.dumps(detail), flush=True)
+          "forward + backward together; E dW/db = the wgmma product from "
+          "hs16, library = one cuBLAS mm for dW alone, simt_ms = the SIMT "
+          "reduction of the second slice through its C entry gru_wgrad "
+          "(f32 hs); train step = host clock per step "
+          "ending in a fetch, median of 10): " + json.dumps(detail),
+          flush=True)
     return entries
+
+
+def time_wgrad_simt(dhp, hs):
+    """Phase 6: device ms of the SIMT weight-gradient reduction that the
+    wgmma product replaced (gru_scan_bwd.cu::gru_wgrad, f32 states), on
+    the same bf16 dhp, through its C entry."""
+    t, b, h3 = dhp.shape
+    h = h3 // 3
+    require(wgrad_kernel(dhp.dtype, h) == "wgmma", "kernel E's dW/db rule")
+    dw = torch.empty((h3, h), device=dhp.device)
+    db = torch.empty((h3,), device=dhp.device)
+    stream = torch.cuda.current_stream(dhp.device).cuda_stream
+    simt = _build.load("gru_scan_bwd").gru_wgrad
+
+    def call():
+        return simt(dhp.data_ptr(), hs.data_ptr(), dw.data_ptr(),
+                    db.data_ptr(), t, b, h, 1, stream)
+
+    _build.check(call(), "gru_wgrad")
+    return time_device_ms(call)
 
 
 def time_train_step(dev, gen, b, n=10):
@@ -1772,9 +1973,8 @@ def block_fwd_bwd(dev, gen, b, adj, pseudo, x, seeds, g):
     for name, fn in (("unmerged", unmerged), ("merged", merged),
                      ("merged", merged), ("unmerged", unmerged)):
         out[name].append({"events_ms": time_ms(fn, samples=10, reps=5),
-                          "device_ms": time_device_ms(
-                              fn, samples=10, reps=5,
-                              hold_cycles=20_000_000)})
+                          "device_ms": time_device_ms(fn, samples=10,
+                                                      reps=5)})
     return out
 
 
@@ -1798,7 +1998,7 @@ def merged_serving_forward(dev, gen, model16, n_batches=4):
         logits_u, adj_u, _ = model16(*batch)
         require(counts["graph_block_fwd"] == 1
                 and counts["edge_aggregate_fwd"] == 0
-                and counts["gru_scan_fwd"] == FULL["max_qlen"],
+                and counts["gru_scan_fwd"] == 1,
                 f"launches per merged forward {counts}")
         require(bool(torch.isfinite(logits_m).all())
                 and torch.equal(adj_m, adj_u), "merged forward outputs")
@@ -1807,7 +2007,7 @@ def merged_serving_forward(dev, gen, model16, n_batches=4):
         worst = max(worst, norm_err(logits_m, logits_u))
     share = same / total
     print(f"serving forward B={SERVE_B} with the merged block: launches per "
-          f"forward H 1, A 0, B {FULL['max_qlen']}; argmax equal to the "
+          f"forward H 1, A 0, B 1; argmax equal to the "
           f"unmerged forward on {same}/{total} rows ({share:.4f}, >= 0.75); "
           f"logits normalized difference {worst:.3e}; adjacency equal",
           flush=True)
@@ -1816,7 +2016,7 @@ def merged_serving_forward(dev, gen, model16, n_batches=4):
 
 def train_merged_main_path(dev, ds, cache, cache_losses):
     """Phase 14, this slice's main path: run_fit with the merged block and
-    the bf16 device cache; per step H 1, I 1, A/C/D 0, B 16, E 16 + 1,
+    the bf16 device cache; per step H 1, I 1, A/C/D 0, B 1, E 16 + 1,
     F 1, G 1; step 1's loss (same weights, batch and dropout draws as
     phase 11) within 1e-2 relative of phase 11's: the block keeps the
     projections in f32, where the unmerged path rounds them to bf16."""

@@ -1,5 +1,6 @@
 """The kernel build: keyed by the sources, and no silent way around it."""
 
+import re
 import shutil
 
 import pytest
@@ -34,3 +35,15 @@ def test_every_kernel_source_is_declared():
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert sources == sorted(_build.KERNELS)
     assert set(_build.KERNELS) == set(_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_signatures_match_the_c_entries(kernel):
+    """Every extern "C" entry of a source is declared with as many
+    arguments as the source gives it, and nothing else is declared."""
+    text = (_build.CSRC / f"{kernel}.cu").read_text()
+    entries = {m.group(1): len(m.group(2).split(","))
+               for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text)}
+    declared = {name: len(args)
+                for name, args in _build._SIGNATURES[kernel].items()}
+    assert entries == declared

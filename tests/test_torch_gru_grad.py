@@ -44,8 +44,9 @@ def test_states_match_pallas_forward(rng):
     np.testing.assert_allclose(hs.numpy(), np.asarray(hs_want), **TOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_want), **TOL)
     before = gru_scan.launches
-    h2, hs2 = gru_scan(*args, return_hs=True)
+    h2, hs2, hs16 = gru_scan(*args, return_hs=True)
     np.testing.assert_array_equal(hs2.numpy(), hs.numpy())
+    assert hs16 is None  # f32 weights: no bf16 copy of the states
     assert gru_scan.launches == before
 
 

@@ -10,15 +10,51 @@
 // with gate order [r; z; n] and xp = emb @ W_ih^T + b_ih precomputed
 // outside (a plain GEMM, as on the TPU).
 //
-// What bounds it on an H100: bytes, and the latency of the T dependent
-// steps. Every step needs all of W_hh (3H x H: 6.3 MB in bf16 at
+// What bounds it on an H100: the latency of the T dependent steps, and
+// bytes. Every step needs all of W_hh (3H x H: 6.3 MB in bf16 at
 // H=1024) against a small h (B x H); at B=16 that is ~2 flops per weight
-// byte. The TPU kernel kept W_hh resident in its VMEM across steps;
-// one SM has 227 KB of shared memory, so here the weights are
-// streamed every step instead (they fit the 50 MB L2, which serves the
-// re-reads after the first step).
+// byte. The TPU kernel kept W_hh resident in its VMEM across steps; no
+// single SM can hold it (227 KB of shared memory), but the card's 132
+// SMs together can, one slice each.
 //
-// Design: one launch per time step (T launches ordered on one stream;
+// Two kernels; ops/gru_scan.py::scan_kernel is the rule that picks one
+// from (weight dtype, B, H).
+//
+// gru_persistent_kernel (bf16 weights, 1 <= B <= 256, H % 64 == 0,
+// H <= 1024; entry gru_scan_persistent): one cooperative launch for all
+// T steps, the TPU kernel's design carried over. Each of the H/8 blocks
+// (128 at H=1024, one per SM) owns 8 hidden units and every batch row;
+// past 128 rows two blocks split the batch and each owns 16 units, so
+// that a block reads half of h_prev per step. A block loads its units'
+// rows of W_hh (r, z, n: 48 or 96 KB in bf16) into shared memory once;
+// they stay there for every step, rows padded by 16 bytes so that
+// ldmatrix reads them without bank conflicts. Per step the block streams
+// its rows of h_prev in bf16 (written by every block in the step before)
+// from L2 in K-chunks through a 4-stage cp.async ring and multiplies on
+// the tensor cores with mma.sync.m16n8k16 (bf16 in, f32 sum): M is the
+// batch in 16-row tiles, N is three n8 tiles (r, z, n) per 8 units, and
+// K is split across the warps that M leaves free. The three n8 tiles give
+// a thread the r, z and n sums of the same (row, unit) in the same
+// registers, so the gate math, the qlen freeze and h itself (f32,
+// carried in registers from step to step) never leave the chip. The
+// K-split partials are added through shared memory in a fixed order,
+// so runs repeat bit for bit. The block writes h_t in bf16 (the next
+// step's operand: hs16[t] in training, else one of two ping-pong
+// buffers) and, in training, in f32 to hs[t]; inference writes only the
+// final state in f32. Before a step's grid barrier the block loads the
+// next step's xp for its units. Steps are separated by a grid barrier
+// on a global counter (release add, acquire loads); the launch is
+// cooperative, and the entry refuses a grid that cannot be resident all
+// at once rather than let the barrier deadlock. h_prev is read with
+// cp.async.cg (L2 only): other blocks wrote it during this launch, so no
+// load may go through the non-coherent L1/texture path. wgmma is not
+// used here: its 64-row minimum would leave three quarters of the tile
+// empty at the serving batch of 16, and this kernel is bound by the
+// latency of the T dependent steps, not by operations.
+//
+// gru_step_kernel (f32 weights, and any shape the persistent kernel
+// cannot hold; entry gru_scan_fwd): exact f32 on the SIMT cores, one
+// launch per time step (T launches ordered on one stream;
 // inference ping-pongs h between two f32 buffers, training writes every
 // step's h to hs (T, B, H), which the backward sweep reads,
 // csrc/gru_scan_bwd.cu).
@@ -182,6 +218,339 @@ cudaError_t run(const float* xp, const void* w_hh, const float* b_hh,
   return cudaSuccess;
 }
 
+// ---------------- the persistent kernel (bf16 weights) ----------------
+
+constexpr int kPThreads = 256;  // 8 warps
+constexpr int kUnits = 8;       // hidden units per octet
+constexpr int kStages = 4;      // cp.async ring depth for h_prev chunks
+constexpr int kPad = 8;         // bf16 padding per shared row (16 bytes)
+constexpr int kMaxBatch = 256;
+
+// How a launch splits its work, from B and H alone (the host computes it
+// and passes the fields; every block sees the same numbers).
+struct Plan {
+  int groups;  // batch groups: blocks along the batch (1 or 2)
+  int octets;  // unit octets per block (1 or 2): 8 * octets units
+  int mt;      // 16-row batch tiles of a group
+  int mw;      // warps along M (1, 2, 4 or 8): one tile each, mt <= mw
+  int kw;      // warps along K: 8 / mw
+  int kc;      // K chunk of h_prev staged per ring stage
+  int stages;  // ring stages allocated (min(kStages, chunks))
+};
+
+Plan make_plan(int B, int H) {
+  Plan p;
+  p.mt = (B + 15) / 16;
+  // past 8 tiles, two blocks split the batch and each owns 16 units:
+  // every block then reads half of h_prev per step
+  p.groups = p.mt > 8 ? 2 : 1;
+  p.octets = p.groups;
+  p.mt = (p.mt + p.groups - 1) / p.groups;
+  p.mw = 1;
+  while (p.mw < p.mt && p.mw < 8) p.mw *= 2;
+  p.kw = 8 / p.mw;
+  // ~32 KB per stage: the whole h_prev at B=16, 4 chunks at B=64
+  p.kc = 64 * (256 / (16 * p.mt) > 1 ? 256 / (16 * p.mt) : 1) / p.octets;
+  if (p.kc > H) p.kc = H;
+  const int chunks = (H + p.kc - 1) / p.kc;
+  p.stages = chunks < kStages ? chunks : kStages;
+  return p;
+}
+
+size_t persistent_smem_bytes(const Plan& p, int H) {
+  return static_cast<size_t>(3 * kUnits * p.octets) * (H + kPad) * 2 +
+         static_cast<size_t>(p.stages) * p.mt * 16 * (p.kc + kPad) * 2 +
+         static_cast<size_t>(p.kw - 1) * p.mw * p.octets * 384 * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col): bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared through L2 only (.cg); zero fill when !valid
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// All blocks of the launch meet here; `target` is the number of arrivals
+// that completes this barrier (the counter only grows). After the
+// block's barrier, thread 0 publishes the block's writes with a release
+// add and takes the others' with acquire loads; the block's barrier
+// after it hands them on (CUTLASS's generic barrier does the same).
+__device__ __forceinline__ void grid_barrier(unsigned int* counter,
+                                             unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                 :: "l"(counter) : "memory");
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+template <int NO>  // unit octets per block
+__global__ void __launch_bounds__(kPThreads, 1)
+gru_persistent_kernel(const float* __restrict__ xp,            // (T, B, 3H)
+                      const __nv_bfloat16* __restrict__ w_hh,  // (3H, H)
+                      const float* __restrict__ b_hh,          // (3H)
+                      const int* __restrict__ qlen,            // (B)
+                      float* __restrict__ h_out,  // (B, H) or null
+                      float* __restrict__ hs,     // (T, B, H) or null
+                      // (T, B, H) with hs, else (2, B, H): written and
+                      // read by every block within the launch
+                      __nv_bfloat16* h16, unsigned int* counter, int T,
+                      int B, int H, Plan plan) {
+  extern __shared__ uint4 smem4[];
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int w_ld = H + kPad;
+  __nv_bfloat16* ring = w_s + 3 * kUnits * NO * w_ld;
+  const int rows = plan.mt * 16;
+  const int r_ld = plan.kc + kPad;
+  const int stage_elems = rows * r_ld;
+  float* red = reinterpret_cast<float*>(ring + plan.stages * stage_elems);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warp (wm, kg) multiplies batch tile wm over the K slices s = kg mod kw
+  const int wm = warp % plan.mw, kg = warp / plan.mw;
+  const bool has_tile = wm < plan.mt;  // warp-uniform
+  const int unit_blocks = H / (kUnits * NO);
+  const int j0 = (blockIdx.x % unit_blocks) * kUnits * NO;
+  const int b0 = (blockIdx.x / unit_blocks) * rows;  // this block's batch rows
+  const int h3 = 3 * H;
+  const size_t step = static_cast<size_t>(B) * H;
+
+  // this block's weight rows once: octet o, gate g, unit u at shared row
+  // (3 o + g) 8 + u (r, z, n of units j0 + 8 o + u)
+  for (int i = tid; i < 3 * kUnits * NO * (H / 8); i += kPThreads) {
+    const int r = i / (H / 8), c = (i % (H / 8)) * 8;
+    const int o = r / (3 * kUnits), g = (r / kUnits) % 3, u = r % kUnits;
+    *reinterpret_cast<uint4*>(w_s + r * w_ld + c) = __ldg(reinterpret_cast<const uint4*>(
+        w_hh + static_cast<size_t>(g * H + j0 + kUnits * o + u) * H + c));
+  }
+
+  // the C fragment positions this thread finishes (warps with kg == 0):
+  // rows row[0] and row[0] + 8 of tile wm, units j0 + 8 o + uo and + 1;
+  // element e of a gate's fragment is (row e / 2, unit e % 2)
+  const int uo = (lane & 3) * 2;
+  int row[2], q[2];
+  float hreg[NO][4], xv[NO][3][4], bias[NO][3][2];
+#pragma unroll
+  for (int o = 0; o < NO; ++o) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bias[o][g][e] = b_hh[g * H + j0 + kUnits * o + uo + e];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hreg[o][e] = 0.f;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = b0 + wm * 16 + (lane >> 2) + 8 * h;
+    q[h] = row[h] < B ? qlen[row[h]] : 0;
+  }
+  auto load_xp = [&](int t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (kg != 0 || !has_tile || row[h] >= B) continue;
+      const float* x = xp + (static_cast<size_t>(t) * B + row[h]) * h3 + j0 + uo;
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(x + g * H + kUnits * o));
+          xv[o][g][2 * h] = v.x;
+          xv[o][g][2 * h + 1] = v.y;
+        }
+    }
+  };
+  load_xp(0);
+  __syncthreads();
+
+  const int chunks = (H + plan.kc - 1) / plan.kc;
+  for (int t = 0; t < T; ++t) {
+    float acc[3 * NO][4];  // (octet, gate) n8 tiles of this warp's tile
+#pragma unroll
+    for (int g = 0; g < 3 * NO; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+
+    if (t > 0) {  // at t = 0, h_prev = 0 and the product is 0
+      const __nv_bfloat16* src =
+          h16 + (hs ? static_cast<size_t>(t - 1) : static_cast<size_t>((t - 1) & 1)) * step;
+      auto load_chunk = [&](int c) {
+        if (c < chunks) {
+          const int k0 = c * plan.kc;
+          const int kn = min(plan.kc, H - k0);
+          __nv_bfloat16* dst = ring + (c % kStages) * stage_elems;
+          const int per_row = kn / 8;
+          for (int i = tid; i < rows * per_row; i += kPThreads) {
+            const int r = i / per_row, p = (i % per_row) * 8;
+            const bool valid = b0 + r < B;
+            cp_async_16(dst + r * r_ld + p,
+                        src + (valid ? static_cast<size_t>(b0 + r) * H + k0 + p : 0),
+                        valid);
+          }
+        }
+        cp_async_commit();
+      };
+#pragma unroll
+      for (int c = 0; c < kStages - 1; ++c) load_chunk(c);
+      for (int c = 0; c < chunks; ++c) {
+        cp_async_wait<kStages - 2>();
+        __syncthreads();  // chunk c landed; stage (c-1) % kStages is free
+        load_chunk(c + kStages - 1);
+        const __nv_bfloat16* a_s = ring + (c % kStages) * stage_elems;
+        const int k0 = c * plan.kc;
+        const int slices = has_tile ? min(plan.kc, H - k0) / 32 : 0;
+        for (int s = kg; s < slices; s += plan.kw) {
+          const int kk = s * 32;
+          // per (octet, gate): b0, b1 of k16 step 0, then step 1
+          uint32_t bf[3 * NO][4];
+#pragma unroll
+          for (int g = 0; g < 3 * NO; ++g)
+            ldsm_x4(bf[g], w_s + (g * kUnits + (lane & 7)) * w_ld + k0 + kk +
+                               (lane >> 3) * 8);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t af[4];
+            ldsm_x4(af, a_s + (wm * 16 + (lane & 15)) * r_ld + kk + h * 16 +
+                            (lane >> 4) * 8);
+#pragma unroll
+            for (int g = 0; g < 3 * NO; ++g)
+              mma_bf16(acc[g], af, bf[g][2 * h], bf[g][2 * h + 1]);
+          }
+        }
+      }
+      cp_async_wait<0>();  // only empty groups remain
+
+      if (plan.kw > 1) {  // K-split partials, added in a fixed order
+        if (kg > 0) {
+          float* slot = red + ((kg - 1) * plan.mw + wm) * 384 * NO;
+#pragma unroll
+          for (int g = 0; g < 3 * NO; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) slot[(g * 4 + e) * 32 + lane] = acc[g][e];
+        }
+        __syncthreads();
+        if (kg == 0) {
+          for (int k = 1; k < plan.kw; ++k) {
+            const float* slot = red + ((k - 1) * plan.mw + wm) * 384 * NO;
+#pragma unroll
+            for (int g = 0; g < 3 * NO; ++g)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[g][e] += slot[(g * 4 + e) * 32 + lane];
+          }
+        }
+      }
+    }
+
+    if (kg == 0 && has_tile) {
+      __nv_bfloat16* d16 =
+          h16 + (hs ? static_cast<size_t>(t) : static_cast<size_t>(t & 1)) * step;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = row[h];
+        if (b >= B) continue;
+#pragma unroll
+        for (int o = 0; o < NO; ++o) {
+          float out[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * h + u;
+            const float hp = hreg[o][e];
+            float h_new = hp;
+            if (t < q[h]) {
+              const float rg = sigmoid(xv[o][0][e] + (acc[3 * o][e] + bias[o][0][u]));
+              const float z = sigmoid(xv[o][1][e] + (acc[3 * o + 1][e] + bias[o][1][u]));
+              const float n = tanhf(xv[o][2][e] + rg * (acc[3 * o + 2][e] + bias[o][2][u]));
+              h_new = (1.f - z) * n + z * hp;
+            }
+            hreg[o][e] = h_new;
+            out[u] = h_new;
+          }
+          const size_t at = static_cast<size_t>(b) * H + j0 + kUnits * o + uo;
+          *reinterpret_cast<__nv_bfloat162*>(d16 + at) = __floats2bfloat162_rn(out[0], out[1]);
+          if (hs)
+            *reinterpret_cast<float2*>(hs + t * step + at) = make_float2(out[0], out[1]);
+          else if (t == T - 1)
+            *reinterpret_cast<float2*>(h_out + at) = make_float2(out[0], out[1]);
+        }
+      }
+    }
+    if (t + 1 < T) {
+      load_xp(t + 1);  // in flight across the barrier
+      grid_barrier(counter, static_cast<unsigned int>(t + 1) * gridDim.x);
+    }
+  }
+}
+
+template <int NO>
+cudaError_t launch_persistent(const float* xp, const __nv_bfloat16* w,
+                              const float* b_hh, const int* qlen,
+                              float* h_out, float* hs, __nv_bfloat16* h16,
+                              unsigned int* counter, int T, int B, int H,
+                              const Plan& plan, cudaStream_t stream) {
+  const size_t smem = persistent_smem_bytes(plan, H);
+  auto kernel = gru_persistent_kernel<NO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  // the grid barrier needs every block resident at once: refuse a grid
+  // that cannot be (the cooperative launch would refuse it too)
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kPThreads, smem)) != cudaSuccess)
+    return e;
+  const int blocks = H / (kUnits * NO) * plan.groups;
+  if (!coop || per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
+  if ((e = cudaMemsetAsync(counter, 0, sizeof(unsigned int), stream)) != cudaSuccess)
+    return e;
+  Plan p = plan;
+  void* args[] = {&xp, &w, &b_hh, &qlen, &h_out, &hs, &h16, &counter,
+                  &T, &B, &H, &p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                     dim3(blocks), dim3(kPThreads), args,
+                                     smem, stream);
+}
+
 }  // namespace
 
 // xp (T, B, 3H) f32; w_hh (3H, H) f32 (dtype 0) or bf16 (dtype 1);
@@ -212,5 +581,40 @@ extern "C" int gru_scan_fwd(const void* xp, const void* w_hh,
     e = run<__nv_bfloat16>(x, w_hh, bias, q, a, b, all, T, B, H, s);
   else
     e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The persistent kernel: xp (T, B, 3H) f32; w_hh (3H, H) bf16; b_hh (3H)
+// f32; qlen (B) int32; counter: one unsigned int of scratch (zeroed
+// here, on the stream). Training (hs a (T, B, H) f32 buffer): writes
+// every step's state to hs and its bf16 rounding to h16 (T, B, H);
+// h_out is not used. Inference (hs null): h16 is (2, B, H) bf16 scratch
+// and the final state goes to h_out (B, H) f32. Needs 1 <= B <= 256,
+// H % 64 == 0, H <= 1024, and the H / 8 blocks resident together (else
+// cudaErrorCooperativeLaunchTooLarge, before anything is launched). One
+// cooperative launch. Returns cudaError_t.
+extern "C" int gru_scan_persistent(const void* xp, const void* w_hh,
+                                   const void* b_hh, const void* qlen,
+                                   void* h_out, void* hs, void* h16,
+                                   void* counter, int T, int B, int H,
+                                   void* stream) {
+  if (T <= 0 || B <= 0 || B > kMaxBatch || H <= 0 || H % 64 != 0 ||
+      H > 1024 || (hs == nullptr && h_out == nullptr) || h16 == nullptr ||
+      counter == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = make_plan(B, H);
+  const auto* x = static_cast<const float*>(xp);
+  const auto* w = static_cast<const __nv_bfloat16*>(w_hh);
+  const auto* bias = static_cast<const float*>(b_hh);
+  const auto* q = static_cast<const int*>(qlen);
+  auto* out = static_cast<float*>(h_out);
+  auto* all = static_cast<float*>(hs);
+  auto* h = static_cast<__nv_bfloat16*>(h16);
+  auto* c = static_cast<unsigned int*>(counter);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      plan.octets == 2
+          ? launch_persistent<2>(x, w, bias, q, out, all, h, c, T, B, H, plan, s)
+          : launch_persistent<1>(x, w, bias, q, out, all, h, c, T, B, H, plan, s);
   return static_cast<int>(e);
 }

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 KERNELS = ("edge_aggregate", "edge_aggregate_bwd", "gather_rows",
-           "graph_block", "graph_block_bwd", "gru_scan", "gru_scan_bwd")
+           "graph_block", "graph_block_bwd", "gru_scan", "gru_scan_bwd",
+           "gru_wgrad")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,10 +63,14 @@ _SIGNATURES = {
     },
     "gru_scan": {
         "gru_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gru_scan_persistent": [_P] * 8 + [_I, _I, _I, _P],
     },
     "gru_scan_bwd": {
         "gru_scan_bwd_step": [_P] * 11 + [_I, _I, _I, _I, _P],
         "gru_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "gru_wgrad": {
+        "gru_wgrad_wgmma": [_P] * 4 + [_I, _I, _I, _P],
     },
 }
 

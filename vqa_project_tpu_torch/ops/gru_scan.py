@@ -3,11 +3,15 @@
 Counterpart of ``vqa_project_tpu/ops/pallas/gru_scan.py::pallas_gru``
 and ``gru_encode_pallas``, forward and backward. On CUDA tensors:
 
-- ``gru_scan`` launches the kernel of ``csrc/gru_scan.cu`` (B) once per
-  time step, and with ``return_hs`` keeps every step's state;
+- ``gru_scan`` launches kernel B of ``csrc/gru_scan.cu``: the persistent
+  tensor-core kernel once per call, or the per-step SIMT kernel once per
+  time step, as ``scan_kernel`` decides; with ``return_hs`` it keeps
+  every step's state in f32 and, for bf16 weights, in bf16;
 - ``gru_scan_bwd`` launches the reverse step kernel of
   ``csrc/gru_scan_bwd.cu`` (E) once per step, T-1 down to 0;
-- ``gru_wgrad`` launches E's weight-gradient kernel once.
+- ``gru_wgrad`` launches E's weight-gradient kernel once: the wgmma
+  product of ``csrc/gru_wgrad.cu`` or the SIMT reduction of
+  ``csrc/gru_scan_bwd.cu``, as ``wgrad_kernel`` decides.
 
 On CPU tensors each runs its plain version of ``ops/gru.py``
 (``gru_scan_reference``, ``gru_scan_sweep_reference``,
@@ -25,6 +29,32 @@ from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
                                            input_projection)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def scan_kernel(dtype: torch.dtype, b: int, h: int) -> str:
+    """Which kernel B runs a recurrence with weights of ``dtype``, batch
+    ``b`` and width ``h`` on the card.
+
+    "persistent" (``gru_scan_persistent``: one cooperative launch for
+    all T steps, W_hh resident in shared memory, mma.sync on the tensor
+    cores) for bf16 weights with 1 <= B <= 256, H % 64 == 0 and
+    H <= 1024: the H / 8 blocks, one per SM, and their shared memory
+    hold that shape. "per_step" (``gru_scan_fwd``: one launch per time
+    step on the SIMT cores) for everything else, f32 weights above all:
+    their product stays exact f32, with no TF32 rounding.
+    """
+    if (dtype == torch.bfloat16 and 1 <= b <= 256 and h % 64 == 0
+            and h <= 1024):
+        return "persistent"
+    return "per_step"
+
+
+def wgrad_kernel(dtype: torch.dtype, h: int) -> str:
+    """Which kernel computes dW/db for ``dhp`` of ``dtype`` at width
+    ``h`` on the card: "wgmma" (``gru_wgrad_wgmma``, bf16 operands dhp
+    and hs16 through TMA) for bf16 with H % 64 == 0, else "simt"
+    (``gru_wgrad``, f32 states, exact f32 sums for f32 weights)."""
+    return "wgmma" if dtype == torch.bfloat16 and h % 64 == 0 else "simt"
 
 
 def _check_cuda_inputs(xp, w_hh, b_hh, qlen):
@@ -58,7 +88,10 @@ def _check_cuda_inputs(xp, w_hh, b_hh, qlen):
 def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
              qlen: torch.Tensor, return_hs: bool = False):
     """GRU recurrence; returns the final hidden state (B, H) float32, and
-    with ``return_hs`` the pair (final, hs (T, B, H) float32).
+    with ``return_hs`` the triple (final, hs, hs16): every step's state
+    hs (T, B, H) float32 and, for bf16 weights, its bf16 rounding hs16
+    (T, B, H), the operand of the weight gradient (None for f32
+    weights).
 
     Args:
       xp:   (T, B, 3H) float32 input projections (b_ih included).
@@ -66,15 +99,37 @@ def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
       b_hh: (3H,) float32 hidden bias.
       qlen: (B,) int32 true lengths; h is frozen for t >= qlen.
     """
+    bf16 = w_hh.dtype == torch.bfloat16
     if xp.device.type == "cpu":
-        return gru_scan_reference(xp, w_hh, b_hh, qlen, return_hs)
+        if not return_hs:
+            return gru_scan_reference(xp, w_hh, b_hh, qlen)
+        final, hs = gru_scan_reference(xp, w_hh, b_hh, qlen, True)
+        return final, hs, hs.to(torch.bfloat16) if bf16 else None
     t, b, h = _check_cuda_inputs(xp, w_hh, b_hh, qlen)
+    dev = xp.device
     lib = _build.load("gru_scan")
-    h_a = torch.zeros((b, h), dtype=torch.float32, device=xp.device)
-    h_b = None if return_hs else torch.empty_like(h_a)
-    hs = (torch.empty((t, b, h), dtype=torch.float32, device=xp.device)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hs = (torch.empty((t, b, h), dtype=torch.float32, device=dev)
           if return_hs else None)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    if scan_kernel(w_hh.dtype, b, h) == "persistent":
+        # h16: the bf16 operand of every step (training keeps them all)
+        h16 = torch.empty((t if return_hs else 2, b, h),
+                          dtype=torch.bfloat16, device=dev)
+        final = (None if return_hs else
+                 torch.empty((b, h), dtype=torch.float32, device=dev))
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        rc = lib.gru_scan_persistent(
+            xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            qlen.data_ptr(), None if final is None else final.data_ptr(),
+            None if hs is None else hs.data_ptr(), h16.data_ptr(),
+            counter.data_ptr(), t, b, h, stream)
+        _build.check(rc, "gru_scan_persistent")
+        gru_scan.launches += 1  # one launch for all T steps
+        if return_hs:
+            return hs[-1], hs, h16
+        return final
+    h_a = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    h_b = None if return_hs else torch.empty_like(h_a)
     rc = lib.gru_scan_fwd(
         xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), qlen.data_ptr(),
         h_a.data_ptr(), None if h_b is None else h_b.data_ptr(),
@@ -83,7 +138,7 @@ def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     _build.check(rc, "gru_scan_fwd")
     gru_scan.launches += t  # one kernel launch per time step
     if return_hs:
-        return hs[-1], hs
+        return hs[-1], hs, hs.to(torch.bfloat16) if bf16 else None
     return h_a if t % 2 == 0 else h_b
 
 
@@ -134,27 +189,51 @@ def gru_scan_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 gru_scan_bwd.launches = 0
 
 
-def gru_wgrad(dhp: torch.Tensor, hs: torch.Tensor):
-    """dW (3H, H) and db (3H,), float32, as ``gru_wgrad_reference``
-    returns them. One launch on CUDA tensors."""
-    if dhp.device.type == "cpu":
-        return gru_wgrad_reference(dhp, hs)
-    t, b, h3 = dhp.shape
-    h = h3 // 3
+def _check_wgrad_inputs(dhp: torch.Tensor, hs: torch.Tensor) -> str:
+    """The kernel ``wgrad_kernel`` picks for dhp (T, B, 3H), after
+    checking that hs (T, B, H) is the states it takes: bf16 (hs16) for
+    "wgmma", float32 for "simt"."""
     if dhp.dtype not in _DTYPE_CODE:
         raise TypeError(f"dhp must be float32 or bfloat16, got {dhp.dtype}")
-    if (hs.dtype != torch.float32 or tuple(hs.shape) != (t, b, h)
-            or hs.device != dhp.device):
-        raise ValueError(f"hs must be float32 {(t, b, h)} on {dhp.device}")
+    if dhp.dim() != 3 or dhp.shape[-1] % 3:
+        raise ValueError(f"dhp must be (T, B, 3H), got {tuple(dhp.shape)}")
+    t, b, h3 = dhp.shape
+    kernel = wgrad_kernel(dhp.dtype, h3 // 3)
+    want = torch.bfloat16 if kernel == "wgmma" else torch.float32
+    if hs.dtype != want:
+        raise TypeError(f"the {kernel} weight gradient takes {want} states, "
+                        f"got {hs.dtype}")
+    if tuple(hs.shape) != (t, b, h3 // 3) or hs.device != dhp.device:
+        raise ValueError(f"hs must be {(t, b, h3 // 3)} on {dhp.device}, "
+                         f"got {tuple(hs.shape)} on {hs.device}")
     if not (dhp.is_contiguous() and hs.is_contiguous()):
         raise ValueError("dhp and hs must be contiguous")
-    lib = _build.load("gru_scan_bwd")
+    return kernel
+
+
+def gru_wgrad(dhp: torch.Tensor, hs: torch.Tensor):
+    """dW (3H, H) and db (3H,), float32, as ``gru_wgrad_reference``
+    returns them, from dhp (T, B, 3H) and the forward's states hs
+    (T, B, H): hs16 (bf16) where ``wgrad_kernel`` picks the wgmma
+    product, else the float32 hs. One launch on CUDA tensors."""
+    if dhp.device.type == "cpu":
+        return gru_wgrad_reference(dhp, hs)
+    kernel = _check_wgrad_inputs(dhp, hs)
+    t, b, h3 = dhp.shape
+    h = h3 // 3
     dw = torch.empty((h3, h), dtype=torch.float32, device=dhp.device)
     db = torch.empty((h3,), dtype=torch.float32, device=dhp.device)
     stream = torch.cuda.current_stream(dhp.device).cuda_stream
-    rc = lib.gru_wgrad(dhp.data_ptr(), hs.data_ptr(), dw.data_ptr(),
-                       db.data_ptr(), t, b, h, _DTYPE_CODE[dhp.dtype], stream)
-    _build.check(rc, "gru_wgrad")
+    if kernel == "wgmma":
+        rc = _build.load("gru_wgrad").gru_wgrad_wgmma(
+            dhp.data_ptr(), hs.data_ptr(), dw.data_ptr(), db.data_ptr(), t,
+            b, h, stream)
+        _build.check(rc, "gru_wgrad_wgmma")
+    else:
+        rc = _build.load("gru_scan_bwd").gru_wgrad(
+            dhp.data_ptr(), hs.data_ptr(), dw.data_ptr(), db.data_ptr(), t,
+            b, h, _DTYPE_CODE[dhp.dtype], stream)
+        _build.check(rc, "gru_wgrad")
     gru_wgrad.launches += 1
     return dw, db
 
@@ -170,16 +249,20 @@ class GRUScanFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh, qlen):
-        h_final, hs = gru_scan(xp, w_hh, b_hh, qlen, return_hs=True)
-        ctx.save_for_backward(xp, w_hh, b_hh, qlen, hs)
+        h_final, hs, hs16 = gru_scan(xp, w_hh, b_hh, qlen, return_hs=True)
+        # the weight gradient's operand: hs16 for the wgmma product,
+        # the float32 states for the SIMT reduction
+        states = (hs16 if wgrad_kernel(w_hh.dtype, w_hh.shape[1]) == "wgmma"
+                  else hs)
+        ctx.save_for_backward(xp, w_hh, b_hh, qlen, hs, states)
         return h_final
 
     @staticmethod
     def backward(ctx, gh_final):
-        xp, w_hh, b_hh, qlen, hs = ctx.saved_tensors
+        xp, w_hh, b_hh, qlen, hs, states = ctx.saved_tensors
         dxp, dhp = gru_scan_bwd(xp, w_hh, b_hh, qlen, hs,
                                 gh_final.float().contiguous())
-        dw, db = gru_wgrad(dhp, hs)
+        dw, db = gru_wgrad(dhp, states)
         return dxp, dw.to(w_hh.dtype), db.to(b_hh.dtype), None
 
 
