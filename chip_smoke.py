@@ -22,17 +22,27 @@ Phases, in order; the first failure exits non-zero:
 7. training kernels against their plain versions on the card: C and D
    at the VQA conv1/conv2 shapes (B=64) and the medical K=51, m=19
    (B=8), f32 and bf16, with conv1's dropout epilogue (masks bit for bit,
-   kept fraction, repeatability, per-image seeds); B's states and E at
-   T=16, H=1024, B = 8, 50, 64 and 256: hs16 equal to hs in bf16 bit for
-   bit, E's sweep, and its weight gradient (the wgmma product from hs16
-   for bf16 weights) repeating bit for bit, the wgmma product also at
-   H = 64, 128, 192 (B = 8, 50), its second run into NaN-filled outputs;
+   kept fraction, repeatability, per-image seeds); B's states and hp and
+   E at T=16, H=1024: in bf16 at B = 1, 8, 50, 64, 150, 200 and 256, qlen
+   spread over 0..T and all equal, hs16 equal to hs in bf16 bit for bit,
+   hp within f32 rounding of the product recomputed from B's own states,
+   E's persistent sweep (one launch) within 5e-3 normalized of its plain
+   version fed the same hp, a second run and a run into NaN-filled
+   outputs equal bit for bit, and the weight gradient (the wgmma product
+   from hs16) within 1e-4, equal bit for bit to a run into NaN-filled
+   outputs; in f32 at B = 8, 50, 64, 256 the per-step sweep within 1e-5
+   and the SIMT weight gradient; the same bf16 checks at H = 64, 128,
+   192, 256 (B = 8, 50); the bf16 per-step sweep where the rule sends
+   bf16 to it (B=257 at H=1024, H=1032) within 1e-2 of its plain version,
+   a second run equal bit for bit, with the weight gradient its shape
+   takes (wgmma at H=1024, SIMT at H=1032);
 8. one full-width f32 training step (dropout 0) on the card against the
    same step on the CPU: loss, every gradient, the Adam update;
 9. training, the main path: fit() on an in-memory synthetic dataset at
    full VQA width, batch 64, bf16, dropout 0.5, 20 steps and one
    mini-validation; the launch counts per step must be C 2, D 2, B 1
-   (the persistent kernel), E 16 + 1 weight-gradient launch, and A 0;
+   (the persistent kernel), E 1 + 1 (the persistent sweep, then the
+   weight gradient), and A 0;
 10. gather kernels against their plain versions, bit for bit: F on a
     device-made VQA v2-size table (123,287 x 36 x 2048) in bf16, then
     int8 with per-box scales into bf16 and f32, and f32 at N=4096; G on
@@ -40,7 +50,7 @@ Phases, in order; the first failure exits non-zero:
     with rows 0 and N-1, duplicates and clamped -1 / N;
 11. training with the device cache, the main path: fit() as in phase 9
     but with the bf16 feature cache, index batches and a resident
-    mini-validation; per step F 1, G 1, C 2, D 2, B 1, E 16 + 1, A 0,
+    mini-validation; per step F 1, G 1, C 2, D 2, B 1, E 1 + 1, A 0,
     and step 1's loss equal to phase 9's bit for bit;
 12. evaluate() to result.json with phase 11's model: val through the
     cache (resident) and through host mode (streaming) give the same
@@ -53,14 +63,16 @@ Phases, in order; the first failure exits non-zero:
     conv1 output equal to kernel C's bit for bit;
 14. training with the merged block, the main path: fit() as in phase 11
     with ModelConfig(merged_block=True); per step H 1, I 1, A, C, D 0,
-    B 1, E 16 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
+    B 1, E 1 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
     11's; the merged serving forward at B=16 launches H and B once and
     not A and picks the unmerged answer on >= 75% of rows;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel), after phase 9 the training kernels and the
-   training step at B=64 and 256 (E's dW/db beside cuBLAS and the SIMT
-   reduction), after phase 14 the gather kernels at
+   training step at B=64 and 256 (E's sweep beside its plain version,
+   the per-step sweep, cuDNN's GRU forward + backward and its forward
+   alone; E's dW/db beside cuBLAS and the SIMT reduction; kernel B with
+   and without hp), after phase 14 the gather kernels at
    B=64 and 256, the cache-mode training step beside host mode,
    evaluate's throughput, then H, I and the hand GEMM at B=64 and 256,
    the merged block beside the unmerged one and the merged training
@@ -100,6 +112,7 @@ from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
 from vqa_project_tpu_torch.ops.dropout import philox_keep
+from vqa_project_tpu_torch.ops.matmul import matmul
 from vqa_project_tpu_torch.ops.gather_rows import (gather_rows_blocked,
                                                    gather_rows_packed,
                                                    gather_rows_reference)
@@ -117,7 +130,7 @@ from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
                                            input_projection)
 from vqa_project_tpu_torch.ops.gru_scan import (gru_scan, gru_scan_bwd,
                                                 gru_wgrad, scan_kernel,
-                                                wgrad_kernel)
+                                                sweep_kernel, wgrad_kernel)
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
 from vqa_project_tpu_torch.train import (QuantizedFeatureCache, build_model,
                                          evaluate, fit, make_feature_cache,
@@ -153,8 +166,9 @@ SOURCES = {
     "edge_aggregate_bwd": (
         "vqa_project_tpu_torch/csrc/edge_aggregate_bwd.cu",
         "vqa_project_tpu/ops/pallas/edge_aggregate.py:282"),
-    "gru_scan_bwd_step": ("vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
-                          "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
+    "gru_scan_bwd_persistent": (
+        "vqa_project_tpu_torch/csrc/gru_scan_bwd.cu",
+        "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
     "gru_wgrad": ("vqa_project_tpu_torch/csrc/gru_wgrad.cu",
                   "vqa_project_tpu/ops/pallas/gru_scan.py:145"),
     "gather_rows_packed": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
@@ -172,18 +186,18 @@ WRAPPERS = {
     "gru_scan_fwd": gru_scan,                                  # B
     "edge_aggregate_fwd_res": sel_aggregate_act_residuals,     # C
     "edge_aggregate_bwd": sel_aggregate_act_vjp,               # D
-    "gru_scan_bwd_step": gru_scan_bwd,                         # E, sweep
+    "gru_scan_bwd_persistent": gru_scan_bwd,                   # E, sweep
     "gru_wgrad": gru_wgrad,                                    # E, dW/db
     "gather_rows_packed": gather_rows_packed,                  # F
     "gather_rows_blocked": gather_rows_blocked,                # G
     "graph_block_fwd": graph_block_fwd,                        # H
     "graph_block_bwd": graph_block_bwd,                        # I
 }
-# launches of one bf16 training step (host mode: F and G 0); kernel B is
-# the persistent kernel, one launch for all 16 steps
+# launches of one bf16 training step (host mode: F and G 0); kernels B
+# and E's sweep are persistent, one launch each for all 16 steps
 TRAIN_STEP_LAUNCHES = {
     "edge_aggregate_fwd": 0, "gru_scan_fwd": 1, "edge_aggregate_fwd_res": 2,
-    "edge_aggregate_bwd": 2, "gru_scan_bwd_step": 16, "gru_wgrad": 1,
+    "edge_aggregate_bwd": 2, "gru_scan_bwd_persistent": 1, "gru_wgrad": 1,
     "gather_rows_packed": 0, "gather_rows_blocked": 0,
     "graph_block_fwd": 0, "graph_block_bwd": 0}
 CACHE_STEP_LAUNCHES = {**TRAIN_STEP_LAUNCHES, "gather_rows_packed": 1,
@@ -712,77 +726,183 @@ def check_dropout(sel, pseudo, proj, gp, seeds, out, label):
 
 
 def check_gru_training(dev, gen, errs):
-    """Phase 7, kernel B's states and kernel E (sweep, then dW/db), each
-    against its plain version on the same inputs, at B = 8, 50 (R = 750
-    rows, not a multiple of the weight gradient's 64-row K step), 64 and
-    256: with bf16 weights the persistent kernel's hs16 equal to hs in
-    bf16 bit for bit and the wgmma weight gradient taking it, with f32
-    weights the SIMT one taking hs; dW/db repeating bit for bit."""
-    for b in (8, 50, TRAIN_B, 256):
-        (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, 16, 300, 1024, gen, dev)
-        gh = torch.randn(b, w_hh.shape[1], generator=gen).to(dev)
-        for w, tol_hs, tol in ((w_hh, 1e-5, 1e-4),
-                               (w_hh.to(torch.bfloat16), 2e-3, 1e-2)):
-            kernel = wgrad_kernel(w.dtype, w.shape[1])
-            require(kernel == ("wgmma" if w.dtype == torch.bfloat16
-                               else "simt"), "kernel E's weight-gradient rule")
-            _, hs, hs16 = gru_scan(xp, w, b_hh, qlen, return_hs=True)
-            _, r_hs = gru_scan_reference(xp, w, b_hh, qlen, return_hs=True)
-            dxp, dhp = gru_scan_bwd(xp, w, b_hh, qlen, hs, gh)
-            r_dxp, r_dhp = gru_scan_sweep_reference(xp, w, b_hh, qlen, hs, gh)
-            states = hs16 if kernel == "wgmma" else hs
-            dw, db = gru_wgrad(dhp, states)
-            dw2, db2 = (wgrad_into_nan(dhp, states) if kernel == "wgmma"
-                        else gru_wgrad(dhp, states))
-            r_dw, r_db = gru_wgrad_reference(dhp, hs)
-            torch.cuda.synchronize()
-            e_hs = float((hs - r_hs).abs().max())
-            same16 = (hs16 is None if w.dtype == torch.float32 else
-                      torch.equal(hs16, hs.to(torch.bfloat16)))
-            e_sweep = max(norm_err(dxp, r_dxp), norm_err(dhp, r_dhp))
-            e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
-            repeat = torch.equal(dw, dw2) and torch.equal(db, db2)
-            print(f"kernel B states / E B={b} T=16 H=1024 "
-                  f"{str(w.dtype)[6:]} weights: hs max abs err {e_hs:.2e} "
-                  f"(<= {tol_hs}); hs16 = hs in bf16 bit for bit {same16}; "
-                  f"sweep dxp/dhp normalized {e_sweep:.2e} (<= {tol}); "
-                  f"dW/db ({kernel}) normalized {e_w:.2e} (<= 1e-4), second "
-                  f"run equal bit for bit {repeat}", flush=True)
-            require(e_hs <= tol_hs and same16,
-                    f"kernel B states B={b} disagree")
-            require(e_sweep <= tol, f"kernel E sweep B={b} disagrees")
-            require(e_w <= 1e-4 and repeat, f"kernel E dW/db B={b} disagrees")
-            if b == TRAIN_B and w.dtype == torch.bfloat16:
-                errs["gru_scan_bwd_step"] = max(
-                    float((dxp - r_dxp).abs().max()),
-                    float((dhp.float() - r_dhp.float()).abs().max()))
-                errs["gru_wgrad"] = max(float((dw - r_dw).abs().max()),
-                                        float((db - r_db).abs().max()))
-    # the wgmma weight gradient at the narrow widths its rule admits:
-    # one or two row tiles, a column tile past H (H = 64, 192), and db
-    # spread over few blocks (192 columns a block at H = 64 and 128)
-    for h in (64, 128, 192):
+    """Phase 7, kernel B's states and hp and kernel E (sweep, then dW/db),
+    each against its plain version on the same inputs, at T=16. bf16 at
+    H=1024 and B = 1, 8, 50 (R = 750 rows, not a multiple of the weight
+    gradient's 64-row K step), 64, 150, 200 and 256 (past 16 rows the
+    sweep splits the batch over two blocks), qlen spread over 0..T and
+    all equal to T: check_bf16_sweep. f32 at B = 8, 50, 64, 256: the
+    per-step sweep (T launches) and the SIMT weight gradient. Then bf16
+    at the narrow widths H = 64, 128, 192, 256 (B = 8, 50), and the
+    bf16 shapes the rule sends to the per-step sweep."""
+    t = FULL["max_qlen"]
+    for b in (1, 8, 50, TRAIN_B, 150, 200, 256):
+        (xp, w_hh, b_hh, _), _ = gru_inputs(b, t, 300, 1024, gen, dev)
+        w16 = w_hh.to(torch.bfloat16)
+        spread = torch.arange(b) % (t + 1)
+        spread[:2] = torch.tensor([0, t])[:b]
+        for label, qlen in (("spread", spread),
+                            ("all T", torch.full((b,), t))):
+            qlen = qlen.to(dev, torch.int32)
+            e = check_bf16_sweep(xp, w16, b_hh, qlen, gen,
+                                 f"B={b} H=1024 qlen {label}")
+            if b == TRAIN_B and label == "spread":
+                errs["gru_scan_bwd_persistent"], errs["gru_wgrad"] = e
+        if b in (8, 50, TRAIN_B, 256):
+            check_f32_backward(xp, w_hh, b_hh, spread.to(dev, torch.int32),
+                               gen, f"B={b} H=1024")
+    # the narrow widths the rules admit: one or two row tiles of the
+    # weight gradient, a column tile past H (H = 64, 192), db spread over
+    # few blocks (192 columns a block at H = 64 and 128), one chunk of
+    # dhp per sweep step (H = 64)
+    for h in (64, 128, 192, 256):
         for b in (8, 50):
-            (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, 16, 300, h, gen, dev)
-            w16 = w_hh.to(torch.bfloat16)
-            require(wgrad_kernel(w16.dtype, h) == "wgmma",
-                    "kernel E's weight-gradient rule")
-            _, hs, hs16 = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
-            gh = torch.randn(b, h, generator=gen).to(dev)
-            _, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
-            dw, db = gru_wgrad(dhp, hs16)
-            dw2, db2 = wgrad_into_nan(dhp, hs16)
-            r_dw, r_db = gru_wgrad_reference(dhp, hs)
-            torch.cuda.synchronize()
-            e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
-            repeat = torch.equal(dw, dw2) and torch.equal(db, db2)
-            same16 = torch.equal(hs16, hs.to(torch.bfloat16))
-            print(f"kernel E dW/db (wgmma) B={b} T=16 H={h}: normalized "
-                  f"{e_w:.2e} (<= 1e-4); a second run into NaN-filled "
-                  f"outputs equal bit for bit {repeat}; hs16 = hs in bf16 "
-                  f"{same16}", flush=True)
-            require(e_w <= 1e-4 and repeat and same16,
-                    f"kernel E dW/db B={b} H={h} disagrees")
+            (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, t, 300, h, gen, dev)
+            check_bf16_sweep(xp, w_hh.to(torch.bfloat16), b_hh, qlen, gen,
+                             f"B={b} H={h}")
+    # bf16 past the persistent sweep's shapes: more than 256 rows, and a
+    # width that is not a multiple of 64
+    for b, h in ((257, 1024), (8, 1032)):
+        (xp, w_hh, b_hh, qlen), _ = gru_inputs(b, t, 300, h, gen, dev)
+        check_bf16_per_step(xp, w_hh.to(torch.bfloat16), b_hh, qlen, gen,
+                            f"B={b} H={h}")
+
+
+def check_bf16_sweep(xp, w16, b_hh, qlen, gen, label):
+    """Kernel B's persistent training forward and kernel E with bf16
+    weights: hs16 equal to hs in bf16 bit for bit; hp within 1e-5
+    normalized (f32 rounding) of hs16[t-1] @ W^T + b from cuBLAS; the
+    persistent sweep, one launch, within 5e-3 normalized of its plain
+    version fed the same hp (bf16 dhp: a one-unit rounding flip is
+    3.9e-3 of the largest value) and of the recomputing plain version;
+    a second run and a run into NaN-filled outputs equal bit for bit;
+    the wgmma dW/db within 1e-4 normalized of the plain product, equal
+    bit for bit to a run into NaN-filled outputs. Returns the sweep's and
+    dW/db's max abs errors."""
+    b, h = qlen.shape[0], w16.shape[1]
+    require(sweep_kernel(w16.dtype, b, h) == "persistent"
+            and wgrad_kernel(w16.dtype, h) == "wgmma",
+            f"kernel E's rules at B={b} H={h}")
+    gh = torch.randn(b, h, generator=gen).to(xp.device)
+    _, hs, hs16, hp = gru_scan(xp, w16, b_hh, qlen, return_hs=True,
+                               return_hp=True)
+    h_prev = torch.cat([torch.zeros_like(hs16[:1]), hs16[:-1]])
+    r_hp = matmul(h_prev, w16.t()) + b_hh
+    before = gru_scan_bwd.launches
+    dxp, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh, hp)
+    launched = gru_scan_bwd.launches - before
+    dxp2, dhp2 = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh, hp)
+    n_dxp, n_dhp = sweep_into_nan(xp, w16, hp, hs, qlen, gh)
+    r_dxp, r_dhp = gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh, hp)
+    c_dxp, c_dhp = gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh)
+    dw, db = gru_wgrad(dhp, hs16)
+    n_dw, n_db = wgrad_into_nan(dhp, hs16)
+    r_dw, r_db = gru_wgrad_reference(dhp, hs)
+    torch.cuda.synchronize()
+    same16 = torch.equal(hs16, hs.to(torch.bfloat16))
+    e_hp = norm_err(hp, r_hp)
+    e_sweep = max(norm_err(dxp, r_dxp), norm_err(dhp, r_dhp))
+    e_rec = max(norm_err(dxp, c_dxp), norm_err(dhp, c_dhp))
+    repeat = (torch.equal(dxp, dxp2) and torch.equal(dhp, dhp2)
+              and torch.equal(dxp, n_dxp) and torch.equal(dhp, n_dhp))
+    e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
+    repeat_w = torch.equal(dw, n_dw) and torch.equal(db, n_db)
+    print(f"kernel B states / E bf16 {label} T={xp.shape[0]}: hs16 = hs in "
+          f"bf16 {same16}; hp normalized {e_hp:.2e} (<= 1e-5); persistent "
+          f"sweep ({launched} launch) dxp/dhp normalized {e_sweep:.2e} "
+          f"(<= 5e-3; against the recomputing plain version {e_rec:.2e}), "
+          f"second run and a run into NaN-filled outputs equal bit for bit "
+          f"{repeat}; dW/db (wgmma) normalized {e_w:.2e} (<= 1e-4), a run "
+          f"into NaN-filled outputs equal bit for bit {repeat_w}",
+          flush=True)
+    require(same16 and e_hp <= 1e-5, f"kernel B states {label} disagree")
+    require(launched == 1 and e_sweep <= 5e-3 and e_rec <= 5e-3 and repeat,
+            f"kernel E sweep {label} disagrees")
+    require(e_w <= 1e-4 and repeat_w, f"kernel E dW/db {label} disagrees")
+    return (max(float((dxp - r_dxp).abs().max()),
+                float((dhp.float() - r_dhp.float()).abs().max())),
+            max(float((dw - r_dw).abs().max()), float((db - r_db).abs().max())))
+
+
+def check_bf16_per_step(xp, w16, b_hh, qlen, gen, label):
+    """bf16 weights where the rules send them to the per-step sweep (T
+    launches, hp recomputed): within 1e-2 normalized of its plain
+    version, a second run equal bit for bit; then the weight gradient
+    the width takes (wgmma from hs16, or SIMT from hs) within 1e-4."""
+    b, h = qlen.shape[0], w16.shape[1]
+    require(sweep_kernel(w16.dtype, b, h) == "per_step",
+            f"kernel E's sweep rule at B={b} H={h}")
+    kernel = wgrad_kernel(w16.dtype, h)
+    gh = torch.randn(b, h, generator=gen).to(xp.device)
+    _, hs, hs16 = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
+    before = gru_scan_bwd.launches
+    dxp, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
+    launched = gru_scan_bwd.launches - before
+    dxp2, dhp2 = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
+    r_dxp, r_dhp = gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh)
+    dw, db = gru_wgrad(dhp, hs16 if kernel == "wgmma" else hs)
+    r_dw, r_db = gru_wgrad_reference(dhp, hs)
+    torch.cuda.synchronize()
+    e_sweep = max(norm_err(dxp, r_dxp), norm_err(dhp, r_dhp))
+    repeat = torch.equal(dxp, dxp2) and torch.equal(dhp, dhp2)
+    e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
+    print(f"kernel E bf16 per-step {label} T={xp.shape[0]}: sweep "
+          f"({launched} launches) dxp/dhp normalized {e_sweep:.2e} (<= "
+          f"1e-2), second run equal bit for bit {repeat}; dW/db ({kernel}) "
+          f"normalized {e_w:.2e} (<= 1e-4)", flush=True)
+    require(launched == xp.shape[0] and e_sweep <= 1e-2 and repeat,
+            f"kernel E bf16 per-step sweep {label} disagrees")
+    require(e_w <= 1e-4, f"kernel E dW/db {label} disagrees")
+
+
+def check_f32_backward(xp, w_hh, b_hh, qlen, gen, label):
+    """f32 weights: kernel B's per-step states within 1e-5, the per-step
+    sweep (T launches) within 1e-5 normalized of its plain version, and
+    the SIMT dW/db within 1e-4, repeating bit for bit."""
+    b, h = qlen.shape[0], w_hh.shape[1]
+    require(sweep_kernel(w_hh.dtype, b, h) == "per_step"
+            and wgrad_kernel(w_hh.dtype, h) == "simt",
+            "kernel E's rules for f32 weights")
+    gh = torch.randn(b, h, generator=gen).to(xp.device)
+    _, hs, hs16 = gru_scan(xp, w_hh, b_hh, qlen, return_hs=True)
+    _, r_hs = gru_scan_reference(xp, w_hh, b_hh, qlen, return_hs=True)
+    before = gru_scan_bwd.launches
+    dxp, dhp = gru_scan_bwd(xp, w_hh, b_hh, qlen, hs, gh)
+    launched = gru_scan_bwd.launches - before
+    r_dxp, r_dhp = gru_scan_sweep_reference(xp, w_hh, b_hh, qlen, hs, gh)
+    dw, db = gru_wgrad(dhp, hs)
+    dw2, db2 = gru_wgrad(dhp, hs)
+    r_dw, r_db = gru_wgrad_reference(dhp, hs)
+    torch.cuda.synchronize()
+    e_hs = float((hs - r_hs).abs().max())
+    e_sweep = max(norm_err(dxp, r_dxp), norm_err(dhp, r_dhp))
+    e_w = max(norm_err(dw, r_dw), norm_err(db, r_db))
+    repeat = torch.equal(dw, dw2) and torch.equal(db, db2)
+    print(f"kernel B states / E f32 {label} T={xp.shape[0]}: hs max abs "
+          f"{e_hs:.2e} (<= 1e-5), hs16 {hs16}; per-step sweep ({launched} "
+          f"launches) normalized {e_sweep:.2e} (<= 1e-5); dW/db (simt) "
+          f"normalized {e_w:.2e} (<= 1e-4), second run equal bit for bit "
+          f"{repeat}", flush=True)
+    require(e_hs <= 1e-5 and hs16 is None, f"kernel B states {label}")
+    require(launched == xp.shape[0] and e_sweep <= 1e-5,
+            f"kernel E per-step sweep {label} disagrees")
+    require(e_w <= 1e-4 and repeat, f"kernel E SIMT dW/db {label} disagrees")
+
+
+def sweep_into_nan(xp, w16, hp, hs, qlen, gh):
+    """The persistent sweep through its C entry into outputs filled with
+    NaN, so that an element it leaves unwritten shows."""
+    t, b, h3 = xp.shape
+    dxp = torch.full_like(xp, float("nan"))
+    dhp = torch.full(xp.shape, float("nan"), dtype=w16.dtype, device=xp.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=xp.device)
+    rc = _build.load("gru_scan_bwd").gru_scan_bwd_persistent(
+        xp.data_ptr(), w16.data_ptr(), hp.data_ptr(), hs.data_ptr(),
+        qlen.data_ptr(), gh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
+        counter.data_ptr(), t, b, h3 // 3,
+        torch.cuda.current_stream(xp.device).cuda_stream)
+    _build.check(rc, "gru_scan_bwd_persistent")
+    return dxp, dhp
 
 
 def wgrad_into_nan(dhp, hs16):
@@ -831,8 +951,10 @@ def train_step_card_vs_cpu(dev, gen, b=8):
     m_gpu = train_step(gpu, make_optimizer(gpu, tcfg, 10)[0], None, batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    # f32 weights: kernel B runs per step, one launch for each of T
-    want = {**TRAIN_STEP_LAUNCHES, "gru_scan_fwd": cfg.max_qlen}
+    # f32 weights: kernels B and E's sweep run per step, one launch for
+    # each of T
+    want = {**TRAIN_STEP_LAUNCHES, "gru_scan_fwd": cfg.max_qlen,
+            "gru_scan_bwd_persistent": cfg.max_qlen}
     e_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(
         float(m_cpu["loss"]))
     gpu_params = dict(gpu.named_parameters())
@@ -1240,10 +1362,11 @@ def measure_training(dev, gen, counts, errs):
         (xp, w_hh, b_hh, qlen), (emb, w_ih, b_ih) = gru_inputs(
             b, 16, 300, 1024, gen, dev)
         w16 = w_hh.to(torch.bfloat16)
-        _, hs, hs16 = gru_scan(xp, w16, b_hh, qlen, return_hs=True)
+        _, hs, hs16, hp = gru_scan(xp, w16, b_hh, qlen, return_hs=True,
+                                   return_hp=True)
         hid = w_hh.shape[1]
         gh = torch.randn(b, hid, generator=gen).to(dev)
-        _, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh)
+        _, dhp = gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh, hp)
         gru = torch.nn.GRU(300, hid, batch_first=True, device=dev,
                            dtype=torch.bfloat16)
         with torch.no_grad():
@@ -1265,9 +1388,24 @@ def measure_training(dev, gen, counts, errs):
             _, h_n = gru(packed)
             h_n.backward(gh16)
 
-        e = timed(lambda: gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh),
-                  lambda: gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh),
+        def cudnn_fwd():
+            with torch.no_grad():
+                gru(packed)
+
+        e = timed(lambda: gru_scan_bwd(xp, w16, b_hh, qlen, hs, gh, hp),
+                  lambda: gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs,
+                                                   gh, hp),
                   *sweep_bound(xp, w16, qlen), library=cudnn_fwd_bwd)
+        e["plain_recompute_ms"] = time_device_ms(
+            lambda: gru_scan_sweep_reference(xp, w16, b_hh, qlen, hs, gh),
+            samples=10, reps=1)
+        e["per_step_ms"] = time_sweep_per_step(xp, w16, b_hh, qlen, hs, gh)
+        e["cudnn_fwd_ms"] = time_device_ms(cudnn_fwd)
+        e["b_forward_ms"] = time_device_ms(
+            lambda: gru_scan(xp, w16, b_hh, qlen, return_hs=True))
+        e["b_forward_with_hp_ms"] = time_device_ms(
+            lambda: gru_scan(xp, w16, b_hh, qlen, return_hs=True,
+                             return_hp=True))
         h_prev = hs16[:-1].reshape(-1, hid)
         dhp_rows = dhp[1:].reshape(-1, 3 * hid)
         wg = timed(lambda: gru_wgrad(dhp, hs16),
@@ -1280,23 +1418,58 @@ def measure_training(dev, gen, counts, errs):
         detail.append({"batch": b, "train_step_ms": step_ms,
                        "train_qa_pairs_per_s": b * 1e3 / step_ms,
                        "edge_aggregate_fwd_res": c, "edge_aggregate_bwd": d,
-                       "gru_scan_bwd_step": e, "gru_wgrad": wg})
+                       "gru_scan_bwd_persistent": e, "gru_wgrad": wg})
         if b == TRAIN_B:
             for name, t in (("edge_aggregate_fwd_res", c),
                             ("edge_aggregate_bwd", d),
-                            ("gru_scan_bwd_step", e), ("gru_wgrad", wg)):
+                            ("gru_scan_bwd_persistent", e),
+                            ("gru_wgrad", wg)):
                 entries.append(entry(name, t, counts, errs))
     print("training timing detail (bf16; kernels: device times, launches "
           "queued behind a sleep kernel, and back_to_back_ms; C and D = "
-          "conv1 with dropout + "
-          "conv2; E sweep = all 16 step launches, library = cuDNN nn.GRU "
-          "forward + backward together; E dW/db = the wgmma product from "
-          "hs16, library = one cuBLAS mm for dW alone, simt_ms = the SIMT "
-          "reduction of the second slice through its C entry gru_wgrad "
-          "(f32 hs); train step = host clock per step "
-          "ending in a fetch, median of 10): " + json.dumps(detail),
-          flush=True)
+          "conv1 with dropout + conv2; E sweep = the persistent sweep, one "
+          "launch, plain = its plain version fed the same hp, "
+          "plain_recompute_ms = the plain version recomputing hp, "
+          "per_step_ms = the per-step sweep of the second slice through "
+          "its C entry gru_scan_bwd_step (16 launches) on the same bf16 "
+          "weights, library = cuDNN nn.GRU forward + backward together, "
+          "cudnn_fwd_ms = its forward alone, b_forward_ms / "
+          "b_forward_with_hp_ms = kernel B's training forward without / "
+          "with hp; E dW/db = the wgmma product from hs16, library = one "
+          "cuBLAS mm for dW alone, simt_ms = the SIMT reduction of the "
+          "second slice through its C entry gru_wgrad (f32 hs); "
+          "train step = host clock per step ending in a fetch, median of "
+          "10): " + json.dumps(detail), flush=True)
     return entries
+
+
+def time_sweep_per_step(xp, w16, b_hh, qlen, hs, gh):
+    """Phase 6: device ms of the per-step sweep that the persistent one
+    replaced (gru_scan_bwd.cu::gru_scan_bwd_step, T launches), on the
+    same bf16 inputs, through its C entry."""
+    t, b, h3 = xp.shape
+    h = h3 // 3
+    lib = _build.load("gru_scan_bwd")
+    w_t = w16.t().contiguous()
+    dxp = torch.empty_like(xp)
+    dhp = torch.empty(xp.shape, dtype=w16.dtype, device=xp.device)
+    bufs = (torch.empty_like(gh), torch.empty_like(gh))
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+
+    def call():
+        c_in = gh
+        for i, step in enumerate(reversed(range(t))):
+            _build.check(lib.gru_scan_bwd_step(
+                xp[step].data_ptr(), w16.data_ptr(), w_t.data_ptr(),
+                b_hh.data_ptr(), qlen.data_ptr(),
+                hs[step - 1].data_ptr() if step else None,
+                dhp[step + 1].data_ptr() if step < t - 1 else None,
+                c_in.data_ptr(), dxp[step].data_ptr(), dhp[step].data_ptr(),
+                bufs[i % 2].data_ptr(), b, h, step, 1, stream),
+                "gru_scan_bwd_step")
+            c_in = bufs[i % 2]
+
+    return time_device_ms(call)
 
 
 def time_wgrad_simt(dhp, hs):

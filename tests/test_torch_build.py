@@ -47,3 +47,43 @@ def test_signatures_match_the_c_entries(kernel):
     declared = {name: len(args)
                 for name, args in _build._SIGNATURES[kernel].items()}
     assert entries == declared
+
+
+def test_package_data_ships_every_kernel_source():
+    """An installed package carries every file nvcc reads: each file in
+    csrc/ matches a [tool.setuptools.package-data] glob."""
+    import fnmatch
+    import tomllib
+
+    root = _build.CSRC.parent.parent
+    with open(root / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    globs = data[_build.CSRC.parent.name]
+    files = sorted(p.name for p in _build.CSRC.iterdir() if p.is_file())
+    assert any(f.endswith(".cuh") for f in files)
+    missing = [f for f in files
+               if not any(fnmatch.fnmatch(f"csrc/{f}", g) for g in globs)]
+    assert not missing
+
+
+@pytest.mark.parametrize("xdg", [True, False])
+def test_build_dir_moves_to_user_cache_when_package_is_read_only(
+        tmp_path, monkeypatch, xdg):
+    """A read-only package directory (an installed site-packages) sends
+    the build to the user's cache directory, under the same hash."""
+    in_package = _build.build_dir()
+    real_access = _build.os.access
+    monkeypatch.setattr(
+        _build.os, "access",
+        lambda p, mode: False if str(p) == str(_build.BUILD_ROOT.parent)
+        else real_access(p, mode))
+    if xdg:
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+        cache = tmp_path / "xdg"
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+        monkeypatch.setenv("HOME", str(tmp_path / "home"))
+        cache = tmp_path / "home" / ".cache"
+    moved = _build.build_dir()
+    assert moved.parent == cache / "vqa_project_tpu_torch" / "_build"
+    assert moved.name == in_package.name

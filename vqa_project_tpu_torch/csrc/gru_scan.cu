@@ -41,7 +41,11 @@
 // so runs repeat bit for bit. The block writes h_t in bf16 (the next
 // step's operand: hs16[t] in training, else one of two ping-pong
 // buffers) and, in training, in f32 to hs[t]; inference writes only the
-// final state in f32. Before a step's grid barrier the block loads the
+// final state in f32. Training may also ask for hp[t] = h_prev @ W_hh^T +
+// b_hh in f32, every row (12.6 MB at B=64, T=16, H=1024): the sums are
+// already in the C fragments, and kernel E's persistent sweep
+// (csrc/gru_scan_bwd.cu) reads them instead of recomputing the product,
+// which leaves it only W's columns to hold. Before a step's grid barrier the block loads the
 // next step's xp for its units. Steps are separated by a grid barrier
 // on a global counter (release add, acquire loads); the launch is
 // cooperative, and the entry refuses a grid that cannot be resident all
@@ -74,7 +78,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
+
+using namespace mma_sync;
 
 constexpr int kWarps = 8;  // hidden units per block: one per warp
 // batch rows per block: small tiles keep many blocks in flight at the
@@ -263,62 +271,6 @@ size_t persistent_smem_bytes(const Plan& p, int H) {
          static_cast<size_t>(p.kw - 1) * p.mw * p.octets * 384 * 4;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col): bf16 in, f32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared through L2 only (.cg); zero fill when !valid
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// All blocks of the launch meet here; `target` is the number of arrivals
-// that completes this barrier (the counter only grows). After the
-// block's barrier, thread 0 publishes the block's writes with a release
-// add and takes the others' with acquire loads; the block's barrier
-// after it hands them on (CUTLASS's generic barrier does the same).
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
-                 :: "l"(counter) : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen) : "l"(counter) : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
-
 template <int NO>  // unit octets per block
 __global__ void __launch_bounds__(kPThreads, 1)
 gru_persistent_kernel(const float* __restrict__ xp,            // (T, B, 3H)
@@ -327,6 +279,7 @@ gru_persistent_kernel(const float* __restrict__ xp,            // (T, B, 3H)
                       const int* __restrict__ qlen,            // (B)
                       float* __restrict__ h_out,  // (B, H) or null
                       float* __restrict__ hs,     // (T, B, H) or null
+                      float* __restrict__ hp,     // (T, B, 3H) or null
                       // (T, B, H) with hs, else (2, B, H): written and
                       // read by every block within the launch
                       __nv_bfloat16* h16, unsigned int* counter, int T,
@@ -485,20 +438,29 @@ gru_persistent_kernel(const float* __restrict__ xp,            // (T, B, 3H)
         if (b >= B) continue;
 #pragma unroll
         for (int o = 0; o < NO; ++o) {
-          float out[2];
+          float out[2], pre[3][2];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int e = 2 * h + u;
-            const float hp = hreg[o][e];
-            float h_new = hp;
+#pragma unroll
+            for (int g = 0; g < 3; ++g) pre[g][u] = acc[3 * o + g][e] + bias[o][g][u];
+            const float h_prev = hreg[o][e];
+            float h_new = h_prev;
             if (t < q[h]) {
-              const float rg = sigmoid(xv[o][0][e] + (acc[3 * o][e] + bias[o][0][u]));
-              const float z = sigmoid(xv[o][1][e] + (acc[3 * o + 1][e] + bias[o][1][u]));
-              const float n = tanhf(xv[o][2][e] + rg * (acc[3 * o + 2][e] + bias[o][2][u]));
-              h_new = (1.f - z) * n + z * hp;
+              const float rg = sigmoid(xv[o][0][e] + pre[0][u]);
+              const float z = sigmoid(xv[o][1][e] + pre[1][u]);
+              const float n = tanhf(xv[o][2][e] + rg * pre[2][u]);
+              h_new = (1.f - z) * n + z * h_prev;
             }
             hreg[o][e] = h_new;
             out[u] = h_new;
+          }
+          if (hp) {  // the sweep's hp: every row, frozen or not
+#pragma unroll
+            for (int g = 0; g < 3; ++g)
+              *reinterpret_cast<float2*>(
+                  hp + (static_cast<size_t>(t) * B + b) * h3 + g * H + j0 +
+                  kUnits * o + uo) = make_float2(pre[g][0], pre[g][1]);
           }
           const size_t at = static_cast<size_t>(b) * H + j0 + kUnits * o + uo;
           *reinterpret_cast<__nv_bfloat162*>(d16 + at) = __floats2bfloat162_rn(out[0], out[1]);
@@ -519,32 +481,19 @@ gru_persistent_kernel(const float* __restrict__ xp,            // (T, B, 3H)
 template <int NO>
 cudaError_t launch_persistent(const float* xp, const __nv_bfloat16* w,
                               const float* b_hh, const int* qlen,
-                              float* h_out, float* hs, __nv_bfloat16* h16,
-                              unsigned int* counter, int T, int B, int H,
-                              const Plan& plan, cudaStream_t stream) {
+                              float* h_out, float* hs, float* hp,
+                              __nv_bfloat16* h16, unsigned int* counter,
+                              int T, int B, int H, const Plan& plan,
+                              cudaStream_t stream) {
   const size_t smem = persistent_smem_bytes(plan, H);
   auto kernel = gru_persistent_kernel<NO>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  // the grid barrier needs every block resident at once: refuse a grid
-  // that cannot be (the cooperative launch would refuse it too)
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kPThreads, smem)) != cudaSuccess)
-    return e;
   const int blocks = H / (kUnits * NO) * plan.groups;
-  if (!coop || per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
+  cudaError_t e = check_coresident(kernel, kPThreads, smem, blocks);
+  if (e != cudaSuccess) return e;
   if ((e = cudaMemsetAsync(counter, 0, sizeof(unsigned int), stream)) != cudaSuccess)
     return e;
   Plan p = plan;
-  void* args[] = {&xp, &w, &b_hh, &qlen, &h_out, &hs, &h16, &counter,
+  void* args[] = {&xp, &w, &b_hh, &qlen, &h_out, &hs, &hp, &h16, &counter,
                   &T, &B, &H, &p};
   return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                      dim3(blocks), dim3(kPThreads), args,
@@ -588,18 +537,21 @@ extern "C" int gru_scan_fwd(const void* xp, const void* w_hh,
 // f32; qlen (B) int32; counter: one unsigned int of scratch (zeroed
 // here, on the stream). Training (hs a (T, B, H) f32 buffer): writes
 // every step's state to hs and its bf16 rounding to h16 (T, B, H);
-// h_out is not used. Inference (hs null): h16 is (2, B, H) bf16 scratch
-// and the final state goes to h_out (B, H) f32. Needs 1 <= B <= 256,
-// H % 64 == 0, H <= 1024, and the H / 8 blocks resident together (else
-// cudaErrorCooperativeLaunchTooLarge, before anything is launched). One
-// cooperative launch. Returns cudaError_t.
+// h_out is not used; with hp a (T, B, 3H) f32 buffer it also writes every
+// step's hidden-side products h_prev @ W_hh^T + b_hh there (the input of
+// kernel E's persistent sweep). Inference (hs and hp null): h16 is
+// (2, B, H) bf16 scratch and the final state goes to h_out (B, H) f32.
+// Needs 1 <= B <= 256, H % 64 == 0, H <= 1024, and the H / 8 blocks
+// resident together (else cudaErrorCooperativeLaunchTooLarge, before
+// anything is launched). One cooperative launch. Returns cudaError_t.
 extern "C" int gru_scan_persistent(const void* xp, const void* w_hh,
                                    const void* b_hh, const void* qlen,
-                                   void* h_out, void* hs, void* h16,
-                                   void* counter, int T, int B, int H,
-                                   void* stream) {
+                                   void* h_out, void* hs, void* hp,
+                                   void* h16, void* counter, int T, int B,
+                                   int H, void* stream) {
   if (T <= 0 || B <= 0 || B > kMaxBatch || H <= 0 || H % 64 != 0 ||
-      H > 1024 || (hs == nullptr && h_out == nullptr) || h16 == nullptr ||
+      H > 1024 || (hs == nullptr && h_out == nullptr) ||
+      (hp != nullptr && hs == nullptr) || h16 == nullptr ||
       counter == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan plan = make_plan(B, H);
@@ -609,12 +561,13 @@ extern "C" int gru_scan_persistent(const void* xp, const void* w_hh,
   const auto* q = static_cast<const int*>(qlen);
   auto* out = static_cast<float*>(h_out);
   auto* all = static_cast<float*>(hs);
+  auto* pre = static_cast<float*>(hp);
   auto* h = static_cast<__nv_bfloat16*>(h16);
   auto* c = static_cast<unsigned int*>(counter);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       plan.octets == 2
-          ? launch_persistent<2>(x, w, bias, q, out, all, h, c, T, B, H, plan, s)
-          : launch_persistent<1>(x, w, bias, q, out, all, h, c, T, B, H, plan, s);
+          ? launch_persistent<2>(x, w, bias, q, out, all, pre, h, c, T, B, H, plan, s)
+          : launch_persistent<1>(x, w, bias, q, out, all, pre, h, c, T, B, H, plan, s);
   return static_cast<int>(e);
 }

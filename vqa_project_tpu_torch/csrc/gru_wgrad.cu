@@ -15,45 +15,57 @@
 //
 // What bounds it on an H100: bytes at the training batch (B=64: the
 // 12.6 MB f32 dW write against 6 GFLOP), operations from B ~ 256 on.
+// What holds it back there is the operand stream from L2: every block
+// reads 40 KB a K step, ~6 TB/s over the grid at B=256 (PERF.md).
 //
-// Design: a TN product, both operands reduced over their rows, so both
-// tiles sit in shared memory MN-major and wgmma reads them with its
-// transpose bits set. A block computes a 192 x 128 tile of dW (64 rows
-// per consumer warpgroup, three of them: 16 x 8 = 128 tiles at H=1024,
-// one wave on 132 SMs; 128-row tiles would give 192, 1.45 waves, and
-// ran slower on an H100) over all R rows: a
-// 4-stage ring of 64-row K steps filled by TMA (one producer thread,
-// 64 x 64 boxes, 128-byte swizzle, the rows past R zero-filled by the
-// hardware) and drained by the consumer warpgroups, each issuing
-// m64n128k16 wgmmas on its 64 rows of dW, one stage's group in flight
-// while it waits for the next; full/empty mbarriers hand the stages
-// over. No split over K and no atomics, so dW repeats bit for
-// bit. The accumulators are staged through the drained ring and stored
-// as coalesced 16-byte rows. The producer warpgroup's other three warps
-// sum a slice of db (the columns split evenly over the blocks) straight
-// from dhp, every row in a fixed order, while the products run. Since
-// H % 64 == 0, 3H is a multiple of the tile's 192 rows; a column tile
-// past H (H % 128 == 64) is zero-filled by TMA and not stored.
+// Design: the product is computed as dW^T (H, 3H) = Hp^T D, a TN product
+// with both operands reduced over their rows, so both tiles sit in
+// shared memory MN-major and wgmma reads them with its transpose bits
+// set. A tile is 128 units of H (64 per consumer warpgroup, the wgmma's
+// M) by 192 rows of dW (three 64-wide D boxes, its N): 8 x 16 = 128
+// tiles at H=1024, one per SM in one wave. This is cuBLAS's tile for
+// the same product on an H100; it beat 192 x 128 tiles with N = 128 and
+// three consumer groups, and 128 x 128 tiles walked two a block (see
+// PERF.md). The blocks run a persistent tile loop: at most one block
+// per SM, each walking the tiles with a stride of the grid, the tiles
+// split evenly over the blocks. Every tile is summed over all R rows: a
+// 5-stage ring of 64-row K steps filled by TMA (one producer thread, 64
+// x 64 boxes, 128-byte swizzle, the rows past R zero-filled by the
+// hardware) and drained by the two consumer warpgroups, each issuing
+// m64n192k16 wgmmas, one stage's group in flight while it waits for the
+// next; full/empty mbarriers hand the stages over. The ring runs on
+// across tiles, so the producer fills the next tile's stages while this
+// one's last products and epilogue run. The epilogue stores straight
+// from the accumulator fragments: a warp's store writes 8 consecutive
+// floats of 4 rows of dW, whole 32-byte sectors, with no staging buffer
+// and no barrier. No split over K and no atomics: each element of dW is
+// summed over the K steps in one order, whatever the tiling, so dW
+// repeats bit for bit.
+//
+// The producer warpgroup's other three warps sum a slice of db (the
+// columns split evenly over the blocks) straight from dhp, every row in
+// a fixed order, while the products run. Since H % 64 == 0, 3H is a
+// multiple of the tile's 192 rows; a unit tile past H (H % 128 == 64) is
+// zero-filled by TMA and not stored.
 
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kNC = 3;      // consumer warpgroups: 64 kNC rows of dW
-constexpr int kBM = 64 * kNC;
-constexpr int kBN = 128;    // columns of dW per block (two 64-wide boxes)
+constexpr int kNC = 2;      // consumer warpgroups: 64 kNC units of H a tile
+constexpr int kTM = 64 * kNC;
+constexpr int kTN = 192;    // rows of dW a tile (three 64-wide D boxes)
 constexpr int kBK = 64;     // rows of D and Hp per ring stage
-constexpr int kStages = 4;
+constexpr int kStages = 5;
 constexpr int kBox = 64 * kBK * 2;  // bytes of one 64 x 64 bf16 box
-constexpr int kEpiLd = kBN + 8;     // f32 staging row stride: no conflicts
 constexpr int kDbThreads = 96;      // the producer group's warps 1..3
 
-constexpr int kStageBytes = (kNC + 2) * kBox;  // A boxes, then B
+constexpr int kStageBytes = (kNC + 3) * kBox;  // Hp boxes, then D boxes
 constexpr int kRing = kStages * kStageBytes;
 constexpr int kBars = kRing;                     // full, then empty
 constexpr int kDb = kBars + 2 * kStages * 8;     // db partials
 constexpr int kSmemBytes = kDb + kDbThreads * 8 * 4;
-static_assert(kBM * kEpiLd * 4 <= kRing, "staging must fit the ring");
+static_assert(kSmemBytes + 1024 <= 227 * 1024, "shared memory per block");
 
 __global__ void __launch_bounds__((kNC + 1) * 128, 1)
 gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
@@ -72,7 +84,8 @@ gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
   const int h3 = 3 * H;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tiles_m = (H + kTM - 1) / kTM;
+  const int tiles = tiles_m * (h3 / kTN);
   const int nk = (R + kBK - 1) / kBK;
 
   if (tid == 0) {
@@ -84,25 +97,25 @@ gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
   }
   __syncthreads();
 
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
   if (wg == kNC) {  // the producer warpgroup
     const int w = (tid % 128) / 32;
     if (w == 0) {
       if (lane == 0) {
-        for (int kt = 0; kt < nk; ++kt) {
-          const int s = kt % kStages, round = kt / kStages;
-          if (round > 0) wgmma::mbar_wait(&empty[s], (round - 1) & 1);
-          uint8_t* st = smem + s * kStageBytes;
-          wgmma::mbar_arrive_expect_tx(&full[s], kStageBytes);
-          for (int c = 0; c < kNC; ++c)
-            wgmma::tma_load_2d(st + c * kBox, &map_d, &full[s], m0 + 64 * c,
-                               kt * kBK);
-          for (int c = 0; c < 2; ++c)
-            wgmma::tma_load_2d(st + (kNC + c) * kBox, &map_h, &full[s],
-                               n0 + 64 * c, kt * kBK);
+        int it = 0;  // K steps issued, over all tiles: the ring position
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+          const int h0 = tile % tiles_m * kTM, d0 = tile / tiles_m * kTN;
+          for (int kt = 0; kt < nk; ++kt, ++it) {
+            const int s = it % kStages, round = it / kStages;
+            if (round > 0) wgmma::mbar_wait(&empty[s], (round - 1) & 1);
+            uint8_t* st = smem + s * kStageBytes;
+            wgmma::mbar_arrive_expect_tx(&full[s], kStageBytes);
+            for (int c = 0; c < kNC; ++c)
+              wgmma::tma_load_2d(st + c * kBox, &map_h, &full[s],
+                                 h0 + 64 * c, kt * kBK);
+            for (int c = 0; c < 3; ++c)
+              wgmma::tma_load_2d(st + (kNC + c) * kBox, &map_d, &full[s],
+                                 d0 + 64 * c, kt * kBK);
+          }
         }
       }
     } else {
@@ -110,7 +123,7 @@ gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
       // (group g, chunk c) sums rows g, g + groups, ... in order, then
       // the groups are added in order
       const int t = tid % 128 - 32;
-      const int c0 = (blockIdx.y * gridDim.x + blockIdx.x) * db_cols;
+      const int c0 = blockIdx.x * db_cols;
       const int chunks = db_cols / 8, groups = kDbThreads / chunks;
       const int c = t % chunks, g = t / chunks;
       const int col = c0 + c * 8;
@@ -132,7 +145,7 @@ gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
       for (int e = 0; e < 8; ++e) db_s[t * 8 + e] = sum[e];
       asm volatile("bar.sync 8, %0;\n" :: "n"(kDbThreads) : "memory");
       // column j is element j % 8 of chunk j / 8; db_cols is up to 8 x
-      // kDbThreads (192 at H = 64 and 128), so a thread may finish several
+      // kDbThreads, so a thread may finish several
       for (int j = t; j < db_cols && c0 + j < h3; j += kDbThreads) {
         float s = 0.f;
         for (int gg = 0; gg < groups; ++gg)
@@ -140,16 +153,26 @@ gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
         db[c0 + j] = s;
       }
     }
-  } else {  // consumer warpgroup wg: rows m0 + 64 wg .. + 63 of dW
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % kStages;
-      wgmma::mbar_wait(&full[s], (kt / kStages) & 1);
+    return;
+  }
+
+  // consumer warpgroup wg: units h0 + 64 wg .. + 63 of each tile
+  const int wr = ((tid % 128) / 32) * 16 + lane / 4, wc = (lane % 4) * 2;
+  int it = 0;  // K steps consumed, over all tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int h0 = tile % tiles_m * kTM, d0 = tile / tiles_m * kTN;
+    float acc[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kStages;
+      wgmma::mbar_wait(&full[s], (it / kStages) & 1);
       const uint32_t a = wgmma::smem_u32(smem + s * kStageBytes + wg * kBox);
       const uint32_t b = wgmma::smem_u32(smem + s * kStageBytes + kNC * kBox);
       wgmma::fence();
 #pragma unroll
       for (int k = 0; k < kBK / 16; ++k)
-        wgmma::mma_m64n128k16<1, 1>(
+        wgmma::mma_m64n192k16<1, 1>(
             acc, wgmma::desc_sw128(a + k * 2048, kBox, 1024),
             wgmma::desc_sw128(b + k * 2048, kBox, 1024));
       wgmma::commit();
@@ -158,30 +181,26 @@ gru_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_d,  // (R, 3H)
       wgmma::wait<1>();
       __syncwarp();
       if (kt > 0 && lane == 0)
-        wgmma::mbar_arrive(&empty[(kt - 1) % kStages]);
+        wgmma::mbar_arrive(&empty[(it - 1) % kStages]);
     }
     wgmma::wait<0>();
-  }
-  __syncthreads();  // every stage consumed: the ring is free for staging
-  if (wg == kNC) return;
+    __syncwarp();
+    if (nk > 0 && lane == 0) wgmma::mbar_arrive(&empty[(it - 1) % kStages]);
 
-  // epilogue: fragment -> shared (row stride kEpiLd) -> 16-byte rows
-  float* stage = reinterpret_cast<float*>(smem) + wg * 64 * kEpiLd;
-  const int wr = ((tid % 128) / 32) * 16 + lane / 4, wc = (lane % 4) * 2;
+    // epilogue: fragment (unit m, row n) -> dw[n][m], 4-byte stores of 8
+    // consecutive units per row; the producer is already filling the
+    // ring for the next tile
+    const int m = h0 + 64 * wg + wr;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    *reinterpret_cast<float2*>(stage + wr * kEpiLd + 8 * i + wc) =
-        make_float2(acc[4 * i], acc[4 * i + 1]);
-    *reinterpret_cast<float2*>(stage + (wr + 8) * kEpiLd + 8 * i + wc) =
-        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
-  }
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-  for (int i = tid % 128; i < 64 * (kBN / 4); i += 128) {
-    const int r = i / (kBN / 4), c4 = (i % (kBN / 4)) * 4;
-    const int m = m0 + 64 * wg + r, n = n0 + c4;
-    if (m < h3 && n < H)
-      *reinterpret_cast<float4*>(dw + static_cast<size_t>(m) * H + n) =
-          *reinterpret_cast<const float4*>(stage + r * kEpiLd + c4);
+    for (int i = 0; i < 24; ++i) {
+      const int n = d0 + 8 * i + wc;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* p = dw + static_cast<size_t>(n + e) * H + m;
+        if (m < H) p[0] = acc[4 * i + e];
+        if (m + 8 < H) p[8] = acc[4 * i + 2 + e];
+      }
+    }
   }
 }
 
@@ -200,17 +219,23 @@ cudaError_t launch(const __nv_bfloat16* dhp, const __nv_bfloat16* hs16,
   e = wgmma::make_map_bf16(&map_h, hs16, H, rows,
                            static_cast<uint64_t>(H) * 2, 64, kBK);
   if (e != cudaSuccess) return e;
-  const dim3 grid((H + kBN - 1) / kBN, h3 / kBM);
-  const int blocks = grid.x * grid.y;
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  // as few blocks as keep the busiest one to the same number of tiles
+  const int tiles = (H + kTM - 1) / kTM * (h3 / kTN);
+  const int waves = (tiles + sms - 1) / sms;
+  const int blocks = (tiles + waves - 1) / waves;
   const int db_cols = 8 * ((h3 / 8 + blocks - 1) / blocks);
   if (db_cols / 8 > kDbThreads) return cudaErrorInvalidValue;
   const int smem = kSmemBytes + 1024;  // + alignment slack
-  auto kernel = gru_wgrad_wgmma_kernel;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  e = cudaFuncSetAttribute(gru_wgrad_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, (kNC + 1) * 128, smem, stream>>>(map_d, map_h, dhp, dw, db,
-                                                  T * B, R, H, db_cols);
+  gru_wgrad_wgmma_kernel<<<blocks, (kNC + 1) * 128, smem, stream>>>(
+      map_d, map_h, dhp, dw, db, T * B, R, H, db_cols);
   return cudaGetLastError();
 }
 
@@ -224,10 +249,8 @@ extern "C" int gru_wgrad_wgmma(const void* dhp, const void* hs16, void* dw,
   if (T <= 0 || B <= 0 || H <= 0 || H % 64 != 0 ||
       static_cast<long long>(T) * B * 3 * H >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* d = static_cast<const __nv_bfloat16*>(dhp);
-  const auto* h = static_cast<const __nv_bfloat16*>(hs16);
-  auto* w = static_cast<float*>(dw);
-  auto* b = static_cast<float*>(db);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(launch(d, h, w, b, T, B, H, s));
+  return static_cast<int>(launch(
+      static_cast<const __nv_bfloat16*>(dhp),
+      static_cast<const __nv_bfloat16*>(hs16), static_cast<float*>(dw),
+      static_cast<float*>(db), T, B, H, static_cast<cudaStream_t>(stream)));
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for products on the tensor cores fed
 // by TMA: mbarriers, 2-D TMA loads into 128-byte-swizzled shared tiles,
-// wgmma shared-memory descriptors and the m64n128k16 bf16 wgmma, and the
+// wgmma shared-memory descriptors and the m64n192k16 bf16 wgmma, and the
 // host-side tensor map. Used by gru_wgrad.cu (kernel E's weight
 // gradient); written so that the hand GEMM under kernels H and I can
 // move onto it.
@@ -101,19 +101,19 @@ __device__ __forceinline__ void wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// d (64 x 128 f32, the warpgroup's accumulator fragment) += A (64 x 16)
-// B (16 x 128), bf16 from shared memory; TA / TB = 1 for an MN-major
+// d (64 x 192 f32, the warpgroup's accumulator fragment) += A (64 x 16)
+// B (16 x 192), bf16 from shared memory; TA / TB = 1 for an MN-major
 // operand. Fragment: warp w of the group holds rows 16w + lane/4 (+8);
 // d[4i + 0..1] are columns 8i + 2 (lane % 4) + 0..1 of the first row,
 // d[4i + 2..3] the same columns of the second.
 template <int TA, int TB>
-__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
+__device__ __forceinline__ void mma_m64n192k16(float (&d)[96], uint64_t da,
                                                uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
@@ -121,8 +121,12 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
       "%32, %33, %34, %35, %36, %37, %38, %39, "
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -139,7 +143,15 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

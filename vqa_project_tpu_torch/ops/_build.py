@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.
-Libraries go to ``vqa_project_tpu_torch/_build/<hash>/``, where the hash
-covers every source and the compiler flags, so an edited source builds
-anew and an unchanged one is reused; beside each library, ``lib<name>.log``
+Libraries go to ``vqa_project_tpu_torch/_build/<hash>/`` where the
+package directory is writable, else (a read-only install) to
+``vqa_project_tpu_torch/_build/<hash>/`` under the user's cache directory
+(``$XDG_CACHE_HOME`` or ``~/.cache``). The hash covers every source and
+the compiler flags, so an edited source builds anew and an unchanged one
+is reused; beside each library, ``lib<name>.log``
 keeps the compiler's report (registers, shared memory and spills of each
 kernel, from ``-Xptxas -v``). ``build_all`` starts one ``nvcc`` per
 source, all at once.
@@ -63,10 +66,11 @@ _SIGNATURES = {
     },
     "gru_scan": {
         "gru_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "gru_scan_persistent": [_P] * 8 + [_I, _I, _I, _P],
+        "gru_scan_persistent": [_P] * 9 + [_I, _I, _I, _P],
     },
     "gru_scan_bwd": {
         "gru_scan_bwd_step": [_P] * 11 + [_I, _I, _I, _I, _P],
+        "gru_scan_bwd_persistent": [_P] * 9 + [_I, _I, _I, _P],
         "gru_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gru_wgrad": {
@@ -90,13 +94,23 @@ def _nvcc() -> str:
     return path
 
 
+def _build_root() -> Path:
+    """BUILD_ROOT inside the package where its directory is writable,
+    else the same path under the user's cache directory."""
+    if os.access(BUILD_ROOT.parent, os.W_OK):
+        return BUILD_ROOT
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / _PKG.name / BUILD_ROOT.name
+
+
 def build_dir() -> Path:
     """The build directory for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return _build_root() / h.hexdigest()[:16]
 
 
 def _compile(nvcc: str, name: str, out: Path) -> subprocess.Popen:

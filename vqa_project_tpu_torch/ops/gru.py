@@ -37,7 +37,7 @@ def input_projection(emb: torch.Tensor, w_ih: torch.Tensor,
 
 def gru_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
                        b_hh: torch.Tensor, qlen: torch.Tensor,
-                       return_hs: bool = False):
+                       return_hs: bool = False, return_hp: bool = False):
     """The GRU recurrence over precomputed input projections.
 
     Args:
@@ -48,19 +48,26 @@ def gru_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
       b_hh: (3H,) hidden bias.
       qlen: (B,) true lengths; h is frozen for t >= qlen.
       return_hs: also return every step's state.
+      return_hp: with ``return_hs``, also every step's hidden-side
+            pre-activations hp = h_prev @ W^T + b_hh (float32), which the
+            persistent reverse sweep reads instead of recomputing.
     Returns:
       (B, H) float32 final hidden states; with ``return_hs`` the pair
-      (final, hs (T, B, H) float32), hs[t] being the state after step t.
+      (final, hs (T, B, H) float32), hs[t] being the state after step t;
+      with ``return_hp`` too, the triple (final, hs, hp (T, B, 3H)).
     """
+    if return_hp and not return_hs:
+        raise ValueError("return_hp needs return_hs")
     t_steps, b, h3 = xp.shape
     h = h3 // 3
     w_t = w_hh.t()
     b32 = b_hh.float()
     qlen = qlen.to(device=xp.device, dtype=torch.int64)
     h_prev = torch.zeros((b, h), dtype=torch.float32, device=xp.device)
-    hs = []
+    hs, hps = [], []
     for t in range(t_steps):
         hp = matmul(h_prev.to(w_hh.dtype), w_t) + b32
+        hps.append(hp)
         xr, xz, xn = xp[t].split(h, dim=-1)
         hr, hz, hn = hp.split(h, dim=-1)
         r = torch.sigmoid(xr + hr)
@@ -70,6 +77,8 @@ def gru_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
         keep = (t < qlen)[:, None]
         h_prev = torch.where(keep, h_new, h_prev)
         hs.append(h_prev)
+    if return_hp:
+        return h_prev, torch.stack(hs), torch.stack(hps)
     if return_hs:
         return h_prev, torch.stack(hs)
     return h_prev
@@ -97,14 +106,18 @@ def gru_scan_bwd_reference(xp: torch.Tensor, w_hh: torch.Tensor,
 
 def gru_scan_sweep_reference(xp: torch.Tensor, w_hh: torch.Tensor,
                              b_hh: torch.Tensor, qlen: torch.Tensor,
-                             hs: torch.Tensor, gh_final: torch.Tensor):
+                             hs: torch.Tensor, gh_final: torch.Tensor,
+                             hp: torch.Tensor | None = None):
     """The reverse-time sweep over the saved states, T-1 down to 0: the
-    plain version of ``csrc/gru_scan_bwd.cu``'s step kernel.
+    plain version of ``csrc/gru_scan_bwd.cu``'s sweeps.
 
     Same rounding points as the JAX reference: hp is recomputed with
     h_prev cast to the weight dtype (so the gates are the forward's),
     dhp is cast to the weight dtype for the product with W and is kept
-    in it, every sum is float32, and dxp stays float32.
+    in it, every sum is float32, and dxp stays float32. Given ``hp``
+    (T, B, 3H) float32, the forward's own (``gru_scan_reference(...,
+    return_hp=True)``), the sweep reads it instead of recomputing it, as
+    the persistent kernel does.
 
     Returns dxp (T, B, 3H) float32 and dhp (T, B, 3H) in W's dtype.
     """
@@ -118,9 +131,10 @@ def gru_scan_sweep_reference(xp: torch.Tensor, w_hh: torch.Tensor,
     dxps, dhps = [None] * t_steps, [None] * t_steps
     for t in reversed(range(t_steps)):
         h_prev = h_prevs[t]
-        hp = matmul(h_prev.to(wd), w_hh.t()) + b32
+        hp_t = (matmul(h_prev.to(wd), w_hh.t()) + b32 if hp is None
+                else hp[t].float())
         xr, xz, xn = xp[t].float().split(h, dim=-1)
-        hr, hz, hn = hp.split(h, dim=-1)
+        hr, hz, hn = hp_t.split(h, dim=-1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)

@@ -7,8 +7,10 @@ and ``gru_encode_pallas``, forward and backward. On CUDA tensors:
   tensor-core kernel once per call, or the per-step SIMT kernel once per
   time step, as ``scan_kernel`` decides; with ``return_hs`` it keeps
   every step's state in f32 and, for bf16 weights, in bf16;
-- ``gru_scan_bwd`` launches the reverse step kernel of
-  ``csrc/gru_scan_bwd.cu`` (E) once per step, T-1 down to 0;
+- ``gru_scan_bwd`` launches kernel E's reverse sweep of
+  ``csrc/gru_scan_bwd.cu``: the persistent tensor-core sweep once per
+  call, reading the forward's hp, or the per-step SIMT kernel once per
+  step, T-1 down to 0, as ``sweep_kernel`` decides;
 - ``gru_wgrad`` launches E's weight-gradient kernel once: the wgmma
   product of ``csrc/gru_wgrad.cu`` or the SIMT reduction of
   ``csrc/gru_scan_bwd.cu``, as ``wgrad_kernel`` decides.
@@ -49,6 +51,22 @@ def scan_kernel(dtype: torch.dtype, b: int, h: int) -> str:
     return "per_step"
 
 
+def sweep_kernel(dtype: torch.dtype, b: int, h: int) -> str:
+    """Which reverse sweep of kernel E runs the backward of a recurrence
+    with weights of ``dtype``, batch ``b`` and width ``h`` on the card.
+
+    "persistent" (``gru_scan_bwd_persistent``: one cooperative launch for
+    all T steps, W's columns resident in shared memory, mma.sync on the
+    tensor cores) exactly where ``scan_kernel`` picks kernel B's
+    persistent kernel (bf16 weights, 1 <= B <= 256, H % 64 == 0,
+    H <= 1024: every batch the model runs), since the sweep reads the hp
+    that only that kernel writes. "per_step" (``gru_scan_bwd_step``: one
+    launch per reverse step on the SIMT cores, hp recomputed) for the
+    rest, f32 weights above all.
+    """
+    return scan_kernel(dtype, b, h)
+
+
 def wgrad_kernel(dtype: torch.dtype, h: int) -> str:
     """Which kernel computes dW/db for ``dhp`` of ``dtype`` at width
     ``h`` on the card: "wgmma" (``gru_wgrad_wgmma``, bf16 operands dhp
@@ -86,12 +104,16 @@ def _check_cuda_inputs(xp, w_hh, b_hh, qlen):
 
 
 def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-             qlen: torch.Tensor, return_hs: bool = False):
+             qlen: torch.Tensor, return_hs: bool = False,
+             return_hp: bool = False):
     """GRU recurrence; returns the final hidden state (B, H) float32, and
     with ``return_hs`` the triple (final, hs, hs16): every step's state
     hs (T, B, H) float32 and, for bf16 weights, its bf16 rounding hs16
     (T, B, H), the operand of the weight gradient (None for f32
-    weights).
+    weights). With ``return_hp`` as well, the quadruple (final, hs, hs16,
+    hp): hp (T, B, 3H) float32 = h_prev @ W^T + b_hh of every step, which
+    the persistent reverse sweep reads; only the persistent kernel keeps
+    it (``scan_kernel``), so on the card other shapes raise.
 
     Args:
       xp:   (T, B, 3H) float32 input projections (b_ih included).
@@ -99,12 +121,15 @@ def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
       b_hh: (3H,) float32 hidden bias.
       qlen: (B,) int32 true lengths; h is frozen for t >= qlen.
     """
+    if return_hp and not return_hs:
+        raise ValueError("return_hp needs return_hs")
     bf16 = w_hh.dtype == torch.bfloat16
     if xp.device.type == "cpu":
         if not return_hs:
             return gru_scan_reference(xp, w_hh, b_hh, qlen)
-        final, hs = gru_scan_reference(xp, w_hh, b_hh, qlen, True)
-        return final, hs, hs.to(torch.bfloat16) if bf16 else None
+        final, hs, *hp = gru_scan_reference(xp, w_hh, b_hh, qlen, True,
+                                            return_hp)
+        return (final, hs, hs.to(torch.bfloat16) if bf16 else None, *hp)
     t, b, h = _check_cuda_inputs(xp, w_hh, b_hh, qlen)
     dev = xp.device
     lib = _build.load("gru_scan")
@@ -117,17 +142,25 @@ def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                           dtype=torch.bfloat16, device=dev)
         final = (None if return_hs else
                  torch.empty((b, h), dtype=torch.float32, device=dev))
+        hp = (torch.empty((t, b, 3 * h), dtype=torch.float32, device=dev)
+              if return_hp else None)
         counter = torch.empty((1,), dtype=torch.int32, device=dev)
         rc = lib.gru_scan_persistent(
             xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             qlen.data_ptr(), None if final is None else final.data_ptr(),
-            None if hs is None else hs.data_ptr(), h16.data_ptr(),
+            None if hs is None else hs.data_ptr(),
+            None if hp is None else hp.data_ptr(), h16.data_ptr(),
             counter.data_ptr(), t, b, h, stream)
         _build.check(rc, "gru_scan_persistent")
         gru_scan.launches += 1  # one launch for all T steps
+        if return_hp:
+            return hs[-1], hs, h16, hp
         if return_hs:
             return hs[-1], hs, h16
         return final
+    if return_hp:
+        raise ValueError("only the persistent kernel keeps hp; "
+                         f"scan_kernel({w_hh.dtype}, {b}, {h}) is per_step")
     h_a = torch.zeros((b, h), dtype=torch.float32, device=dev)
     h_b = None if return_hs else torch.empty_like(h_a)
     rc = lib.gru_scan_fwd(
@@ -145,32 +178,66 @@ def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 gru_scan.launches = 0
 
 
-def gru_scan_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                 qlen: torch.Tensor, hs: torch.Tensor,
-                 gh_final: torch.Tensor):
-    """Reverse sweep over the saved states hs (T, B, H) float32 from the
-    final state's gradient gh_final (B, H) float32: (dxp (T, B, 3H)
-    float32, dhp (T, B, 3H) in W's dtype), as
-    ``gru_scan_sweep_reference`` returns them."""
-    if xp.device.type == "cpu":
-        return gru_scan_sweep_reference(xp, w_hh, b_hh, qlen, hs, gh_final)
+def _check_sweep_inputs(xp, w_hh, b_hh, qlen, hs, gh_final, hp):
+    """(T, B, H, kernel): the checks of the recurrence's inputs, then of
+    the sweep's own: hs and gh_final float32, and hp, (T, B, 3H) float32,
+    exactly where ``sweep_kernel`` picks the persistent sweep (the
+    per-step sweep recomputes it)."""
     t, b, h = _check_cuda_inputs(xp, w_hh, b_hh, qlen)
     dev = xp.device
-    for name, x in (("hs", hs), ("gh_final", gh_final)):
+    kernel = sweep_kernel(w_hh.dtype, b, h)
+    named = [("hs", hs), ("gh_final", gh_final)]
+    if kernel == "persistent":
+        if hp is None:
+            raise ValueError("the persistent sweep reads the forward's hp: "
+                             "pass gru_scan(..., return_hp=True)'s")
+        named.append(("hp", hp))
+    elif hp is not None:
+        raise ValueError("the per-step sweep recomputes hp; pass hp=None")
+    for name, x in named:
         if x.device != dev or x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if tuple(hs.shape) != (t, b, h) or tuple(gh_final.shape) != (b, h):
         raise ValueError("hs must be (T, B, H) and gh_final (B, H)")
+    if hp is not None and tuple(hp.shape) != (t, b, 3 * h):
+        raise ValueError(f"hp must be {(t, b, 3 * h)}, got {tuple(hp.shape)}")
+    return t, b, h, kernel
+
+
+def gru_scan_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                 qlen: torch.Tensor, hs: torch.Tensor,
+                 gh_final: torch.Tensor, hp: torch.Tensor | None = None):
+    """Reverse sweep over the saved states hs (T, B, H) float32 from the
+    final state's gradient gh_final (B, H) float32: (dxp (T, B, 3H)
+    float32, dhp (T, B, 3H) in W's dtype), as
+    ``gru_scan_sweep_reference`` returns them. ``hp`` (T, B, 3H) float32
+    is the forward's (``gru_scan(..., return_hp=True)``): the persistent
+    sweep needs it, the per-step one takes none."""
+    if xp.device.type == "cpu":
+        return gru_scan_sweep_reference(xp, w_hh, b_hh, qlen, hs, gh_final,
+                                        hp)
+    t, b, h, kernel = _check_sweep_inputs(xp, w_hh, b_hh, qlen, hs,
+                                          gh_final, hp)
+    dev = xp.device
     lib = _build.load("gru_scan_bwd")
-    w_t = w_hh.t().contiguous()            # columns of W as coalesced rows
     dxp = torch.empty_like(xp)
     dhp = torch.empty(xp.shape, dtype=w_hh.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "persistent":
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        rc = lib.gru_scan_bwd_persistent(
+            xp.data_ptr(), w_hh.data_ptr(), hp.data_ptr(), hs.data_ptr(),
+            qlen.data_ptr(), gh_final.data_ptr(), dxp.data_ptr(),
+            dhp.data_ptr(), counter.data_ptr(), t, b, h, stream)
+        _build.check(rc, "gru_scan_bwd_persistent")
+        gru_scan_bwd.launches += 1  # one launch for all T steps
+        return dxp, dhp
+    w_t = w_hh.t().contiguous()            # columns of W as coalesced rows
     # carry: the gradient of h_out for the next step down, ping-ponged
     bufs = (torch.empty_like(gh_final), torch.empty_like(gh_final))
     c_in = gh_final
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for i, step in enumerate(reversed(range(t))):
         c_out = bufs[i % 2]
         rc = lib.gru_scan_bwd_step(
@@ -249,19 +316,24 @@ class GRUScanFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh, qlen):
-        h_final, hs, hs16 = gru_scan(xp, w_hh, b_hh, qlen, return_hs=True)
+        # the persistent sweep reads the forward's hp instead of
+        # recomputing it
+        keep_hp = sweep_kernel(w_hh.dtype, xp.shape[1],
+                               w_hh.shape[1]) == "persistent"
+        h_final, hs, hs16, *hp = gru_scan(xp, w_hh, b_hh, qlen,
+                                          return_hs=True, return_hp=keep_hp)
         # the weight gradient's operand: hs16 for the wgmma product,
         # the float32 states for the SIMT reduction
         states = (hs16 if wgrad_kernel(w_hh.dtype, w_hh.shape[1]) == "wgmma"
                   else hs)
-        ctx.save_for_backward(xp, w_hh, b_hh, qlen, hs, states)
+        ctx.save_for_backward(xp, w_hh, b_hh, qlen, hs, states, *hp)
         return h_final
 
     @staticmethod
     def backward(ctx, gh_final):
-        xp, w_hh, b_hh, qlen, hs, states = ctx.saved_tensors
+        xp, w_hh, b_hh, qlen, hs, states, *hp = ctx.saved_tensors
         dxp, dhp = gru_scan_bwd(xp, w_hh, b_hh, qlen, hs,
-                                gh_final.float().contiguous())
+                                gh_final.float().contiguous(), *hp)
         dw, db = gru_wgrad(dhp, states)
         return dxp, dw.to(w_hh.dtype), db.to(b_hh.dtype), None
 
