@@ -8,7 +8,14 @@ Phases, in order; the first failure exits non-zero:
 1. device: needs CUDA; prints the card's name and power limit; TF32 off;
 2. build: compiles the CUDA kernels of vqa_project_tpu_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving shapes (f32 and bf16); kernel B at B = 1, 16, 64, 200
+   at the serving shapes (f32 and bf16); kernel A also at the medical
+   K=51 and at K = 1, 17, 64, n = 1 and 8, B = 1 and 257, d = 40, and
+   at the bf16 shapes the rule sends to the SIMT body (K=72, d=36), the
+   aggregation rule's pick asserted, its bf16 body run again into
+   NaN-filled outputs equal bit for bit, and for the mma body the share
+   of outputs rounded otherwise than bf16(the f32 plain value) at most
+   2%, where a one-pass control of the weights (bf16 hi alone) must
+   exceed it (the main path's shapes); kernel B at B = 1, 16, 64, 200
    and 256 (past 128 rows the persistent kernel splits the batch) with
    qlen spread over 0..T and all equal, persistent (bf16) and per step
    (f32), two runs equal bit for bit; in bf16 also the persistent kernel
@@ -20,9 +27,13 @@ Phases, in order; the first failure exits non-zero:
    answers 64 requests from 8 keep-alive clients; every answer is held
    against a direct forward, and both kernels must have launched;
 7. training kernels against their plain versions on the card: C and D
-   at the VQA conv1/conv2 shapes (B=64) and the medical K=51, m=19
-   (B=8), f32 and bf16, with conv1's dropout epilogue (masks bit for bit,
-   kept fraction, repeatability, per-image seeds); B's states and hp and
+   at the VQA conv1/conv2 shapes (B=64), the medical K=51, m=19 (B=8)
+   and phase 3's edge shapes (D only at K <= 64), f32 (SIMT bodies)
+   and bf16 (the rule's bodies, run again into NaN-filled outputs equal
+   bit for bit; for the mma bodies the rounding share of out and dproj
+   and its one-pass control, as in phase 3), with conv1's
+   dropout epilogue (masks bit for bit in both dtypes, kept fraction,
+   repeatability, per-image seeds); B's states and hp and
    E at T=16, H=1024: in bf16 at B = 1, 8, 50, 64, 150, 200 and 256, qlen
    spread over 0..T and all equal, hs16 equal to hs in bf16 bit for bit,
    hp within f32 rounding of the product recomputed from B's own states,
@@ -68,12 +79,16 @@ Phases, in order; the first failure exits non-zero:
     not A and picks the unmerged answer on >= 75% of rows;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
-   the per-step kernel), after phase 9 the training kernels and the
+   the per-step kernel; A beside a torch.bmm of the product alone),
+   after phase 9 the training kernels
+   (C and D beside torch.bmm of their products; C's bound from its
+   bytes, product, Gaussians and Philox multiplies) and the
    training step at B=64 and 256 (E's sweep beside its plain version,
    the per-step sweep, cuDNN's GRU forward + backward and its forward
    alone; E's dW/db beside cuBLAS and the SIMT reduction; kernel B with
    and without hp), after phase 14 the gather kernels at
-   B=64 and 256, the cache-mode training step beside host mode,
+   B=64 and 256 (F and index_select six times each in turns), the
+   cache-mode training step beside host mode,
    evaluate's throughput, then H, I and the hand GEMM at B=64 and 256,
    the merged block beside the unmerged one and the merged training
    step beside the unmerged one; each kernel's device time (launches
@@ -111,13 +126,13 @@ from vqa_project_tpu_torch.models.graph_vqa import GaussianGraphConv
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
-from vqa_project_tpu_torch.ops.dropout import philox_keep
+from vqa_project_tpu_torch.ops.dropout import keep_threshold, philox_keep
 from vqa_project_tpu_torch.ops.matmul import matmul
 from vqa_project_tpu_torch.ops.gather_rows import (gather_rows_blocked,
                                                    gather_rows_packed,
                                                    gather_rows_reference)
 from vqa_project_tpu_torch.ops.edge_aggregate import (
-    fused_sel_aggregate_act, sel_aggregate_act_reference,
+    aggregate_kernel, fused_sel_aggregate_act, sel_aggregate_act_reference,
     sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
     sel_aggregate_act_vjp, sel_aggregate_act_vjp_reference)
 from vqa_project_tpu_torch.ops.graph_block import (
@@ -383,19 +398,192 @@ def gru_bound(xp, w_hh, b_hh, qlen):
 
 # ---------------- phases ----------------
 
+# the VQA and medical shapes of the two convolutions: (B, K, m, n, d,
+# sel is alpha (conv1, dropout in training) or the 0/1 mask (conv2))
+def edge_shapes(b_vqa):
+    return [(b_vqa, 36, 16, 8, 256, True, "vqa conv1"),
+            (b_vqa, 36, 16, 8, 128, False, "vqa conv2"),
+            (8, 51, 19, 8, 256, True, "medical conv1"),
+            (8, 51, 19, 8, 128, False, "medical conv2")]
 
-def check_kernels(dev, gen):
-    """Phase 3: each kernel against its plain version on the card."""
-    errs = {}
-    # kernel A: conv1 (alpha, d=256), conv2 (mask, d=128) at the VQA
-    # shapes, and the medical K=51, m=19
-    for b, k, m, d, use_alpha, label in [
-            (SERVE_B, 36, 16, 256, True, "vqa conv1"),
-            (SERVE_B, 36, 16, 128, False, "vqa conv2"),
-            (8, 51, 19, 256, True, "medical conv1"),
-            (8, 51, 19, 128, False, "medical conv2")]:
-        sel, pseudo, proj, gp = edge_inputs(b, k, m, 8, d, use_alpha, gen,
+
+# the edges of the bf16 mma body's shapes: K = 1, 17 and 64 (rows padded
+# to 16, 32, 64, ragged), n = 1 and 8, B = 1 and 257, d = 40 (rows of 80
+# bytes: 16-byte multiples, not 64-column multiples)
+EDGE_SHAPES_EXTRA = [(1, 1, 1, 8, 256, True, "K=1"),
+                     (257, 1, 1, 1, 40, False, "K=1 n=1 d=40"),
+                     (1, 17, 8, 1, 40, True, "K=17 n=1 d=40"),
+                     (257, 17, 8, 8, 128, False, "K=17"),
+                     (1, 64, 16, 8, 256, True, "K=64"),
+                     (257, 64, 16, 1, 40, True, "K=64 n=1 d=40"),
+                     (TRAIN_B, 36, 16, 8, 40, True, "d=40")]
+# bf16 shapes that the rule sends to the SIMT bodies: K past 64 (A and C
+# only: kernel D takes K <= 64) and rows of d = 36 bf16 (72 bytes, not a
+# 16-byte multiple)
+EDGE_SHAPES_SIMT = [(8, 72, 16, 8, 128, True, "K=72"),
+                    (8, 36, 16, 8, 36, True, "d=36 conv1"),
+                    (8, 36, 16, 8, 36, False, "d=36 conv2")]
+# The mma bodies split each weight w into hi = bf16(w) and lo =
+# bf16(w - hi) and multiply in two passes, which carries w to ~2^-17 of
+# itself; a bf16 output then rounds to bf16(the f32 plain value) but
+# where the f32 sums' order tips a tie (~0.2% of the normal elements).
+# One pass (hi alone) misses w by up to 2^-9 and ~30% round otherwise.
+# The normalized 1e-2 tolerance cannot tell the two apart, this share
+# can: the kernel must stay at or under it, and a one-pass control
+# computed from the same inputs must land above it.
+ROUNDING_SHARE = 0.02
+
+
+def edge_body(proj, gp):
+    b, k, nd = proj.shape
+    n = gp.shape[1]
+    return aggregate_kernel(proj.dtype, k, n, nd // n)
+
+
+def edge_fwd_into_nan(sel, pseudo, proj, gp, relu, rate=0.0, seeds=None,
+                      train=False):
+    """Kernel A (or C with train) through its C entry, in the rule's
+    body, into outputs filled with NaN first, so that an element left
+    unwritten shows: out (or out, ghat, denom)."""
+    b, k, nd = proj.shape
+    n = gp.shape[1]
+    code = {"simt": 0, "mma": 1}[edge_body(proj, gp)]
+    dtype = 1 if proj.dtype == torch.bfloat16 else 0
+    lib = _build.load("edge_aggregate")
+    stream = torch.cuda.current_stream(proj.device).cuda_stream
+    out = torch.full_like(proj, float("nan"))
+    f32 = dict(dtype=torch.float32, device=proj.device)
+    ghat = torch.full((b, n, k, k), float("nan"), **f32)
+    if not train:
+        _build.check(lib.edge_aggregate_fwd(
+            sel.data_ptr(), pseudo.data_ptr(), proj.data_ptr(),
+            gp.data_ptr(), out.data_ptr(), ghat.data_ptr(), b, k, n,
+            nd // n, int(relu), dtype, code, stream), "edge_aggregate_fwd")
+        return out
+    denom = torch.full((b, k, k), float("nan"), **f32)
+    drop = rate > 0
+    _build.check(lib.edge_aggregate_fwd_res(
+        sel.data_ptr(), pseudo.data_ptr(), proj.data_ptr(), gp.data_ptr(),
+        seeds.data_ptr() if drop else None, out.data_ptr(), ghat.data_ptr(),
+        denom.data_ptr(), b, k, n, nd // n, int(relu),
+        keep_threshold(rate) if drop else 0,
+        1.0 / (1.0 - rate) if drop else 1.0, dtype, code, stream),
+        "edge_aggregate_fwd_res")
+    return out, ghat, denom
+
+
+def edge_bwd_into_nan(g, sel, ghat, denom, pseudo, proj, gp, out, rate):
+    """Kernel D through its C entry, in the rule's body, into outputs and
+    a G scratch filled with NaN first: (dsel, dpseudo, dproj,
+    dgparams)."""
+    b, k, nd = proj.shape
+    n = gp.shape[1]
+    code = {"simt": 0, "mma": 1}[edge_body(proj, gp)]
+    lib = _build.load("edge_aggregate_bwd")
+    f32 = dict(dtype=torch.float32, device=proj.device)
+    ge = torch.full((b, n, k, k), float("nan"), **f32)
+    dsel = torch.full((b, k, k), float("nan"), **f32)
+    dpseudo = torch.full((b, k, k, 2), float("nan"), **f32)
+    dproj = torch.full_like(proj, float("nan"))
+    dgp_part = torch.full((b * lib.edge_aggregate_bwd_tiles(k), 4, n),
+                          float("nan"), **f32)
+    stream = torch.cuda.current_stream(proj.device).cuda_stream
+    _build.check(lib.edge_aggregate_bwd(
+        g.data_ptr(), sel.data_ptr(), ghat.data_ptr(), denom.data_ptr(),
+        pseudo.data_ptr(), proj.data_ptr(), gp.data_ptr(),
+        out.data_ptr() if out is not None else None, ge.data_ptr(),
+        dsel.data_ptr(), dpseudo.data_ptr(), dproj.data_ptr(),
+        dgp_part.data_ptr(), b, k, n, nd // n,
+        1.0 / (1.0 - rate) if rate > 0 else 1.0,
+        1 if proj.dtype == torch.bfloat16 else 0, code, stream),
+        "edge_aggregate_bwd")
+    return dsel, dpseudo, dproj, dgp_part.sum(dim=0)
+
+
+def rounding_share(got, want):
+    """The share of want's normal elements that got does not equal: for
+    a bf16 output and want = bf16(the f32 plain value), the share that
+    the kernel rounded otherwise. Zeros and subnormals (below 2^-126,
+    where narrow Gaussians put a few percent of the outputs) are left
+    out: there the mma body and the plain f32 sums part at absolute
+    differences under 2^-126, which says nothing of the weights'
+    precision and which the normalized check covers."""
+    normal = want.abs() >= torch.finfo(torch.bfloat16).tiny
+    return float((got != want)[normal].float().mean())
+
+
+def one_pass_weights(sel, ghat):
+    """The control's weights: w = sel * ghat rounded once to bf16."""
+    return (sel[:, None] * ghat).to(torch.bfloat16).float()
+
+
+def one_pass_out(sel, ghat, proj, rate=0.0, seeds=None):
+    """The forward with one bf16 pass of the weights (the control of the
+    hi/lo split): f32 sums, relu, the plain Philox dropout, bf16."""
+    b, k, nd = proj.shape
+    n = ghat.shape[1]
+    acc = torch.einsum("bnij,bjnd->bind", one_pass_weights(sel, ghat),
+                       proj.float().reshape(b, k, n, nd // n))
+    acc = torch.relu(acc.reshape(b, k, nd))
+    if rate:
+        keep = philox_keep(seeds, acc.shape[1:], rate)
+        acc = torch.where(keep, acc * (1.0 / (1.0 - rate)),
+                          torch.zeros_like(acc))
+    return acc.to(torch.bfloat16)
+
+
+def one_pass_dproj(g, sel, ghat, out, rate):
+    """Kernel D's dproj with one bf16 pass of the weights (the
+    control)."""
+    b, k, nd = g.shape
+    n = ghat.shape[1]
+    inv_keep = 1.0 / (1.0 - rate) if rate else 1.0
+    gm = torch.where(out.float() > 0, g.float() * inv_keep,
+                     torch.zeros(g.shape, device=g.device))
+    return torch.einsum("bnij,bind->bjnd", one_pass_weights(sel, ghat),
+                        gm.reshape(b, k, n, nd // n)).reshape(
+                            b, k, nd).to(torch.bfloat16)
+
+
+def split_check(label, shares, controls):
+    """The hi/lo split on the card: each bf16 share at or under
+    ROUNDING_SHARE, and each one-pass control (given at the main path's
+    shapes) above it."""
+    print(f"  {label} hi/lo split: share rounded otherwise than "
+          f"bf16(f32 plain) " + ", ".join(f"{k} {v:.5f}"
+                                          for k, v in shares.items())
+          + f" (<= {ROUNDING_SHARE}); one-pass control "
+          + (", ".join(f"{k} {v:.5f}" for k, v in controls.items())
+             + f" (> {ROUNDING_SHARE})" if controls else "not run here"),
+          flush=True)
+    require(all(v <= ROUNDING_SHARE for v in shares.values()),
+            f"{label}: a bf16 output rounds as one pass of the weights")
+    require(all(v > ROUNDING_SHARE for v in controls.values()),
+            f"{label}: the one-pass control does not fail the share check")
+
+
+def edge_check_shapes(b_main):
+    """(shape, control): the main path's shapes, where the one-pass
+    control runs, then the mma body's edge shapes and the SIMT shapes."""
+    return ([(x, True) for x in edge_shapes(b_main)]
+            + [(x, False) for x in EDGE_SHAPES_EXTRA + EDGE_SHAPES_SIMT])
+
+
+def check_edge_forward(dev, gen, errs):
+    """Phase 3, kernel A: f32 (SIMT body, 1e-5) and bf16 (the rule's body,
+    1e-2), normalized, against the plain version at the serving shapes,
+    the medical K=51, m=19, the mma body's edge shapes and the bf16
+    shapes the rule sends to the SIMT body; the rule's pick asserted; the
+    bf16 body run again into NaN-filled outputs must give the same bits;
+    and for the mma body the hi/lo split's rounding share."""
+    for (b, k, m, n, d, use_alpha, label), control in edge_check_shapes(
+            SERVE_B):
+        sel, pseudo, proj, gp = edge_inputs(b, k, m, n, d, use_alpha, gen,
                                             dev)
+        want = "mma" if k <= 64 and d % 8 == 0 else "simt"
+        require(aggregate_kernel(torch.bfloat16, k, n, d) == want
+                and aggregate_kernel(torch.float32, k, n, d) == "simt",
+                f"the aggregation rule at K={k} d={d}")
         out = fused_sel_aggregate_act(sel, pseudo, proj, gp, relu=True)
         ref = sel_aggregate_act_reference(sel, pseudo, proj, gp, relu=True)
         torch.cuda.synchronize()
@@ -404,16 +592,35 @@ def check_kernels(dev, gen):
         out16 = fused_sel_aggregate_act(sel, pseudo, proj16, gp, relu=True)
         ref16 = sel_aggregate_act_reference(
             sel, pseudo, proj16.float(), gp, relu=True).to(torch.bfloat16)
+        again = edge_fwd_into_nan(sel, pseudo, proj16, gp, True)
         torch.cuda.synchronize()
         e16 = norm_err(out16, ref16)
-        print(f"kernel A {label} B={b} K={k} d={d}: normalized err f32 "
-              f"{e32:.3e} (<= 1e-5), bf16 {e16:.3e} (<= 1e-2)", flush=True)
+        same = torch.equal(out16, again)
+        print(f"kernel A {label} B={b} K={k} n={n} d={d}: normalized err f32 "
+              f"{e32:.3e} (<= 1e-5), bf16 {want} {e16:.3e} (<= 1e-2); "
+              f"NaN-filled rerun equal bit for bit {same}", flush=True)
         require(out16.dtype == torch.bfloat16 and out.shape == ref.shape,
                 "kernel A output dtype/shape")
-        require(e32 <= 1e-5 and e16 <= 1e-2, f"kernel A {label} disagrees")
+        require(e32 <= 1e-5 and e16 <= 1e-2 and same,
+                f"kernel A {label} disagrees")
+        if want == "mma":
+            controls = {}
+            if control:
+                ghat = sel_aggregate_act_residuals_reference(
+                    sel, pseudo, proj16, gp)[1]
+                controls["out"] = rounding_share(
+                    one_pass_out(sel, ghat, proj16), ref16)
+            split_check(f"kernel A {label}",
+                        {"out": rounding_share(out16, ref16)}, controls)
         if label == "vqa conv1":
             errs["edge_aggregate_fwd"] = float(
                 (out16.float() - ref16.float()).abs().max())
+
+
+def check_kernels(dev, gen):
+    """Phase 3: each kernel against its plain version on the card."""
+    errs = {}
+    check_edge_forward(dev, gen, errs)
     # kernel B: T=16, H=1024, the persistent kernel (bf16 weights) and
     # the per-step one (f32) at B = 1, 16, 64, 200 (a ragged second batch
     # half) and 256, qlen spread over 0..T (0 and T included) and all
@@ -647,41 +854,79 @@ def random_seeds(b, gen, dev):
 
 def check_edge_training(dev, gen, errs):
     """Phase 7, kernels C and D: every output against the plain version
-    on the same inputs (D under the kernel's own dropout mask), and the
-    dropout epilogue's bits, rate, repeatability and per-image seeds."""
-    for b, k, m, d, use_alpha, label in [
-            (TRAIN_B, 36, 16, 256, True, "vqa conv1"),
-            (TRAIN_B, 36, 16, 128, False, "vqa conv2"),
-            (8, 51, 19, 256, True, "medical conv1"),
-            (8, 51, 19, 128, False, "medical conv2")]:
-        sel, pseudo, proj, gp = edge_inputs(b, k, m, 8, d, use_alpha, gen,
+    on the same inputs (D under the kernel's own dropout mask), f32 (SIMT
+    body: C 1e-5, D 1e-4) and bf16 (the rule's body, 1e-2), normalized,
+    at the VQA shapes (B=64), the medical K=51, m=19 (B=8), the mma
+    body's edge shapes and the bf16 shapes the rule sends to the SIMT
+    bodies (D only at K <= 64, all it takes); the bf16 bodies run again
+    into NaN-filled outputs must give the same bits; for the mma bodies
+    the hi/lo split's rounding share of out and dproj; and the dropout
+    epilogue's bits, rate, repeatability and per-image seeds in both
+    dtypes."""
+    for (b, k, m, n, d, use_alpha, label), control in edge_check_shapes(
+            TRAIN_B):
+        sel, pseudo, proj, gp = edge_inputs(b, k, m, n, d, use_alpha, gen,
                                             dev)
         # conv1 runs relu + dropout in training, conv2 relu only
         rate = DROPOUT if use_alpha else 0.0
         seeds = random_seeds(b, gen, dev) if rate else None
         g = torch.randn(proj.shape, generator=gen).to(dev)
+        with_d = k <= 64
         for dtype, tol_c, tol_d in ((torch.float32, 1e-5, 1e-4),
                                     (torch.bfloat16, 1e-2, 1e-2)):
             p = proj.to(dtype)
+            body = edge_body(p, gp)
             res = sel_aggregate_act_residuals(sel, pseudo, p, gp, True, rate,
                                               seeds)
             ref = sel_aggregate_act_residuals_reference(sel, pseudo, p, gp,
                                                         True, rate, seeds)
-            grads = sel_aggregate_act_vjp(g.to(dtype), sel, res[1], res[2],
-                                          pseudo, p, gp, res[0], rate)
-            ref_g = sel_aggregate_act_vjp_reference(
-                g.to(dtype), sel, res[1], res[2], pseudo, p, gp, res[0], rate)
+            grads = ref_g = ()
+            if with_d:
+                grads = sel_aggregate_act_vjp(g.to(dtype), sel, res[1],
+                                              res[2], pseudo, p, gp, res[0],
+                                              rate)
+                ref_g = sel_aggregate_act_vjp_reference(
+                    g.to(dtype), sel, res[1], res[2], pseudo, p, gp, res[0],
+                    rate)
+            same = True
+            if dtype == torch.bfloat16:
+                res2 = edge_fwd_into_nan(sel, pseudo, p, gp, True, rate,
+                                         seeds, train=True)
+                grads2 = (edge_bwd_into_nan(g.to(dtype), sel, res[1], res[2],
+                                            pseudo, p, gp, res[0], rate)
+                          if with_d else ())
+                torch.cuda.synchronize()
+                same = (all(torch.equal(x, y) for x, y in zip(res, res2))
+                        and all(torch.equal(x, y)
+                                for x, y in zip(grads, grads2)))
             torch.cuda.synchronize()
             e_c = [norm_err(x, y) for x, y in zip(res, ref)]
             e_d = [norm_err(x, y) for x, y in zip(grads, ref_g)]
-            print(f"kernel C {label} B={b} K={k} d={d} {str(dtype)[6:]} "
-                  f"dropout {rate}: normalized err out/ghat/denom "
-                  f"{e_c[0]:.2e}/{e_c[1]:.2e}/{e_c[2]:.2e} (<= {tol_c}); "
-                  f"kernel D dsel/dpseudo/dproj/dgparams "
-                  + "/".join(f"{e:.2e}" for e in e_d)
-                  + f" (<= {tol_d})", flush=True)
+            print(f"kernel C {label} B={b} K={k} n={n} d={d} "
+                  f"{str(dtype)[6:]} {body} dropout {rate}: normalized err "
+                  f"out/ghat/denom {e_c[0]:.2e}/{e_c[1]:.2e}/{e_c[2]:.2e} "
+                  f"(<= {tol_c}); kernel D dsel/dpseudo/dproj/dgparams "
+                  + ("/".join(f"{e:.2e}" for e in e_d) + f" (<= {tol_d})"
+                     if with_d else "not run (K > 64)")
+                  + f"; NaN-filled reruns equal bit for bit {same}",
+                  flush=True)
             require(max(e_c) <= tol_c, f"kernel C {label} disagrees")
-            require(max(e_d) <= tol_d, f"kernel D {label} disagrees")
+            require(max(e_d, default=0.0) <= tol_d,
+                    f"kernel D {label} disagrees")
+            require(same, f"kernels C/D {label}: a rerun changed bits")
+            if body == "mma":
+                g16 = g.to(dtype)
+                controls = {}
+                if control:
+                    controls = {
+                        "out": rounding_share(one_pass_out(
+                            sel, ref[1], p, rate, seeds), ref[0]),
+                        "dproj": rounding_share(one_pass_dproj(
+                            g16, sel, res[1], res[0], rate), ref_g[2])}
+                split_check(f"kernels C/D {label}",
+                            {"out": rounding_share(res[0], ref[0]),
+                             "dproj": rounding_share(grads[2], ref_g[2])},
+                            controls)
             if label == "vqa conv1" and dtype == torch.bfloat16:
                 errs["edge_aggregate_fwd_res"] = max(
                     float((x.float() - y.float()).abs().max())
@@ -689,20 +934,24 @@ def check_edge_training(dev, gen, errs):
                 errs["edge_aggregate_bwd"] = max(
                     float((x.float() - y.float()).abs().max())
                     for x, y in zip(grads, ref_g))
-            if not rate or dtype != torch.float32:
-                continue
-            check_dropout(sel, pseudo, p, gp, seeds, res[0], label)
+            if rate and b > 1:
+                check_dropout(sel, pseudo, p, gp, seeds, res[0],
+                              f"{label} {str(dtype)[6:]}")
 
 
 def check_dropout(sel, pseudo, proj, gp, seeds, out, label):
     """Kernel C's dropout mask: bit for bit the plain Philox keep mask
     wherever the relu output is clear of 0, half of the positive units
     kept, the same seeds giving the same output, and a changed seed
-    changing its own image only."""
+    changing its own image only. Clear of 0: above 1e-6 of the largest
+    output in f32; above 1e-3 in bf16, where the product's operands are
+    rounded to bf16 (hi + lo) and a unit within that of 0 may take the
+    other side of the relu."""
     plain = sel_aggregate_act_residuals_reference(sel, pseudo, proj, gp,
                                                   True)[0]
     keep = philox_keep(seeds, proj.shape[1:], DROPOUT)
-    clear = plain > 1e-6 * float(plain.max())
+    margin = 1e-6 if proj.dtype == torch.float32 else 1e-3
+    clear = plain > margin * float(plain.max())
     mismatched = int(((out != 0) != keep)[clear].sum())
     kept = float((out > 0).sum()) / float((plain > 0).sum())
     again = sel_aggregate_act_residuals(sel, pseudo, proj, gp, True,
@@ -1122,11 +1371,14 @@ def profile(fn, label: str, n: int = 10) -> None:
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
     gru = [[round(ms, 5), key[:60]] for ms, key in rows if "gru_" in key]
+    edge = [[round(ms, 5), key[:70]] for ms, key in rows
+            if "edge_" in key or "gauss" in key]
     print(f"profile of {label}: wall {wall_ms:.4f} ms per call (profiler "
           f"on), device busy {busy:.4f} ms ({100 * busy / wall_ms:.1f}%); "
           f"top device items (ms per call): "
           + json.dumps([[round(ms, 5), key[:80]] for ms, key in rows[:12]])
-          + "; the GRU kernels: " + json.dumps(gru), flush=True)
+          + "; the GRU kernels: " + json.dumps(gru)
+          + "; the aggregation kernels: " + json.dumps(edge), flush=True)
 
 
 def measure(dev, gen, launches, errs, model):
@@ -1160,6 +1412,7 @@ def measure(dev, gen, launches, errs, model):
         nbytes = sum(edge_bound(*x)[0] for x in a_in)
         ops_s = sum(edge_bound(*x)[1] for x in a_in)
         a = timed(kernel_a, plain_a, nbytes, ops_s)
+        a["bmm_ms"] = edge_bmm_ms(a_in)
         per_conv = [time_device_ms(lambda x=x: fused_sel_aggregate_act(
             *x, relu=True)) for x in a_in]
 
@@ -1173,7 +1426,10 @@ def measure(dev, gen, launches, errs, model):
     print("timing detail (bf16 forward, CUDA events back to back; kernels: "
           "device times, launches queued behind a sleep kernel, and "
           "back_to_back_ms with the host's enqueue in them; bf16 proj; A = "
-          "conv1 + conv2 launches): " + json.dumps(detail), flush=True)
+          "conv1 + conv2 launches, the rule's body (mma); bmm_ms = one "
+          "torch.bmm of the "
+          "weights by the per-kernel slabs, a diagnostic of the product "
+          "alone): " + json.dumps(detail), flush=True)
     print("kernel B timing (bf16 W_hh, T=16, H=1024; ms = the persistent "
           "kernel, one launch; per_step_ms = the per-step kernel of the "
           "first slice through its C entry gru_scan_fwd on the same bf16 "
@@ -1182,6 +1438,28 @@ def measure(dev, gen, launches, errs, model):
           "input projection included): "
           + json.dumps({f"B={b}": t for b, t in g.items()}), flush=True)
     return entries
+
+
+def slab_per_kernel(x, n):
+    """(B, K, n*d) -> (B*n, K, d): each (image, Gaussian kernel) slab."""
+    b, k, nd = x.shape
+    return (x.reshape(b, k, n, nd // n).permute(0, 2, 1, 3)
+            .reshape(b * n, k, nd // n).contiguous())
+
+
+def edge_bmm_ms(a_in):
+    """A diagnostic of what kernel A's product alone costs: one torch.bmm
+    of the (B*n, K, K) weights by the (B*n, K, d) slabs per convolution
+    (no Gaussians, no epilogue: not a yardstick of the whole
+    function)."""
+    bmm_in = []
+    for sel, pseudo, proj, gp in a_in:
+        n = gp.shape[1]
+        ghat = sel_aggregate_act_residuals_reference(sel, pseudo, proj,
+                                                     gp)[1]
+        w = (sel[:, None] * ghat).flatten(0, 1).to(torch.bfloat16)
+        bmm_in.append((w, slab_per_kernel(proj, n)))
+    return time_device_ms(lambda: [torch.bmm(w, p) for w, p in bmm_in])
 
 
 def time_gru_scan(dev, gen):
@@ -1243,16 +1521,47 @@ def entry(name, t, launches, errs):
             "library_ms": t["library_ms"]}
 
 
-def residual_bound(sel, pseudo, proj, gparams):
+def int_mul_per_s() -> float:
+    """32-bit integer multiplies the card can issue per second: 64 per
+    clock per SM (Hopper's IMAD rate, half its f32 FMA rate) at the SM's
+    top clock as nvidia-smi reports it."""
+    if not hasattr(int_mul_per_s, "rate"):
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        int_mul_per_s.rate = 64 * sms * mhz * 1e6
+    return int_mul_per_s.rate
+
+
+# 32-bit multiplies of one Philox4x32-10 word (csrc/edge_aggregate.cu::
+# philox_bits) as ptxas compiles it for sm_90a (cuobjdump -sass of the
+# SIMT training body): 12 IMAD.WIDE.U32 (a 64-bit product: two) and 4
+# 32-bit IMAD / IMAD.HI per word; round 0's products of the zero counter
+# word fold away, and the last rounds' products that word 0 does not
+# read are dropped
+PHILOX_MULS = 28
+
+
+def residual_bound(sel, pseudo, proj, gparams, rate):
     """Kernel C: kernel A's bytes and operations, plus the residuals
-    written, the seeds read and ~50 Philox integer operations per output
-    element (counted at the f32 rate)."""
-    nbytes, ops_s = edge_bound(sel, pseudo, proj, gparams)
-    b, k, _ = sel.shape
+    written and the seeds read, and with dropout one Philox word per
+    output element: PHILOX_MULS 32-bit multiplies at the integer
+    multiply rate. Returns (bytes, seconds of operations, the four
+    least times in ms: bytes, bf16 product, f32 Gaussians, Philox)."""
+    nbytes, _ = edge_bound(sel, pseudo, proj, gparams)
+    b, k, nd = proj.shape
     n = gparams.shape[1]
-    nbytes += (n + 1) * b * k * k * 4 + b * 4
-    ops_s += 50 * proj.numel() / PEAK_FLOPS[torch.float32]
-    return nbytes, ops_s
+    nbytes += (n + 1) * b * k * k * 4 + (b * 4 if rate else 0)
+    terms = {"bytes": nbytes / PEAK_BYTES,
+             "product": 2 * b * k * k * nd / PEAK_FLOPS[proj.dtype],
+             "gaussians": GAUSS_FLOPS * b * k * k * n
+             / PEAK_FLOPS[torch.float32],
+             "philox": (PHILOX_MULS * proj.numel() / int_mul_per_s()
+                        if rate else 0.0)}
+    ops_s = terms["product"] + terms["gaussians"] + terms["philox"]
+    return nbytes, ops_s, {t: v * 1e3 for t, v in terms.items()}
 
 
 def vjp_bound(sel, pseudo, proj, gparams, epilogue):
@@ -1352,12 +1661,26 @@ def measure_training(dev, gen, counts, errs):
                 sel_aggregate_act_vjp_reference(g, sel, ghat, denom, pseudo,
                                                 proj, gp, out, rate)
 
-        c_b = [residual_bound(*x[:4]) for x in convs]
+        c_b = [residual_bound(*x[:5]) for x in convs]
         d_b = [vjp_bound(*x[:4], True) for x in convs]
         c = timed(c_kernel, c_plain, sum(x[0] for x in c_b),
                   sum(x[1] for x in c_b))
+        c["bound_terms_ms"] = {
+            term: sum(x[2][term] for x in c_b) for term in c_b[0][2]}
         d = timed(d_kernel, d_plain, sum(x[0] for x in d_b),
                   sum(x[1] for x in d_b))
+        bmm_c, bmm_d = [], []
+        for sel, pseudo, proj, gp, _, _, out, ghat, denom, g in convs:
+            n = gp.shape[1]
+            w = (sel[:, None] * ghat).flatten(0, 1).to(torch.bfloat16)
+            p_s, g_s = slab_per_kernel(proj, n), slab_per_kernel(g, n)
+            bmm_c.append((w, p_s))
+            bmm_d.append((w.transpose(1, 2), g_s, p_s.transpose(1, 2)))
+        c["bmm_ms"] = time_device_ms(
+            lambda: [torch.bmm(w, p) for w, p in bmm_c])
+        d["bmm_ms"] = time_device_ms(
+            lambda: [(torch.bmm(wt, g), torch.bmm(g, pt))
+                     for wt, g, pt in bmm_d])
 
         (xp, w_hh, b_hh, qlen), (emb, w_ih, b_ih) = gru_inputs(
             b, 16, 300, 1024, gen, dev)
@@ -1427,8 +1750,13 @@ def measure_training(dev, gen, counts, errs):
                 entries.append(entry(name, t, counts, errs))
     print("training timing detail (bf16; kernels: device times, launches "
           "queued behind a sleep kernel, and back_to_back_ms; C and D = "
-          "conv1 with dropout + conv2; E sweep = the persistent sweep, one "
-          "launch, plain = its plain version fed the same hp, "
+          "conv1 with dropout + conv2, the rule's body (mma), bmm_ms = "
+          "torch.bmm of the same "
+          "per-(image, kernel) products (C one, D two; a diagnostic of the "
+          "products alone), C's bound_terms_ms = bytes at 3.35 TB/s, bf16 "
+          "product at 989 TFLOP/s, Gaussians at 67 TFLOP/s, Philox "
+          f"multiplies at {int_mul_per_s():.4g}/s; E sweep = the persistent "
+          "sweep, one launch, plain = its plain version fed the same hp, "
           "plain_recompute_ms = the plain version recomputing hp, "
           "per_step_ms = the per-step sweep of the second slice through "
           "its C entry gru_scan_bwd_step (16 launches) on the same bf16 "
@@ -1681,6 +2009,19 @@ def timed_gather(kernel, plain, library):
                 back_to_back_ms=time_ms(kernel))
 
 
+def gather_spread(kernel, library, rounds=6):
+    """F beside torch.index_select, each timed `rounds` times in turns
+    (kernel, library, library, kernel, ...), every time the median of
+    time_device_ms' 50 samples: the medians' lists, to read F's verdict
+    against the spread of the readings."""
+    out = {"kernel_ms": [], "library_ms": []}
+    for r in range(rounds):
+        order = ((kernel, "kernel_ms"), (library, "library_ms"))
+        for fn, key in (order if r % 2 == 0 else order[::-1]):
+            out[key].append(time_device_ms(fn))
+    return out
+
+
 def time_gathers(dev, counts, errs):
     """Phase 6, the cache part, kernels: F on the VQA v2-size bf16 table
     (and at N=4096, and int8 -> bf16), G on its boxes, at B=64 and 256;
@@ -1715,6 +2056,10 @@ def time_gathers(dev, counts, errs):
                 b * (row_bytes + out_bytes) + b * 4
                 + (b * k * 4 if scales is not None else 0), 0.0)
             detail[f"F {label} B={b}"] = t
+            if label == "bf16":
+                t["spread"] = gather_spread(
+                    lambda: gather_rows_packed(table, rows()),
+                    lambda: torch.index_select(table, 0, rows()))
             if label == "bf16" and b == TRAIN_B:
                 entries.append(entry("gather_rows_packed", t, counts, errs))
         del table, scales
@@ -1741,7 +2086,9 @@ def time_gathers(dev, counts, errs):
           "sleep kernel; back_to_back_ms = the kernel's calls timed back to "
           "back with the host's enqueue in them; F plain = clamp + "
           "index_select (+ dequant), library = one torch.index_select; "
-          "bound = rows read + written at 3.35 TB/s): "
+          "spread = F and index_select timed 6 times each in turns, each a "
+          "median of 50 samples; bound = rows read + written at 3.35 "
+          "TB/s): "
           + json.dumps(detail), flush=True)
     return entries
 

@@ -1,8 +1,10 @@
-// Pieces shared by the persistent GRU kernels (kernel B's recurrence,
-// csrc/gru_scan.cu, and kernel E's reverse sweep, csrc/gru_scan_bwd.cu):
-// ldmatrix and mma.sync.m16n8k16 (bf16 in, f32 sum), cp.async through L2
-// only, the grid barrier of a cooperative launch, and the host check that
-// a grid can be resident all at once.
+// Pieces shared by the tensor-core kernels written on mma.sync (kernel
+// B's recurrence, csrc/gru_scan.cu; kernel E's reverse sweep,
+// csrc/gru_scan_bwd.cu; the bf16 bodies of kernels A, C and D,
+// csrc/edge_aggregate.cu and edge_aggregate_bwd.cu): ldmatrix (plain and
+// transposed) and mma.sync.m16n8k16 (bf16 in, f32 sum), cp.async through
+// L2 only, the grid barrier of a cooperative launch, and the host check
+// that a grid can be resident all at once.
 
 #pragma once
 
@@ -21,6 +23,19 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
                : "memory");
+}
+
+// The same four 8x8 matrices, each transposed on the way into registers:
+// a row-major [k][n] tile gives mma's B fragments (lanes 0-7 address k
+// rows 0-7 at column n, lanes 8-15 rows 8-15, lanes 16-31 the same at
+// column n + 8: r0, r1 = b0, b1 of columns n..n+7 and r2, r3 of n+8..)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
 // d += a (16x16, row) * b (16x8, col): bf16 in, f32 sum

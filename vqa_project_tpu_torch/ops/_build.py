@@ -44,14 +44,12 @@ _L = ctypes.c_longlong
 # except edge_aggregate_bwd_tiles, a count)
 _SIGNATURES = {
     "edge_aggregate": {
-        "edge_aggregate_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _P],
-        "edge_aggregate_fwd_res": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _U, _F, _I, _P],
+        "edge_aggregate_fwd": [_P] * 6 + [_I] * 7 + [_P],
+        "edge_aggregate_fwd_res": [_P] * 8 + [_I] * 5 + [_U, _F, _I, _I, _P],
     },
     "edge_aggregate_bwd": {
         "edge_aggregate_bwd_tiles": [_I],
-        "edge_aggregate_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
+        "edge_aggregate_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _I, _P],
     },
     "gather_rows": {
         "gather_rows_packed": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],

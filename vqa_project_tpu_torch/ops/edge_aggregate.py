@@ -15,7 +15,9 @@ version, which serves CPU tensors:
 
 ``EdgeAggregateFunction`` joins C and D for autograd;
 ``fused_sel_aggregate_act`` takes it whenever a gradient is wanted or
-dropout is on, and kernel A otherwise.
+dropout is on, and kernel A otherwise. Each kernel has two bodies, picked
+by ``aggregate_kernel``: the bf16 tensor-core body ("mma") and the SIMT
+body ("simt", f32 above all).
 """
 
 from __future__ import annotations
@@ -31,6 +33,32 @@ from vqa_project_tpu_torch.ops.gaussian import (gaussian_kernel_terms,
                                                 gaussian_kernel_weights)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BODY_CODE = {"simt": 0, "mma": 1}
+
+
+def aggregate_kernel(dtype: torch.dtype, k: int, n: int, d: int) -> str:
+    """Which body kernels A, C and D run for proj of ``dtype`` with K
+    nodes, n Gaussian kernels and d columns a kernel, on the card.
+
+    "mma" (the products on mma.sync.m16n8k16, bf16 operands and f32 sums,
+    the weights split into a bf16 high and low part; one block per image
+    and Gaussian kernel) for bf16 with K <= 64 (rows padded to a multiple
+    of 16) and rows of d bf16 a multiple of 16 bytes (cp.async copies).
+    "simt" (every product in f32 on the SIMT cores) for everything else,
+    f32 above all: its sums stay exact f32. n plays no part: both bodies
+    take up to 32 kernels.
+    """
+    del n
+    if dtype == torch.bfloat16 and k <= 64 and (d * 2) % 16 == 0:
+        return "mma"
+    return "simt"
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its data starts on 16 bytes (the mma bodies'
+    cp.async copies and bf16x2 stores need 16 or 8), else an aligned
+    copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def sel_aggregate_act_reference(sel: torch.Tensor, pseudo: torch.Tensor,
@@ -238,13 +266,20 @@ def fused_sel_aggregate_act(sel: torch.Tensor, pseudo: torch.Tensor,
     if proj.device.type == "cpu":
         return sel_aggregate_act_reference(sel, pseudo, proj, gparams, relu)
     b, k, n_kernels, d = _check_cuda_inputs(sel, pseudo, proj, gparams)
+    body = aggregate_kernel(proj.dtype, k, n_kernels, d)
+    if body == "mma":
+        sel, pseudo, proj = (_aligned16(t) for t in (sel, pseudo, proj))
     lib = _build.load("edge_aggregate")
     out = torch.empty_like(proj)
+    # the mma body's Gaussians, evaluated once before the product
+    ghat = (torch.empty((b, n_kernels, k, k), dtype=torch.float32,
+                        device=proj.device) if body == "mma" else None)
     stream = torch.cuda.current_stream(proj.device).cuda_stream
     rc = lib.edge_aggregate_fwd(
         sel.data_ptr(), pseudo.data_ptr(), proj.data_ptr(),
-        gparams.data_ptr(), out.data_ptr(), b, k, n_kernels, d,
-        int(bool(relu)), _DTYPE_CODE[proj.dtype], stream)
+        gparams.data_ptr(), out.data_ptr(),
+        ghat.data_ptr() if ghat is not None else None, b, k, n_kernels, d,
+        int(bool(relu)), _DTYPE_CODE[proj.dtype], _BODY_CODE[body], stream)
     _build.check(rc, "edge_aggregate_fwd")
     fused_sel_aggregate_act.launches += 1
     return out
@@ -264,6 +299,9 @@ def sel_aggregate_act_residuals(sel: torch.Tensor, pseudo: torch.Tensor,
             sel, pseudo, proj, gparams, relu, dropout_rate, seeds)
     b, k, n_kernels, d = _check_cuda_inputs(sel, pseudo, proj, gparams)
     _check_dropout(dropout_rate, seeds, b, proj.device)
+    body = aggregate_kernel(proj.dtype, k, n_kernels, d)
+    if body == "mma":
+        sel, pseudo, proj = (_aligned16(t) for t in (sel, pseudo, proj))
     lib = _build.load("edge_aggregate")
     out = torch.empty_like(proj)
     ghat = torch.empty((b, n_kernels, k, k), dtype=torch.float32,
@@ -277,7 +315,7 @@ def sel_aggregate_act_residuals(sel: torch.Tensor, pseudo: torch.Tensor,
         out.data_ptr(), ghat.data_ptr(), denom.data_ptr(), b, k, n_kernels,
         d, int(bool(relu)), keep_threshold(dropout_rate) if drop else 0,
         1.0 / (1.0 - dropout_rate) if drop else 1.0,
-        _DTYPE_CODE[proj.dtype], stream)
+        _DTYPE_CODE[proj.dtype], _BODY_CODE[body], stream)
     _build.check(rc, "edge_aggregate_fwd_res")
     sel_aggregate_act_residuals.launches += 1
     return out, ghat, denom
@@ -306,6 +344,10 @@ def sel_aggregate_act_vjp(g: torch.Tensor, sel: torch.Tensor,
     _check_like("denom", denom, (b, k, k), torch.float32, dev)
     if out is not None:
         _check_like("out", out, proj.shape, proj.dtype, dev)
+    body = aggregate_kernel(proj.dtype, k, n_kernels, d)
+    if body == "mma":
+        g, proj = _aligned16(g), _aligned16(proj)
+        out = _aligned16(out) if out is not None else None
     lib = _build.load("edge_aggregate_bwd")
     f32 = dict(dtype=torch.float32, device=dev)
     ge = torch.empty((b, n_kernels, k, k), **f32)
@@ -322,7 +364,7 @@ def sel_aggregate_act_vjp(g: torch.Tensor, sel: torch.Tensor,
         out.data_ptr() if out is not None else None, ge.data_ptr(),
         dsel.data_ptr(), dpseudo.data_ptr(), dproj.data_ptr(),
         dgp_part.data_ptr(), b, k, n_kernels, d, inv_keep,
-        _DTYPE_CODE[proj.dtype], stream)
+        _DTYPE_CODE[proj.dtype], _BODY_CODE[body], stream)
     _build.check(rc, "edge_aggregate_bwd")
     sel_aggregate_act_vjp.launches += 1
     # the per-block partials, summed in a fixed order (no atomics)
