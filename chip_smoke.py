@@ -56,9 +56,14 @@ Phases, in order; the first failure exits non-zero:
    weight gradient), and A 0;
 10. gather kernels against their plain versions, bit for bit: F on a
     device-made VQA v2-size table (123,287 x 36 x 2048) in bf16, then
-    int8 with per-box scales into bf16 and f32, and f32 at N=4096; G on
-    the (N, 36, 4) boxes and odd row shapes; B in {1, 16, 33, 64, 256}
-    with rows 0 and N-1, duplicates and clamped -1 / N;
+    int8 with per-box scales into bf16 and f32, and f32 at N=4096, at
+    B in {1, 16, 33, 63, 64, 65, 256, 257}; rows of 21 and 15 16-byte
+    vectors (bf16; int8 dequantized and copied as it is) and the int8
+    element-wise variant (F=20) at B in {1, 63, 65, 257}; and at B = 1,
+    65, 257 a run into outputs filled with NaN (-128 for an int8 copy)
+    first; G
+    on the (N, 36, 4) boxes and odd row shapes at B in {1, 16, 33, 64,
+    256}; rows 0 and N-1, duplicates and clamped -1 / N;
 11. training with the device cache, the main path: fit() as in phase 9
     but with the bf16 feature cache, index batches and a resident
     mini-validation; per step F 1, G 1, C 2, D 2, B 1, E 1 + 1, A 0,
@@ -69,9 +74,16 @@ Phases, in order; the first failure exits non-zero:
     cache;
 13. the merged block's kernels against their plain versions: the bare
     GEMM against torch.mm at the block's six products (NN, NT, TN; f32
-    and bf16) and its epilogues; H and I at the VQA widths (B=64) and
-    the medical K=51, m=19 (B=8), f32 and bf16, dropout 0.5, with H's
-    conv1 output equal to kernel C's bit for bit;
+    and bf16) and its epilogues; H's wgmma product against torch.mm at
+    proj1 (rows padded to 2056) and proj2 for B*K = 36 to 9252, every
+    tile and the rule's pick, a rerun bit for bit; H and I at the VQA
+    widths (B = 64, 1 and 257), the medical K=51, m=19 (B=8), n=1,
+    d1=40 and a width whose proj2 graph_block.cu sends to tile_gemm, f32
+    and bf16, dropout 0.5: H with feats as padded rows and contiguous
+    equal bit for bit, a rerun into NaN-filled outputs equal bit for
+    bit, the products H launched (wgmma or tile_gemm, read from a
+    profile) asserted, and in f32 H's conv1 output equal to kernel C's
+    bit for bit;
 14. training with the merged block, the main path: fit() as in phase 11
     with ModelConfig(merged_block=True); per step H 1, I 1, A, C, D 0,
     B 1, E 1 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
@@ -87,11 +99,16 @@ Phases, in order; the first failure exits non-zero:
    the per-step sweep, cuDNN's GRU forward + backward and its forward
    alone; E's dW/db beside cuBLAS and the SIMT reduction; kernel B with
    and without hp), after phase 14 the gather kernels at
-   B=64 and 256 (F and index_select six times each in turns), the
+   B=64 and 256 (F and index_select six times each in turns; the int8
+   path), the
    cache-mode training step beside host mode,
-   evaluate's throughput, then H, I and the hand GEMM at B=64 and 256,
-   the merged block beside the unmerged one and the merged training
-   step beside the unmerged one; each kernel's device time (launches
+   evaluate's throughput, then H (feats as padded rows and contiguous,
+   its five launches one by one), its two products (every wgmma tile
+   and the rule's pick beside tile_gemm and torch.mm), I and the hand
+   GEMM at
+   B=64 and 256, the merged block beside the unmerged one and the
+   merged training step beside the unmerged one; each kernel's device
+   time (launches
    queued behind a sleep kernel) beside its plain version, the library
    call where one exists and the least time the card needs, and
    profiles of the forward and of the steps.
@@ -136,9 +153,9 @@ from vqa_project_tpu_torch.ops.edge_aggregate import (
     sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
     sel_aggregate_act_vjp, sel_aggregate_act_vjp_reference)
 from vqa_project_tpu_torch.ops.graph_block import (
-    fused_graph_block, graph_block_bwd, graph_block_bwd_reference,
-    graph_block_fwd, graph_block_fwd_reference, tile_gemm,
-    tile_gemm_reference)
+    BlockResiduals, fused_graph_block, graph_block_bwd,
+    graph_block_bwd_reference, graph_block_fwd, graph_block_fwd_reference,
+    padded_rows, tile_gemm, tile_gemm_reference, wgmma_gemm)
 from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
                                            gru_scan_sweep_reference,
                                            gru_wgrad_reference,
@@ -1867,9 +1884,17 @@ def gather_rows_for(b, n, rng):
     return rows.astype(np.int32)
 
 
+GATHER_B = (1, 16, 33, 63, 64, 65, 256, 257)
+# output sentinels: NaN in float outputs; -128 in an int8 copy, a code
+# random_table never makes
+SENTINEL = {torch.float32: float("nan"), torch.bfloat16: float("nan"),
+            torch.int8: -128}
+
+
 def check_gathers(dev):
-    """Phase 10: F and G against their plain versions on the card, bit
-    for bit. Returns {kernel: max abs error}."""
+    """Phase 10: F and G against their plain
+    versions on the card, bit for bit, and F again into outputs filled
+    with a sentinel first. Returns {kernel: max abs error}."""
     rng = np.random.default_rng(SEED)
     errs = {"gather_rows_packed": 0.0, "gather_rows_blocked": 0.0}
 
@@ -1883,6 +1908,24 @@ def check_gathers(dev):
               flush=True)
         require(same, f"{name} disagrees with its plain version: {what}")
 
+    def check_f(label, table, scales, outs, sizes):
+        n, k, f = table.shape
+        gb = table.numel() * table.element_size() / 1e9
+        for b in sizes:
+            r = torch.from_numpy(gather_rows_for(b, n, rng)).to(dev)
+            for out in outs:
+                want = gather_rows_reference(table, r, scales, out)
+                what = (f"kernel F {label} table {n} x {k} x {f} ({gb:.1f} "
+                        f"GB)" + (f" -> {str(out)[6:]}" if out else "")
+                        + f", B={b}")
+                check("gather_rows_packed",
+                      gather_rows_packed(table, r, scales, out), want, what)
+                if b in (1, 65, 257):
+                    filled = torch.full_like(want, SENTINEL[want.dtype])
+                    check("gather_rows_packed", gather_rows_packed(
+                        table, r, scales, out, out=filled), want,
+                        f"{what}, into {SENTINEL[want.dtype]}-filled out")
+
     k, f = 36, 2048
     for label, n, dtype, scales_out in (
             ("bf16", VQA_IMAGES, torch.bfloat16, None),
@@ -1893,16 +1936,7 @@ def check_gathers(dev):
         if scales_out:
             g = torch.Generator(device=dev).manual_seed(SEED + 1)
             scales = torch.rand((n, k), generator=g, device=dev) * 0.05
-        gb = table.numel() * table.element_size() / 1e9
-        for b in (1, 16, 33, 64, 256):
-            r = torch.from_numpy(gather_rows_for(b, n, rng)).to(dev)
-            for out in scales_out or (None,):
-                got = gather_rows_packed(table, r, scales, out)
-                want = gather_rows_reference(table, r, scales, out)
-                check("gather_rows_packed", got, want,
-                      f"kernel F {label} table {n} x {k} x {f} ({gb:.1f} GB)"
-                      + (f" -> {str(out)[6:]}" if out else "")
-                      + f", B={b}")
+        check_f(label, table, scales, scales_out or (None,), GATHER_B)
         if label == "bf16":   # the last row of the 18 GB table, read back
             last = gather_rows_packed(table, torch.tensor(
                 [n - 1, n], dtype=torch.int32, device=dev))
@@ -1912,15 +1946,20 @@ def check_gathers(dev):
                   "kernel F bf16 row N (clamped) against table[N-1]")
         del table, scales
         torch.cuda.empty_cache()
-    # the int8 path's element-wise variant (F not a multiple of 16)
-    table = random_table(1000, 5, 20, torch.int8, dev)
-    scales = torch.rand((1000, 5), device=dev)
-    for b in (1, 33, 256):
-        r = torch.from_numpy(gather_rows_for(b, 1000, rng)).to(dev)
-        check("gather_rows_packed",
-              gather_rows_packed(table, r, scales, torch.bfloat16),
-              gather_rows_reference(table, r, scales, torch.bfloat16),
-              f"kernel F int8 table (1000, 5, 20) -> bfloat16, B={b}")
+    # rows of 21 and 15 16-byte vectors, each less than one block's chunk
+    # of 1024; the int8 table copied as it is; the int8 path's
+    # element-wise variant (F not a multiple of 16)
+    small = (1, 63, 65, 257)
+    check_f("bf16 rows of 21 vectors", random_table(4099, 7, 24,
+                                                    torch.bfloat16, dev),
+            None, (None,), small)
+    q = random_table(1000, 5, 48, torch.int8, dev)
+    check_f("int8 rows of 15 vectors", q, torch.rand((1000, 5), device=dev),
+            (torch.bfloat16, torch.float32), small)
+    check_f("int8 copy", q, None, (None,), small)
+    check_f("int8 F=20", random_table(1000, 5, 20, torch.int8, dev),
+            torch.rand((1000, 5), device=dev), (torch.bfloat16,),
+            (1, 33, 63, 65, 256, 257))
     for label, shape, dtype in (
             ("boxes", (VQA_IMAGES, 36, 4), torch.float32),
             ("odd f32", (1000, 5, 3), torch.float32),
@@ -2009,16 +2048,16 @@ def timed_gather(kernel, plain, library):
                 back_to_back_ms=time_ms(kernel))
 
 
-def gather_spread(kernel, library, rounds=6):
-    """F beside torch.index_select, each timed `rounds` times in turns
-    (kernel, library, library, kernel, ...), every time the median of
-    time_device_ms' 50 samples: the medians' lists, to read F's verdict
-    against the spread of the readings."""
-    out = {"kernel_ms": [], "library_ms": []}
+def gather_spread(fns, rounds=6):
+    """The named calls of `fns` (F beside torch.index_select), each
+    timed `rounds` times in turns, the order reversed every other round,
+    every time the median of time_device_ms' 50 samples: the medians'
+    lists, to read F's verdict against the spread of the readings."""
+    out = {name: [] for name in fns}
+    order = list(fns.items())
     for r in range(rounds):
-        order = ((kernel, "kernel_ms"), (library, "library_ms"))
-        for fn, key in (order if r % 2 == 0 else order[::-1]):
-            out[key].append(time_device_ms(fn))
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            out[name].append(time_device_ms(fn))
     return out
 
 
@@ -2057,9 +2096,10 @@ def time_gathers(dev, counts, errs):
                 + (b * k * 4 if scales is not None else 0), 0.0)
             detail[f"F {label} B={b}"] = t
             if label == "bf16":
-                t["spread"] = gather_spread(
-                    lambda: gather_rows_packed(table, rows()),
-                    lambda: torch.index_select(table, 0, rows()))
+                t["spread"] = gather_spread({
+                    "F_ms": lambda: gather_rows_packed(table, rows()),
+                    "index_select_ms": lambda: torch.index_select(
+                        table, 0, rows())})
             if label == "bf16" and b == TRAIN_B:
                 entries.append(entry("gather_rows_packed", t, counts, errs))
         del table, scales
@@ -2086,9 +2126,9 @@ def time_gathers(dev, counts, errs):
           "sleep kernel; back_to_back_ms = the kernel's calls timed back to "
           "back with the host's enqueue in them; F plain = clamp + "
           "index_select (+ dequant), library = one torch.index_select; "
-          "spread = F and index_select timed 6 times each in turns, each a "
-          "median of 50 samples; bound = rows read + written at 3.35 "
-          "TB/s): "
+          "spread = F and index_select timed 6 times each in "
+          "turns, each a median of 50 "
+          "samples; bound = rows read + written at 3.35 TB/s): "
           + json.dumps(detail), flush=True)
     return entries
 
@@ -2204,13 +2244,14 @@ def time_evaluate(dev, model, ds, cache):
 # ---------------- the merged block: kernels H and I ----------------
 
 
-def block_inputs(b, k, m, gen, dev, n=8):
-    """Kernel H's inputs at the VQA v2 widths (F1 2052, d1 256, d2 128):
-    an adjacency, pseudo from box centres, region features, the convs'
-    torch-default projections side by side (W1cat (F1, n d1), W2cat
-    (n d1, n d2), f32), gparams from the init ranges and seeds."""
+def block_inputs(b, k, m, gen, dev, n=8, d1=None, d2=None):
+    """Kernel H's inputs, by default at the VQA v2 widths (F1 2052, d1
+    2 hid / n, d2 hid / n): an adjacency, pseudo from box centres, region
+    features (contiguous), the convs' torch-default projections side by
+    side (W1cat (F1, n d1), W2cat (n d1, n d2), f32), gparams from the
+    init ranges and seeds."""
     f1, hid = FULL["feat_dim"], FULL["hid_dim"]
-    d1, d2 = 2 * hid // n, hid // n
+    d1, d2 = d1 or 2 * hid // n, d2 or hid // n
 
     def u(rows, cols):
         return (torch.rand(rows, cols, generator=gen) * 2 - 1) / math.sqrt(
@@ -2297,50 +2338,151 @@ def check_tile_gemm(dev, gen):
     return worst
 
 
+# kernel H's wgmma tiles (BM, BN); (0, 0) is the rule's pick
+WGMMA_TILES = ((128, 128), (128, 256), (192, 192), (0, 0))
+
+
+def check_wgmma_gemm(dev, gen):
+    """Phase 13: kernel H's wgmma product against torch.mm (f32 sums of
+    the same bf16 operands) at proj1 (A a view of rows padded to 2056)
+    and proj2, B*K = 36, 408, 2304 and 9252 rows, every tile
+    (WGMMA_TILES), within 1e-5 normalized, and a second run equal bit
+    for bit."""
+    worst = 0.0
+    for b, k in ((1, 36), (8, 51), (TRAIN_B, 36), (257, 36)):
+        for label, _, sa, sb in block_gemm_shapes(b, k)[:2]:
+            a = padded_rows([torch.randn(sa[0], 1, sa[1], generator=gen)
+                             .to(dev)], torch.bfloat16)[:, 0]
+            w = torch.randn(*sb, generator=gen).to(dev, torch.bfloat16)
+            want = library_mm(a.float(), w.float(), "nn")
+            for tile in WGMMA_TILES:
+                got = wgmma_gemm(a, w, tile)
+                again = wgmma_gemm(a, w, tile)
+                torch.cuda.synchronize()
+                e = norm_err(got, want)
+                worst = max(worst, e)
+                same = torch.equal(got, again)
+                print(f"wgmma_gemm {label} a{tuple(a.shape)} (row stride "
+                      f"{a.stride(0)}) b{sb} tile {tile}: normalized err "
+                      f"vs torch.mm {e:.2e} (<= 1e-5); rerun equal bit for "
+                      f"bit {same}", flush=True)
+                require(e <= 1e-5 and same,
+                        f"wgmma_gemm {label} {tile} disagrees")
+    return worst
+
+
+# kernel H's shapes: (label, B, K, m, n, d1, d2); d1 = d2 = None are the
+# VQA widths. "tile rule" has n d2 = 36, not a multiple of 8, so its
+# bf16 proj2 goes to tile_gemm (graph_block.cu's wgmma_fits) and its proj1
+# to wgmma.
+BLOCK_SHAPES = [("vqa", TRAIN_B, 36, 16, 8, None, None),
+                ("medical", 8, 51, 19, 8, None, None),
+                ("B=1", 1, 36, 16, 8, None, None),
+                ("B=257", 257, 36, 16, 8, None, None),
+                ("n=1", 8, 36, 16, 1, None, None),
+                ("d1=40", 8, 36, 16, 8, 40, 20),
+                ("tile rule", 8, 36, 16, 4, 18, 9)]
+
+
+def projection_products(fn, n=3):
+    """The products that `n` calls of `fn` launched, read from a profile
+    (torch.profiler): a subset of {"wgmma" (wgmma_gemm.cuh), "tile"
+    (tile_gemm.cuh)}. A set, several calls and up to three profiles,
+    since a profile that follows others in one process was seen to drop
+    a kernel's event, and another to come back empty."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    kinds = set()
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "gemm_nn_kernel" in evt.name:
+                kinds.add("wgmma")
+            elif ("wmma_gemm_kernel" in evt.name
+                  or "f32_gemm_kernel" in evt.name):
+                kinds.add("tile")
+        if kinds:
+            break
+    return kinds
+
+
 def check_graph_block(dev, gen, errs):
     """Phase 13, kernels H and I: every output against the plain version
     on the same inputs (I from H's residuals), f32 and bf16, with conv1's
-    dropout at 0.5; in f32 H's h1 equal to kernel C's output bit for bit
-    for the same alpha, f32 projection and seeds (the same Philox mask);
-    the mask equal to the plain selection's."""
-    for b, k, m, label in ((TRAIN_B, 36, 16, "vqa"),
-                           (8, 51, 19, "medical")):
+    dropout at 0.5, at BLOCK_SHAPES; feats both as a view of padded rows
+    (the model's) and contiguous (the wrapper pads a copy), the two equal
+    bit for bit, and a rerun into NaN-filled outputs equal bit for bit;
+    the products H launched asserted (projection_products); in f32 H's
+    h1 equal to kernel C's output bit for bit for the same alpha, f32
+    projection and seeds (the same Philox mask); the mask equal to the
+    plain selection's."""
+    for label, b, k, m, n, d1, d2 in BLOCK_SHAPES:
         adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds = block_inputs(
-            b, k, m, gen, dev)
+            b, k, m, gen, dev, n, d1, d2)
         g = torch.randn(b, k, w2cat.shape[1], generator=gen).to(dev)
         for dtype, tol_h, tol_i in ((torch.float32, 1e-5, 1e-5),
                                     (torch.bfloat16, 1e-2, 1e-2)):
-            args = (feats.to(dtype), w1cat.to(dtype), w2cat.to(dtype))
-            res = graph_block_fwd(adj, pseudo, *args, gp1, gp2, seeds, m,
+            x = padded_rows([feats], dtype)
+            w1, w2 = w1cat.to(dtype), w2cat.to(dtype)
+            pick = projection_products(lambda: graph_block_fwd(
+                adj, pseudo, x, w1, w2, gp1, gp2, seeds, m, DROPOUT))
+            want_pick = ({"tile"} if dtype == torch.float32
+                         else {"wgmma", "tile"} if label == "tile rule"
+                         else {"wgmma"})
+            require(pick == want_pick,
+                    f"kernel H launched products {pick} at {label} {dtype}, "
+                    f"not {want_pick}")
+            res = graph_block_fwd(adj, pseudo, x, w1, w2, gp1, gp2, seeds, m,
                                   DROPOUT)
-            ref = graph_block_fwd_reference(adj, pseudo, *args, gp1, gp2,
+            dense = graph_block_fwd(adj, pseudo, feats.to(dtype), w1, w2,
+                                    gp1, gp2, seeds, m, DROPOUT)
+            nan = BlockResiduals(*(torch.full_like(t, float("nan"))
+                                   for t in res))
+            rerun = graph_block_fwd(adj, pseudo, x, w1, w2, gp1, gp2, seeds,
+                                    m, DROPOUT, out=nan)
+            ref = graph_block_fwd_reference(adj, pseudo, x, w1, w2, gp1, gp2,
                                             seeds, m, DROPOUT)
-            grads = graph_block_bwd(g, res, pseudo, *args, gp1, gp2,
+            grads = graph_block_bwd(g, res, pseudo, x, w1, w2, gp1, gp2,
                                     DROPOUT, need_dfeats=True)
-            ref_g = graph_block_bwd_reference(g, res, pseudo, *args, gp1,
+            ref_g = graph_block_bwd_reference(g, res, pseudo, x, w1, w2, gp1,
                                               gp2, DROPOUT, need_dfeats=True)
             torch.cuda.synchronize()
-            e_h = {f: norm_err(x, y) for f, x, y in zip(res._fields, res,
-                                                          ref)}
-            e_i = [norm_err(x, y) for x, y in zip(grads, ref_g)]
+            e_h = {f: norm_err(x_, y) for f, x_, y in zip(res._fields, res,
+                                                           ref)}
+            e_i = [norm_err(x_, y) for x_, y in zip(grads, ref_g)]
             same_mask = torch.equal(res.mask, ref.mask)
-            print(f"kernel H {label} B={b} K={k} m={m} {str(dtype)[6:]} "
-                  f"dropout {DROPOUT}: normalized err "
+            same_dense = all(torch.equal(p, q) for p, q in zip(res, dense))
+            same_nan = all(torch.equal(p, q) for p, q in zip(res, rerun))
+            print(f"kernel H {label} B={b} K={k} m={m} n={n} "
+                  f"d1={w1.shape[1] // n} d2={w2.shape[1] // n} "
+                  f"{str(dtype)[6:]} dropout {DROPOUT}, projections "
+                  f"{'/'.join(sorted(pick))}: normalized err "
                   + ", ".join(f"{f} {e:.2e}" for f, e in e_h.items())
-                  + f" (<= {tol_h}); mask equal {same_mask}; kernel I "
+                  + f" (<= {tol_h}); mask equal {same_mask}; contiguous "
+                  f"feats equal bit for bit {same_dense}; NaN-filled rerun "
+                  f"equal bit for bit {same_nan}; kernel I "
                   f"dadj/dpseudo/dfeats/dW1/dW2/dgp1/dgp2 "
                   + "/".join(f"{e:.2e}" for e in e_i)
                   + f" (<= {tol_i})", flush=True)
             require(same_mask and max(e_h.values()) <= tol_h,
                     f"kernel H {label} {dtype} disagrees")
+            require(same_dense and same_nan,
+                    f"kernel H {label} {dtype} is not repeatable")
             require(max(e_i) <= tol_i, f"kernel I {label} {dtype} disagrees")
             if label == "vqa" and dtype == torch.bfloat16:
                 errs["graph_block_fwd"] = max(
-                    float((x.float() - y.float()).abs().max())
-                    for x, y in zip(res, ref))
+                    float((x_.float() - y.float()).abs().max())
+                    for x_, y in zip(res, ref))
                 errs["graph_block_bwd"] = max(
-                    float((x.float() - y.float()).abs().max())
-                    for x, y in zip(grads, ref_g))
+                    float((x_.float() - y.float()).abs().max())
+                    for x_, y in zip(grads, ref_g))
             if dtype != torch.float32:
                 continue
             c_out = sel_aggregate_act_residuals(
@@ -2358,6 +2500,8 @@ def check_graph_block(dev, gen, errs):
                   f"{int(clear.sum())} (want 0)", flush=True)
             require(torch.equal(c_out, res.h1) and mismatched == 0,
                     "kernel H's dropout differs from kernel C's")
+        del adj, pseudo, feats, w1cat, w2cat, res, dense, rerun, ref, grads
+        torch.cuda.empty_cache()
 
 
 def block_bound(adj, feats, w1cat, w2cat, n, m):
@@ -2400,30 +2544,88 @@ def block_vjp_bound(feats, w1cat, w2cat, n, need_dfeats):
     return nbytes, ops_s
 
 
+def kernel_rows(fn, n=10):
+    """Device ms per call of each kernel that `fn` launches
+    (torch.profiler), largest first."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile after others may come back empty
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [[evt.self_device_time_total / n / 1e3, evt.key[:60]]
+                for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.self_device_time_total > 0]
+        if rows:
+            break
+    return sorted(rows, reverse=True)
+
+
+def time_projections(dev, gen, b, x):
+    """H's two products at B*K rows: the wgmma product in each of
+    WGMMA_TILES (proj1 from the padded view x), tile_gemm (its
+    contiguous operands) and one torch.mm of the same bf16 operands (f32
+    out), beside the bound."""
+    bf = torch.bfloat16
+    out = {}
+    for label, _, sa, sb in block_gemm_shapes(b)[:2]:
+        a_ = (x.reshape(-1, x.shape[-1]) if label.startswith("proj1")
+              else torch.randn(*sa, generator=gen).to(dev, bf))
+        a_dense = a_.contiguous()
+        b_ = torch.randn(*sb, generator=gen).to(dev, bf)
+        mm, kk = sa
+        nn = sb[1]
+        t = {f"wgmma_{bm}x{bn}_ms": time_device_ms(
+            lambda tile=(bm, bn): wgmma_gemm(a_, b_, tile))
+             for bm, bn in WGMMA_TILES}
+        t["tile_gemm_ms"] = time_device_ms(lambda: tile_gemm(a_dense, b_))
+        t["library_ms"] = time_device_ms(lambda: library_mm(a_, b_, "nn"))
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * (a_.numel() + b_.numel()) + 4 * mm * nn,
+            2 * mm * nn * kk / PEAK_FLOPS[bf])
+        t["wgmma_tflops"] = {
+            f"{bm}x{bn}": 2 * mm * nn * kk / t[f"wgmma_{bm}x{bn}_ms"] / 1e9
+            for bm, bn in WGMMA_TILES}
+        out[f"{label} ({mm}x{nn}x{kk})"] = t
+    return out
+
+
 def time_graph_block(dev, gen, counts, errs):
     """Phase 6, the merged block's part: H and I at B=64 (the main path)
-    and 256, beside their plain versions and bounds; the hand GEMM at the
-    block's six products beside one torch.mm each; the merged block's
-    forward + backward beside the unmerged one (cuBLAS projections + C +
-    D, selection by masked_neighbourhood) in turns."""
+    and 256, beside their plain versions and bounds, H with feats as the
+    model hands them (a view of padded rows) and as a contiguous
+    2052-wide tensor (the wrapper's padded copy in its time), H's
+    launches one by one; H's two products beside torch.mm and tile_gemm;
+    the hand GEMM at the block's six products beside one torch.mm each;
+    the merged block's forward + backward beside the unmerged one
+    (cuBLAS projections + C + D, selection by masked_neighbourhood) in
+    turns."""
     entries, detail = [], {}
     bf = torch.bfloat16
     n = FULL["n_kernels"]
     for b in (TRAIN_B, 256):
         adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds = block_inputs(
             b, 36, 16, gen, dev)
-        x, w1, w2 = feats.to(bf), w1cat.to(bf), w2cat.to(bf)
+        x, w1, w2 = padded_rows([feats], bf), w1cat.to(bf), w2cat.to(bf)
+        dense = feats.to(bf)
         fargs = (adj, pseudo, x, w1, w2, gp1, gp2, seeds, 16, DROPOUT)
         res = graph_block_fwd(*fargs)
         g = torch.randn(b, 36, w2.shape[1], generator=gen).to(dev)
         bargs = (g, res, pseudo, x, w1, w2, gp1, gp2, DROPOUT)
         h = timed(lambda: graph_block_fwd(*fargs),
-                         lambda: graph_block_fwd_reference(*fargs),
-                         *block_bound(adj, x, w1, w2, n, 16))
+                  lambda: graph_block_fwd_reference(*fargs),
+                  *block_bound(adj, x, w1, w2, n, 16))
+        h["contiguous_feats_ms"] = time_device_ms(lambda: graph_block_fwd(
+            adj, pseudo, dense, *fargs[3:]))
+        h["launches_ms"] = kernel_rows(lambda: graph_block_fwd(*fargs))
         i = timed(lambda: graph_block_bwd(*bargs, need_dfeats=False),
-                         lambda: graph_block_bwd_reference(
-                             *bargs, need_dfeats=False),
-                         *block_vjp_bound(x, w1, w2, n, False))
+                  lambda: graph_block_bwd_reference(
+                      *bargs, need_dfeats=False),
+                  *block_vjp_bound(x, w1, w2, n, False))
         i_dfeats = time_device_ms(lambda: graph_block_bwd(*bargs))
         gemms = {}
         for label, layout, sa, sb in block_gemm_shapes(b):
@@ -2441,6 +2643,7 @@ def time_graph_block(dev, gen, counts, errs):
             gemms[f"{layout} {label} ({mm}x{nn}x{kk})"] = t
         detail[f"B={b}"] = {"graph_block_fwd": h, "graph_block_bwd": i,
                             "graph_block_bwd_with_dfeats_ms": i_dfeats,
+                            "projections": time_projections(dev, gen, b, x),
                             "tile_gemm": gemms,
                             "block_fwd_bwd": block_fwd_bwd(
                                 dev, gen, b, adj, pseudo, x, seeds, g)}
@@ -2450,10 +2653,17 @@ def time_graph_block(dev, gen, counts, errs):
         del res, fargs, bargs
         torch.cuda.empty_cache()
     print("merged block timing detail (bf16, dropout 0.5, device times "
-          "behind a sleep kernel; H = 4 launches, I without dfeats = 7, "
-          "with = 8; tile_gemm library = one torch.mm, bf16 operands, f32 "
-          "out; block_fwd_bwd = forward + backward of both convs, merged "
-          "vs unmerged, CUDA events back to back and device time, run "
+          "behind a sleep kernel; H = 5 launches (launches_ms: each "
+          "kernel's device ms per call, torch.profiler), feats a view of "
+          "rows padded to 2056 (contiguous_feats_ms: a contiguous "
+          "2052-wide feats, the wrapper's padded copy included); I without "
+          "dfeats = 7 launches, with = 8; projections = H's wgmma product "
+          "in each BM x BN tile (0x0 = the rule's pick) beside tile_gemm and "
+          "one torch.mm "
+          "(library); tile_gemm = kernel I's hand GEMM at the block's six "
+          "products, library = one torch.mm, bf16 operands, f32 out; "
+          "block_fwd_bwd = forward + backward of both convs, merged vs "
+          "unmerged, CUDA events back to back and device time, run "
           "unmerged, merged, merged, unmerged): " + json.dumps(detail),
           flush=True)
     return entries
@@ -2647,6 +2857,7 @@ def main() -> int:
     evaluate_checks(dev, model, ds, cache)
     phase("13 merged-block kernels against their plain versions")
     errs["tile_gemm"] = check_tile_gemm(dev, gen)
+    errs["wgmma_gemm"] = check_wgmma_gemm(dev, gen)
     check_graph_block(dev, gen, errs)
     phase("14 training with the merged block (main path)")
     _, merged_counts = train_merged_main_path(dev, ds, cache, cache_losses)

@@ -118,6 +118,42 @@ def test_int8_gather_matches_jax_image_fn(rng, out_dtype):
     np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
 
 
+@pytest.mark.parametrize("out_dtype", [None, "float32", "bfloat16"])
+def test_packed_gather_into_out_matches_jax(rng, out_dtype):
+    """F's ``out=`` (the chip check's sentinel-filled outputs): a
+    NaN-filled output is written whole with JAX's gather (out_dtype None:
+    the f32 table copied; else the int8 table dequantized), the same
+    tensor is returned, and an output of another shape or dtype is
+    refused."""
+    feats = _table_with_zero_rows(rng)
+    rows = np.array([3, 0, 11, 2, 3, 5, -4, 30], np.int32)
+    r = torch.from_numpy(rows)
+    if out_dtype is None:
+        want = np.asarray(jnp.take(jnp.asarray(feats), jnp.asarray(rows),
+                                   axis=0, mode="clip"))
+        args, dt = (torch.from_numpy(feats), r), torch.float32
+    else:
+        q, s = quantize_feature_table(feats)
+        image_fn, arrays = j_steps.make_image_fn(
+            j_steps.QuantizedFeatureCache(
+                features=jnp.asarray(q), scales=jnp.asarray(s),
+                boxes=jnp.zeros(feats.shape[:2] + (4,), jnp.float32),
+                kf=None, out_dtype=out_dtype))
+        want = np.asarray(image_fn(arrays, jnp.asarray(rows))[0].astype(
+            jnp.float32))
+        dt = getattr(torch, out_dtype)
+        args = (torch.from_numpy(q), r, torch.from_numpy(s), dt)
+    out = torch.full((len(rows),) + feats.shape[1:], float("nan"), dtype=dt)
+    got = gather_rows_packed(*args, out=out)
+    assert got is out
+    np.testing.assert_array_equal(out.float().numpy(), want)
+    with pytest.raises(ValueError, match="out must be"):
+        gather_rows_packed(*args, out=out[:-1])
+    other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="out must be"):
+        gather_rows_packed(*args, out=out.to(other))
+
+
 def test_cpu_dispatch_launches_nothing(rng):
     before = (gather_rows_packed.launches, gather_rows_blocked.launches)
     q, s = quantize_feature_table(_table_with_zero_rows(rng))

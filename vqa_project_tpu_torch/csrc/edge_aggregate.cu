@@ -38,7 +38,8 @@
 //
 // - mma (bf16, K <= 64, d a multiple of 8), two launches. First one
 //   thread per (image, edge) evaluates the edge's n Gaussians once (one
-//   expf each) and stores ghat, C's residual or A's scratch. Then one
+//   expf each; edge_gauss.cuh, shared with kernel H) and stores ghat,
+//   C's residual or A's scratch. Then one
 //   block per (column tile, Gaussian kernel, image), the tile all of d up
 //   to 256 columns: its ghat plane, sel and proj slab arrive by cp.async
 //   as f32 and bf16, K padded with zeros to a multiple of 16, and the
@@ -67,6 +68,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "edge_gauss.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -84,25 +86,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Word 0 of Philox4x32-10 with key (seed, 0) and counter (e, 0, 0, 0).
-__device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t e) {
-  uint32_t c0 = e, c1 = 0u, c2 = 0u, c3 = 0u, k0 = seed, k1 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return c0;
-}
+using edge_gauss::philox_bits;
 
 // Training-only arguments of kernel C (unused by A).
 struct TrainArgs {
@@ -238,57 +222,8 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                : "memory");
 }
 
-// The mma body's first launch: one thread per (image, edge) evaluates the
-// edge's n Gaussians once, each as one expf of exponent scales computed
-// once a block (-0.5 / (1e-14 + prec^2); ghat therefore differs from the
-// SIMT body's at f32 rounding), and stores ghat (B, n, K, K) and, when
-// asked, denom (B, K, K). Kernel C's residuals are these; kernel A's are
-// scratch the product reads.
-__global__ void __launch_bounds__(kMmaThreads)
-edge_gauss_kernel(const float* __restrict__ pseudo,   // (B, K, K, 2)
-                  const float* __restrict__ gparams,  // (4, n)
-                  float* __restrict__ ghat,           // (B, n, K, K)
-                  float* __restrict__ denom_out,      // (B, K, K) or null
-                  int kk, int n_kernels) {
-  __shared__ __align__(16) float gp_s[4 * kMaxKernels];
-  __shared__ float w_s[kMaxKernels][kMmaThreads];  // this thread's g_m
-  const int tid = threadIdx.x, b = blockIdx.y;
-  const int e = blockIdx.x * kMmaThreads + tid;
-  float2 ps = make_float2(0.f, 0.f);
-  if (e < kk)  // issued before the barrier below
-    ps = reinterpret_cast<const float2*>(pseudo)[static_cast<size_t>(b) * kk +
-                                                 e];
-  for (int m = tid; m < n_kernels; m += kMmaThreads) {
-    const float pr = gparams[2 * n_kernels + m];
-    const float pt = gparams[3 * n_kernels + m];
-    gp_s[4 * m] = gparams[m];
-    gp_s[4 * m + 1] = gparams[n_kernels + m];
-    gp_s[4 * m + 2] = -0.5f / (1e-14f + pr * pr);
-    gp_s[4 * m + 3] = -0.5f / (1e-14f + pt * pt);
-  }
-  __syncthreads();
-  if (e >= kk) return;
-  const float two_pi = 6.283185307179586f;
-  float denom = 0.f;
-  for (int m = 0; m < n_kernels; ++m) {
-    const float4 gp = reinterpret_cast<const float4*>(gp_s)[m];
-    const float xr = ps.x - gp.x;
-    const float first = fabsf(ps.y - gp.y);
-    const float second = fabsf(two_pi - first);
-    const float dt = first < second ? first : second;
-    // exp(a) exp(b) as exp(a + b): the same 0 where either underflows and
-    // the same NaN (then 0) where either is NaN
-    float w = expf(xr * xr * gp.z + dt * dt * gp.w);
-    if (isnan(w)) w = 0.f;
-    denom += w;
-    w_s[m][tid] = w;
-  }
-  denom = fmaxf(denom, 1e-20f);
-  for (int m = 0; m < n_kernels; ++m)
-    ghat[(static_cast<size_t>(b) * n_kernels + m) * kk + e] =
-        w_s[m][tid] / denom;
-  if (denom_out) denom_out[static_cast<size_t>(b) * kk + e] = denom;
-}
+// The mma body's first launch is edge_gauss.cuh's edge_gauss_kernel
+// (kExact = false): each edge's n Gaussians once, as ghat (and denom).
 
 // The mma body's second launch: one block per (column tile, Gaussian
 // kernel, image); KP = 16 * MT rows and the same inner depth (K padded
@@ -445,12 +380,11 @@ cudaError_t dispatch_mma(const void* sel, const void* pseudo,
                          float* ghat, float* denom, int B, int K,
                          int n_kernels, int d, int relu, TrainArgs train,
                          cudaStream_t s) {
-  const int kk = K * K;
-  edge_gauss_kernel<<<dim3((kk + kMmaThreads - 1) / kMmaThreads, B),
-                      kMmaThreads, 0, s>>>(
-      static_cast<const float*>(pseudo), static_cast<const float*>(gparams),
-      ghat, denom, kk, n_kernels);
-  const cudaError_t e = cudaGetLastError();
+  const edge_gauss::Args ga{
+      static_cast<const float*>(pseudo),
+      {{static_cast<const float*>(gparams), ghat, denom}, {}}, K * K,
+      n_kernels};
+  const cudaError_t e = edge_gauss::launch<false>(ga, B, 1, s);
   if (e != cudaSuccess) return e;
   const int ct = d < kMaxColTile ? d : kMaxColTile;
   switch ((K + 15) / 16) {

@@ -21,11 +21,30 @@
 // What bounds them on an H100: bytes. Each gathered row is read once and
 // written once, 2 x B x row_bytes (18.9 MB at B=64 from the bf16 (36, 2048)
 // table, 5.6 us at 3.35 TB/s), plus the int8 path's scales; there is no
-// arithmetic to speak of. Design: F cuts each row into chunks of kChunk
-// 16-byte vectors and runs one block per (chunk, row), so B=64 rows of
-// 9216 vectors fill the card with 320 blocks; each thread first issues
-// all kPer of its loads and then its stores, so every thread keeps kPer
-// independent 16-byte loads in flight. A bulk-copy (TMA) ring is later work.
+// arithmetic to speak of. So F's design is about keeping DRAM busy:
+//
+// - One block per (chunk, row), a chunk being kChunk = 1024 16-byte
+//   vectors, so a (36, 2048) bf16 row of 9216 vectors takes exactly 9
+//   blocks; the grid is launched once and the blocks retire as they go.
+//   Several blocks fit on an SM (ptxas -v in the build log gives the
+//   registers), each thread with kPer 16-byte loads in flight, and a
+//   block's stores overlap the loads of the blocks that follow it.
+// - Each thread issues its kPer = 4 loads, coalesced across the block,
+//   before its stores.
+// - Each row is read once and each output written once: the loads are
+//   ld.global.nc.L1::no_allocate with an L2::256B prefetch, the stores
+//   st.global.cs (streaming).
+//
+// A grid of the card's resident blocks, each walking an even share of
+// all B x row_vecs vectors with a software pipeline in registers, was
+// built and measured slower at B=256 (PERF.md): its doubled registers
+// let fewer blocks, and so fewer loads, stay in flight on an SM. A
+// bulk-copy (TMA) ring was not built.
+//
+// The int8 path walks the same way over 16-int8 input vectors (F % 16 ==
+// 0: a vector lies inside one box and takes one scale), storing 64 (f32)
+// or 32 (bf16) bytes per vector. Where F % 16 != 0 an element-wise
+// kernel takes the rows, one block per (kChunk elements, row).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,14 +53,31 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPer = 8;                     // 16-byte vectors per thread
-constexpr int kChunk = kThreads * kPer;     // vectors per block: 32 KB
+constexpr int kPer = 4;                     // 16-byte vectors per thread
+constexpr int kChunk = kThreads * kPer;     // vectors per block: 16 KB
 constexpr int kBlockedThreads = 128;        // G: one block per row
 
 __device__ __forceinline__ long long clamp_row(const int* rows, int i,
                                                long long n_rows) {
   const long long r = rows[i];
   return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
+}
+
+// 16 bytes read once: no L1 line, a 256-byte L2 prefetch
+__device__ __forceinline__ uint4 load16(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// 16 bytes written once: a streaming store
+__device__ __forceinline__ void store16(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // F, plain copy: row_vecs 16-byte vectors per row
@@ -58,12 +94,12 @@ gather_copy_kernel(const uint4* __restrict__ table,
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const long long e = base + j * kThreads;
-    if (e < row_vecs) v[j] = __ldg(src + e);
+    if (e < row_vecs) v[j] = load16(src + e);
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const long long e = base + j * kThreads;
-    if (e < row_vecs) dst[e] = v[j];
+    if (e < row_vecs) store16(dst + e, v[j]);
   }
 }
 
@@ -90,6 +126,7 @@ gather_dequant_kernel(const int8_t* __restrict__ table,
   const long long row_vecs = row_elems / 16;
   const uint4* src = reinterpret_cast<const uint4*>(table + r * row_elems);
   const float* sc = scales + r * K;
+  const int fvecs = F / 16;   // vectors per box
   Out* dst = out + static_cast<long long>(i) * row_elems;
   const long long base = static_cast<long long>(blockIdx.x) * kChunk +
                          threadIdx.x;
@@ -97,13 +134,14 @@ gather_dequant_kernel(const int8_t* __restrict__ table,
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const long long e = base + j * kThreads;
-    if (e < row_vecs) v[j] = __ldg(src + e);
+    if (e < row_vecs) v[j] = load16(src + e);
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const long long e = base + j * kThreads;
     if (e >= row_vecs) continue;
-    const float s = __ldg(sc + (e * 16) / F);
+    // the box of vector e (< K * F / 16, an int): a 32-bit division
+    const float s = __ldg(sc + static_cast<int>(e) / fvecs);
     const int8_t* q = reinterpret_cast<const int8_t*>(&v[j]);
     // 16 outputs: 64 bytes in f32, 32 in bf16, stored as 16-byte vectors
     constexpr int kOut = 16 * sizeof(Out) / 16;
@@ -113,7 +151,7 @@ gather_dequant_kernel(const int8_t* __restrict__ table,
     for (int t = 0; t < 16; ++t) put(ov, t, static_cast<float>(q[t]) * s);
     uint4* d = reinterpret_cast<uint4*>(dst + e * 16);
 #pragma unroll
-    for (int t = 0; t < kOut; ++t) d[t] = o[t];
+    for (int t = 0; t < kOut; ++t) store16(d + t, o[t]);
   }
 }
 

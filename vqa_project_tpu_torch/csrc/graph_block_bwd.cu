@@ -186,7 +186,10 @@ block_bwd_edge_kernel(const float* __restrict__ ge,      // (B, n, K, K)
       const float gm = ge[planes + static_cast<size_t>(q) * kk + e];
       const float hm = ghat[planes + static_cast<size_t>(q) * kk + e];
       ds += gm * hm;
-      sc += gm * s * hm;
+      // rounded as the plain version rounds them (no fused multiply-add),
+      // so that gm * sel - scross is exactly 0 where ghat is 1 (n = 1):
+      // their true difference, which inv_r would otherwise amplify
+      sc = __fadd_rn(sc, __fmul_rn(__fmul_rn(gm, s), hm));
     }
     dsel_s[e] = ds;
     scross_s[e] = sc;
@@ -208,7 +211,9 @@ block_bwd_edge_kernel(const float* __restrict__ ge,      // (B, n, K, K)
       const float hm = ghat[planes + static_cast<size_t>(q) * kk + e];
       const float den = denom[at];
       const float ind = den > 1e-20f ? 1.f : 0.f;
-      const float dw = (gm * sel[at] - ind * scross_s[e]) / den;
+      const float dw =
+          __fsub_rn(__fmul_rn(gm, sel[at]), __fmul_rn(ind, scross_s[e])) /
+          den;
       const float dwn_wn = dw * (hm * den);
       const float rho = pseudo[2 * at], theta = pseudo[2 * at + 1];
 
@@ -313,8 +318,8 @@ cudaError_t run(const float* g, const T* out, const T* h1, const T* feats,
                 const float* gp2, float* ge, T* dp2, float* g1, T* dp1,
                 float* dadj, float* dpseudo, T* dfeats, float* dw1cat,
                 float* dw2cat, float* dgp1_part, float* dgp2_part, int B,
-                int K, int F1, int n, int d1, int d2, float inv_keep,
-                cudaStream_t s) {
+                int K, int F1, int ldf, int n, int d1, int d2,
+                float inv_keep, cudaStream_t s) {
   using tile_gemm::Epilogue;
   const int rows = B * K, nd1 = n * d1, nd2 = n * d2;
   cudaError_t e = conv_bwd<T>(g, out, mask, ghat2, den2, pseudo, gp2, proj2,
@@ -333,7 +338,7 @@ cudaError_t run(const float* g, const T* out, const T* h1, const T* feats,
                   dp1, dadj, dpseudo, dgp1_part, B, K, n, d1, true, s);
   if (e != cudaSuccess) return e;
   e = tile_gemm::gemm<T>(
-      tile_gemm::kTN, feats, dp1, F1, nd1, rows, F1, nd1,
+      tile_gemm::kTN, feats, dp1, F1, nd1, rows, ldf, nd1,
       Epilogue<T>{tile_gemm::kStoreF32, dw1cat, nd1, nullptr, 1.f}, s);
   if (e != cudaSuccess || !dfeats) return e;
   return tile_gemm::gemm<T>(
@@ -344,7 +349,8 @@ cudaError_t run(const float* g, const T* out, const T* h1, const T* feats,
 }  // namespace
 
 // Kernel I. dtype 0 = float32, 1 = bfloat16 for out (B, K, n*d2), h1
-// (B, K, n*d1), feats (B, K, F1), w1cat (F1, n*d1), w2cat (n*d1, n*d2),
+// (B, K, n*d1), feats (B*K rows of F1, row stride ldf, as kernel H reads
+// it), w1cat (F1, n*d1), w2cat (n*d1, n*d2),
 // the scratch dp2 (B*K, n*d2) and dp1 (B*K, n*d1), and dfeats (B, K, F1;
 // null skips it); float32: g (B, K, n*d2), kernel H's proj1, proj2,
 // alpha, mask, ghat1, ghat2, den1, den2, pseudo and dpseudo (B, K, K, 2),
@@ -360,9 +366,10 @@ extern "C" int graph_block_bwd(
     const void* pseudo, const void* gp1, const void* gp2, void* ge, void* dp2,
     void* g1, void* dp1, void* dadj, void* dpseudo, void* dfeats,
     void* dw1cat, void* dw2cat, void* dgp1_part, void* dgp2_part, int B,
-    int K, int F1, int n, int d1, int d2, float inv_keep, int dtype,
+    int K, int F1, int ldf, int n, int d1, int d2, float inv_keep, int dtype,
     void* stream) {
-  if (B <= 0 || K <= 0 || K * K > kMaxG * kThreads || F1 <= 0 || n <= 0 ||
+  if (B <= 0 || K <= 0 || K * K > kMaxG * kThreads || F1 <= 0 || ldf < F1 ||
+      n <= 0 ||
       n > kMaxKernels || d1 <= 0 || d2 <= 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -375,7 +382,8 @@ extern "C" int graph_block_bwd(
                f(proj2), f(alpha), f(mask), f(ghat1), f(ghat2), f(den1),
                f(den2), f(pseudo), f(gp1), f(gp2), w(ge), w(dp2), w(g1),
                w(dp1), w(dadj), w(dpseudo), w(dfeats), w(dw1cat), w(dw2cat),
-               w(dgp1_part), w(dgp2_part), B, K, F1, n, d1, d2, inv_keep, s);
+               w(dgp1_part), w(dgp2_part), B, K, F1, ldf, n, d1, d2, inv_keep,
+               s);
   } else if (dtype == 1) {
     using T = __nv_bfloat16;
     const auto c = [](const void* p) { return static_cast<const T*>(p); };
@@ -384,7 +392,8 @@ extern "C" int graph_block_bwd(
                f(proj2), f(alpha), f(mask), f(ghat1), f(ghat2), f(den1),
                f(den2), f(pseudo), f(gp1), f(gp2), w(ge), m(dp2), w(g1),
                m(dp1), w(dadj), w(dpseudo), m(dfeats), w(dw1cat), w(dw2cat),
-               w(dgp1_part), w(dgp2_part), B, K, F1, n, d1, d2, inv_keep, s);
+               w(dgp1_part), w(dgp2_part), B, K, F1, ldf, n, d1, d2, inv_keep,
+               s);
   } else {
     e = cudaErrorInvalidValue;
   }

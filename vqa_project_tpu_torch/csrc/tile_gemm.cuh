@@ -1,6 +1,10 @@
-// Tiled matrix products written by hand for Hopper (sm_90a), shared by
-// the merged graph block's forward (graph_block.cu, kernel H) and
-// backward (graph_block_bwd.cu, kernel I).
+// Tiled matrix products written by hand for Hopper (sm_90a): every
+// product of the merged graph block's backward (graph_block_bwd.cu,
+// kernel I, which replaces vqa_project_tpu/ops/pallas/graph_block.py::
+// _block_bwd_kernel), the forward's projections (kernel H, graph_block.cu)
+// with f32 operands and at bf16 widths that wgmma_gemm.cuh does not take,
+// and the bare product graph_block.cu exports as tile_gemm_run. Kernel H's
+// bf16 projections run on wgmma_gemm.cuh.
 //
 // C (M, N) = op(A) op(B), all operands row-major, in three layouts:
 //   kNN  A (M, K),  B (K, N):  x @ W
@@ -25,8 +29,10 @@
 //
 // What bounds these products on an H100: at the graph block's shapes
 // (M = B*K = 2304 at B=64, N and K up to 2052) operations, ~2 x 10^10
-// flops against a few tens of MB. A wgmma + TMA pipeline is the later
-// step; this first version keeps the design simple and right.
+// flops against a few tens of MB. wmma with register-staged loads does
+// not reach the tensor cores' rate (PERF.md has its times beside
+// torch.mm); moving kernel I's NT and TN products onto wgmma is the next
+// step, as kernel H's NN products have moved.
 
 #pragma once
 

@@ -37,6 +37,7 @@ from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
 from vqa_project_tpu_torch.ops.dropout import dropout
+from vqa_project_tpu_torch.ops.graph_block import padded_rows
 from vqa_project_tpu_torch.ops.matmul import matmul
 
 
@@ -251,11 +252,20 @@ class GraphVQAModel(nn.Module):
             # node tensor is the same as from the concatenated image
             feats, boxes = image
             pseudo = polar_pseudo_coords(bbox_centres(boxes.float()))
-            nodes = torch.cat([feats.to(cdt), boxes.to(cdt)], dim=-1)
+            parts = [feats, boxes]
         else:
             pseudo = polar_pseudo_coords(bbox_centres(image.float()))
-            nodes = image.to(cdt)
-        nodes = dropout(nodes, rate, generator)
+            parts = [image]
+        if cfg.merged_block:
+            # the block reads the nodes' rows by TMA (16-byte row
+            # strides): build them in rows padded to a multiple of 8
+            # elements and keep the unpadded view; dropout writes there too
+            nodes = padded_rows(parts, cdt)
+            nodes = dropout(nodes, rate, generator, out=nodes)
+        else:
+            nodes = (torch.cat([p.to(cdt) for p in parts], dim=-1)
+                     if len(parts) > 1 else parts[0].to(cdt))
+            nodes = dropout(nodes, rate, generator)
 
         emb = F.embedding(question.long(), self.wembed.weight)
         g = self.q_gru

@@ -52,15 +52,16 @@ _SIGNATURES = {
         "edge_aggregate_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _I, _P],
     },
     "gather_rows": {
-        "gather_rows_packed": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+        "gather_rows_packed": [_P, _P, _P, _P, _L] + [_I] * 5 + [_P],
         "gather_rows_blocked": [_P, _P, _P, _L, _I, _L, _I, _P],
     },
     "graph_block": {
-        "graph_block_fwd": [_P] * 18 + [_I] * 7 + [_U, _F, _I, _P],
+        "graph_block_fwd": [_P] * 18 + [_I] * 8 + [_U, _F, _I, _P],
         "tile_gemm_run": [_P] * 4 + [_I] * 9 + [_F, _P],
+        "wgmma_gemm_run": [_P] * 3 + [_I] * 8 + [_P],
     },
     "graph_block_bwd": {
-        "graph_block_bwd": [_P] * 28 + [_I] * 6 + [_F, _I, _P],
+        "graph_block_bwd": [_P] * 28 + [_I] * 7 + [_F, _I, _P],
     },
     "gru_scan": {
         "gru_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

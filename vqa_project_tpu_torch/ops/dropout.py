@@ -29,18 +29,23 @@ PHILOX_ROUNDS = 10
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout: each element is kept with probability
     ``1 - rate`` (a uniform draw >= rate) and scaled by 1/(1-rate) in
-    x's dtype. ``rate`` 0 returns x unchanged."""
+    x's dtype. ``rate`` 0 returns x unchanged. With ``out`` (x's shape
+    and dtype, any strides, x itself allowed; nothing may require grad)
+    the result is written there and out is returned, with the same
+    draws and values."""
     if rate <= 0:
-        return x
+        return x if out is None or out is x else out.copy_(x)
     if not rate < 1:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     u = torch.rand(x.shape, generator=generator, device=x.device)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return torch.where(u >= rate, x * scale, torch.zeros((), dtype=x.dtype,
-                                                         device=x.device))
+                                                         device=x.device),
+                       out=out)
 
 
 def keep_threshold(rate: float) -> int:

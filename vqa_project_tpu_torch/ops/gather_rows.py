@@ -57,14 +57,15 @@ def _check_rows(table: torch.Tensor, rows: torch.Tensor) -> None:
 
 def gather_rows_packed(table: torch.Tensor, rows: torch.Tensor,
                        scales: Optional[torch.Tensor] = None,
-                       out_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, K, F) rows of an (N, K, F) table in one launch (kernel F).
 
     table: float32, bfloat16 or int8; rows (B,) int32, clamped. With
     ``scales`` (N, K) float32 the table must be int8 and the rows come
     out dequantized in ``out_dtype`` (float32 or bfloat16); without, they
-    come out in the table's dtype.
+    come out in the table's dtype. ``out``, a contiguous (B, K, F) tensor
+    of the result's dtype, is written and returned instead of a new one.
     """
     _check_rows(table, rows)
     if table.dim() != 3:
@@ -84,8 +85,16 @@ def gather_rows_packed(table: torch.Tensor, rows: torch.Tensor,
     elif out_dtype not in (None, table.dtype):
         raise TypeError("out_dtype differs from the table's dtype only "
                         "when dequantizing an int8 table with scales")
+    b = rows.shape[0]
+    want = (b, k, f), out_dtype or table.dtype
+    if out is not None and ((tuple(out.shape), out.dtype) != want
+                            or out.device != table.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {want[1]} {want[0]} "
+                         f"tensor on {table.device}")
     if table.device.type == "cpu":
-        return gather_rows_reference(table, rows, scales, out_dtype)
+        res = gather_rows_reference(table, rows, scales, out_dtype)
+        return res if out is None else out.copy_(res)
     if table.dtype not in _DTYPE_CODE:
         raise TypeError(f"table must be float32, bfloat16 or int8, got "
                         f"{table.dtype}")
@@ -97,9 +106,8 @@ def gather_rows_packed(table: torch.Tensor, rows: torch.Tensor,
         raise ValueError("kernel F copies 16-byte vectors: the row bytes "
                          "and the table's address must be multiples of 16 "
                          "(gather_rows_blocked takes any row)")
-    b = rows.shape[0]
-    out = torch.empty((b, k, f), dtype=out_dtype or table.dtype,
-                      device=table.device)
+    if out is None:
+        out = torch.empty(want[0], dtype=want[1], device=table.device)
     if b == 0:
         return out
     lib = _build.load("gather_rows")

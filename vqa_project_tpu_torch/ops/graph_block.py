@@ -16,9 +16,21 @@ tensors:
 - I, ``csrc/graph_block_bwd.cu::graph_block_bwd`` (``graph_block_bwd``):
   its hand-derived VJP.
 
-Both run every product in the hand-written GEMM of
-``csrc/tile_gemm.cuh`` (bf16 operands on the tensor cores, f32 sums;
-exact f32 FMAs for f32), exported bare as ``tile_gemm``.
+H runs each of its two projections, where the operands are bf16 with
+rows at strides that are multiples of 8 elements from 16-byte aligned
+starts, on the wgmma + TMA product of ``csrc/wgmma_gemm.cuh`` (exported
+bare as ``wgmma_gemm``); its other projections (f32, the exact parity
+path, and other widths), and I for every product, run on the
+hand-written GEMM of ``csrc/tile_gemm.cuh`` (bf16 on the tensor cores
+through wmma, exact f32 FMAs for f32), exported bare as ``tile_gemm``.
+``graph_block.cu`` makes that choice (``wgmma_fits``).
+
+TMA reads rows whose stride is a multiple of 16 bytes, so both kernels
+take feats as B*K rows of F1 at a row stride that is a multiple of 8
+elements (``feats_rows``): the model builds its node features in rows
+padded that way (``padded_rows``; 2052 -> 2056 at the VQA width) and
+hands over the unpadded view, and a contiguous feats of another width
+is copied into such rows.
 
 The public functions take JAX's layout: adj (B, K, K) f32, pseudo (B, K,
 K, 2) f32, feats (B, K, F1), w1 (n, F1, d1), w2 (n, n*d1, d2), gp (4, n)
@@ -46,6 +58,64 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUTS = {"nn": 0, "nt": 1, "tn": 2}
 _EPILOGUES = {"f32": 0, "operand": 1, "gate": 2}
 _MAX_K, _MAX_KERNELS = 64, 32
+ROW_ALIGN = 8   # elements: TMA's 16-byte row strides in bf16
+
+
+# ---------------- the operands' layout ----------------
+
+
+def padded_rows(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The (B, K, F) concatenation of ``parts`` along the last dim in
+    ``dtype``, built in rows padded with zeros to a multiple of
+    ``ROW_ALIGN`` elements: the unpadded view of that buffer, whose row
+    stride the block's kernels read without a copy."""
+    b, k = parts[0].shape[:2]
+    f = sum(p.shape[-1] for p in parts)
+    ld = -(-f // ROW_ALIGN) * ROW_ALIGN
+    buf = torch.empty((b, k, ld), dtype=dtype, device=parts[0].device)
+    buf[..., f:].zero_()
+    at = 0
+    for p in parts:
+        buf[..., at:at + p.shape[-1]].copy_(p)
+        at += p.shape[-1]
+    return buf[..., :f]
+
+
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """The one stride of a (B, K, F) tensor's B*K rows of unit-stride
+    elements, or None when the rows are not evenly spaced."""
+    b, k, f = t.shape
+    if f > 1 and t.stride(2) != 1:
+        return None
+    if k == 1:
+        ld = t.stride(0) if b > 1 else f
+    else:
+        ld = t.stride(1)
+        if b > 1 and t.stride(0) != k * ld:
+            return None
+    return ld if ld >= f else None
+
+
+def feats_rows(feats: torch.Tensor):
+    """(feats, ldf): feats (B, K, F1) as kernels H and I read it, B*K rows
+    of F1 at the row stride ldf. Rows at a stride that is a multiple of
+    ``ROW_ALIGN`` from a 16-byte aligned start pass as they are; a
+    contiguous feats whose width is not such a multiple is copied into
+    padded rows; any other layout raises."""
+    if feats.dim() != 3:
+        raise ValueError(f"feats must be (B, K, F1), got "
+                         f"{tuple(feats.shape)}")
+    ld = _row_stride(feats)
+    if ld is not None and ld % ROW_ALIGN == 0:
+        if feats.data_ptr() % 16:
+            raise ValueError("feats must start on a 16-byte boundary")
+        return feats, ld
+    if feats.is_contiguous():
+        x = padded_rows([feats], feats.dtype)
+        return x, x.stride(1)
+    raise ValueError(f"feats rows must lie at one stride that is a "
+                     f"multiple of {ROW_ALIGN} elements, got strides "
+                     f"{feats.stride()}")
 
 
 # ---------------- the bare product ----------------
@@ -119,6 +189,44 @@ def tile_gemm(a: torch.Tensor, b: torch.Tensor, layout: str = "nn",
 
 
 tile_gemm.launches = 0
+
+
+def wgmma_gemm(a: torch.Tensor, b: torch.Tensor, tile=(0, 0)
+               ) -> torch.Tensor:
+    """C (M, N) f32 = a (M, K) @ b (K, N), bf16, in kernel H's wgmma + TMA
+    product. a may be a view whose rows lie at a stride that is a
+    multiple of 8 (b contiguous). Its plain version is
+    ``tile_gemm_reference``.
+
+    ``tile`` (BM, BN) = (128, 128), (128, 256) or (192, 192) forces a
+    tile; (0, 0), what kernel H always takes, is ``pick_tile``'s choice
+    (``csrc/wgmma_gemm.cuh``). The forced tiles exist so that
+    chip_smoke.py can time every tile beside the pick at H's shapes: the
+    evidence for the rule's weights."""
+    if a.device.type == "cpu":
+        return tile_gemm_reference(a, b)
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"wgmma_gemm takes bfloat16 operands, got "
+                        f"{a.dtype} and {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or b.device != a.device:
+        raise ValueError("wgmma_gemm takes two 2-D tensors on one device")
+    if a.stride(1) != 1 or not b.is_contiguous():
+        raise ValueError("a's rows and b must be contiguous")
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"inner sizes differ: {k} and {b.shape[0]}")
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _build.load("graph_block")
+    rc = lib.wgmma_gemm_run(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+                            n, k, a.stride(0), n, n, *tile,
+                            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "wgmma_gemm_run")
+    wgmma_gemm.launches += 1
+    return out
+
+
+wgmma_gemm.launches = 0
 
 
 # ---------------- selection and the chained oracle ----------------
@@ -235,21 +343,21 @@ def graph_block_fwd_reference(adj, pseudo, feats, w1cat, w2cat, gp1, gp2,
 
 
 def graph_block_fwd(adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds=None,
-                    m: int = 16, dropout_rate: float = 0.0
-                    ) -> BlockResiduals:
-    """Kernel H on CUDA tensors (four launches: proj1, conv1, proj2,
-    conv2), its plain version on CPU tensors. feats, w1cat and w2cat in
-    the compute dtype (float32 or bfloat16); seeds (B,) int32 when
-    dropout_rate > 0."""
+                    m: int = 16, dropout_rate: float = 0.0,
+                    out: Optional[BlockResiduals] = None) -> BlockResiduals:
+    """Kernel H on CUDA tensors (five launches: the Gaussians with the
+    selection, proj1, conv1, proj2, conv2), its plain version on CPU
+    tensors. feats (rows as ``feats_rows`` takes them), w1cat and w2cat
+    in the compute dtype (float32 or bfloat16); seeds (B,) int32 when
+    dropout_rate > 0. On CUDA tensors ``out``, residuals of the shapes
+    and dtypes below, is written and returned instead of new ones."""
+    feats, ldf = feats_rows(feats)
     if feats.device.type == "cpu":
         return graph_block_fwd_reference(adj, pseudo, feats, w1cat, w2cat,
                                          gp1, gp2, seeds, m, dropout_rate)
     dev, cdt = feats.device, feats.dtype
     if cdt not in _DTYPE_CODE:
         raise TypeError(f"feats must be float32 or bfloat16, got {cdt}")
-    if feats.dim() != 3:
-        raise ValueError(f"feats must be (B, K, F1), got "
-                         f"{tuple(feats.shape)}")
     b, k, f1 = feats.shape
     n = gp1.shape[1] if gp1.dim() == 2 else -1
     if gp1.shape != (4, n) or n > _MAX_KERNELS:
@@ -260,7 +368,8 @@ def graph_block_fwd(adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds=None,
                          f"m={m}, K={k}")
     d1, d2 = _check_d(w1cat, w2cat, n)
     f32 = torch.float32
-    _check_like("feats", feats, (b, k, f1), cdt, dev)
+    if feats.device != dev:
+        raise ValueError(f"feats is on {feats.device}")
     _check_like("w1cat", w1cat, (f1, n * d1), cdt, dev)
     _check_like("w2cat", w2cat, (n * d1, n * d2), cdt, dev)
     _check_like("adj", adj, (b, k, k), f32, dev)
@@ -276,18 +385,19 @@ def graph_block_fwd(adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds=None,
             raise ValueError("in-kernel dropout needs per-image seeds (B,)")
         _check_like("seeds", seeds, (b,), torch.int32, dev)
     lib = _build.load("graph_block")
-    f32d = dict(dtype=f32, device=dev)
-    res = BlockResiduals(
-        out=torch.empty((b, k, n * d2), dtype=cdt, device=dev),
-        h1=torch.empty((b, k, n * d1), dtype=cdt, device=dev),
-        alpha=torch.empty((b, k, k), **f32d),
-        mask=torch.empty((b, k, k), **f32d),
-        ghat1=torch.empty((b, n, k, k), **f32d),
-        ghat2=torch.empty((b, n, k, k), **f32d),
-        den1=torch.empty((b, k, k), **f32d),
-        den2=torch.empty((b, k, k), **f32d),
-        proj1=torch.empty((b * k, n * d1), **f32d),
-        proj2=torch.empty((b * k, n * d2), **f32d))
+    shapes = BlockResiduals(
+        out=((b, k, n * d2), cdt), h1=((b, k, n * d1), cdt),
+        alpha=((b, k, k), f32), mask=((b, k, k), f32),
+        ghat1=((b, n, k, k), f32), ghat2=((b, n, k, k), f32),
+        den1=((b, k, k), f32), den2=((b, k, k), f32),
+        proj1=((b * k, n * d1), f32), proj2=((b * k, n * d2), f32))
+    if out is None:
+        res = BlockResiduals(*(torch.empty(shape, dtype=dt, device=dev)
+                               for shape, dt in shapes))
+    else:
+        for name, t, (shape, dt) in zip(out._fields, out, shapes):
+            _check_like(name, t, shape, dt, dev)
+        res = out
     rc = lib.graph_block_fwd(
         adj.data_ptr(), pseudo.data_ptr(), feats.data_ptr(),
         w1cat.data_ptr(), w2cat.data_ptr(), gp1.data_ptr(), gp2.data_ptr(),
@@ -295,7 +405,7 @@ def graph_block_fwd(adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds=None,
         res.proj2.data_ptr(), res.h1.data_ptr(), res.out.data_ptr(),
         res.alpha.data_ptr(), res.mask.data_ptr(), res.ghat1.data_ptr(),
         res.ghat2.data_ptr(), res.den1.data_ptr(), res.den2.data_ptr(), b, k,
-        f1, n, d1, d2, m, keep_threshold(dropout_rate) if drop else 0,
+        f1, ldf, n, d1, d2, m, keep_threshold(dropout_rate) if drop else 0,
         1.0 / (1.0 - dropout_rate) if drop else 1.0, _DTYPE_CODE[cdt],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "graph_block_fwd")
@@ -343,7 +453,8 @@ def graph_block_bwd(g, res: BlockResiduals, pseudo, feats, w1cat, w2cat,
                     need_dfeats: bool = True):
     """Kernel I on CUDA tensors (up to eight launches), its plain version
     on CPU tensors: the gradients as ``graph_block_bwd_reference``
-    returns them, g (B, K, n*d2) float32."""
+    returns them, g (B, K, n*d2) float32; feats as kernel H took it."""
+    feats, ldf = feats_rows(feats)
     if feats.device.type == "cpu":
         return graph_block_bwd_reference(g, res, pseudo, feats, w1cat, w2cat,
                                          gp1, gp2, dropout_rate, need_dfeats)
@@ -358,7 +469,8 @@ def graph_block_bwd(g, res: BlockResiduals, pseudo, feats, w1cat, w2cat,
     _check_like("g", g, (b, k, n * d2), f32, dev)
     _check_like("out", res.out, (b, k, n * d2), cdt, dev)
     _check_like("h1", res.h1, (b, k, n * d1), cdt, dev)
-    _check_like("feats", feats, (b, k, f1), cdt, dev)
+    if feats.device != dev:
+        raise ValueError(f"feats is on {feats.device}")
     _check_like("w1cat", w1cat, (f1, n * d1), cdt, dev)
     _check_like("w2cat", w2cat, (n * d1, n * d2), cdt, dev)
     _check_like("proj1", res.proj1, (b * k, n * d1), f32, dev)
@@ -394,8 +506,8 @@ def graph_block_bwd(g, res: BlockResiduals, pseudo, feats, w1cat, w2cat,
         gp1.data_ptr(), gp2.data_ptr(), ge.data_ptr(), dp2.data_ptr(),
         g1.data_ptr(), dp1.data_ptr(), dadj.data_ptr(), dpseudo.data_ptr(),
         dfeats.data_ptr() if need_dfeats else None, dw1cat.data_ptr(),
-        dw2cat.data_ptr(), dgp1.data_ptr(), dgp2.data_ptr(), b, k, f1, n, d1,
-        d2, inv_keep, _DTYPE_CODE[cdt],
+        dw2cat.data_ptr(), dgp1.data_ptr(), dgp2.data_ptr(), b, k, f1, ldf,
+        n, d1, d2, inv_keep, _DTYPE_CODE[cdt],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "graph_block_bwd")
     graph_block_bwd.launches += 1
@@ -412,10 +524,11 @@ graph_block_bwd.launches = 0
 
 def _kernel_inputs(adj, pseudo, feats, w1, gp1, w2, gp2):
     """JAX's layout -> the kernels': (adj, pseudo, feats, W1cat, W2cat,
-    gp1, gp2), contiguous, the weights in feats' dtype, the rest f32."""
+    gp1, gp2), feats in rows as ``feats_rows`` gives them, the rest
+    contiguous, the weights in feats' dtype, the rest f32."""
     cdt = feats.dtype
     return (adj.float().contiguous(), pseudo.float().contiguous(),
-            feats.contiguous(), _stacked(w1).to(cdt).contiguous(),
+            feats_rows(feats)[0], _stacked(w1).to(cdt).contiguous(),
             _stacked(w2).to(cdt).contiguous(), gp1.float().contiguous(),
             gp2.float().contiguous())
 
