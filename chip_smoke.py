@@ -74,16 +74,20 @@ Phases, in order; the first failure exits non-zero:
     cache;
 13. the merged block's kernels against their plain versions: the bare
     GEMM against torch.mm at the block's six products (NN, NT, TN; f32
-    and bf16) and its epilogues; H's wgmma product against torch.mm at
-    proj1 (rows padded to 2056) and proj2 for B*K = 36 to 9252, every
-    tile and the rule's pick, a rerun bit for bit; H and I at the VQA
-    widths (B = 64, 1 and 257), the medical K=51, m=19 (B=8), n=1,
-    d1=40 and a width whose proj2 graph_block.cu sends to tile_gemm, f32
-    and bf16, dropout 0.5: H with feats as padded rows and contiguous
-    equal bit for bit, a rerun into NaN-filled outputs equal bit for
-    bit, the products H launched (wgmma or tile_gemm, read from a
-    profile) asserted, and in f32 H's conv1 output equal to kernel C's
-    bit for bit;
+    and bf16) and its epilogues; the wgmma product against torch.mm at
+    the same six products (H's NN proj1 from rows padded to 2056 and
+    proj2; I's TN dW2 and dW1, A rows padded to 2056, and NT dh1 and
+    dfeats, through I's gate and the bf16 store against the plain
+    epilogues) for B*K = 36 to 9252, every tile and the rule's pick, a
+    rerun bit for bit; H and I at the VQA widths (B = 64, 1 and 257),
+    the medical K=51, m=19 (B=8), n=1, d1=40 and a width whose n*d2-wide
+    products go to tile_gemm, f32 and bf16, dropout 0.5: H with feats
+    as padded rows and contiguous equal bit for bit, reruns of H and I
+    into NaN-filled outputs equal bit for bit, the products H and I
+    launched (wgmma or tile_gemm, read from a profile) asserted, at n=1
+    (every Gaussian above the 1e-20 clamp) I's dpseudo and dgparams
+    exactly 0, as the plain version's, and
+    in f32 H's conv1 output equal to kernel C's bit for bit;
 14. training with the merged block, the main path: fit() as in phase 11
     with ModelConfig(merged_block=True); per step H 1, I 1, A, C, D 0,
     B 1, E 1 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
@@ -103,9 +107,9 @@ Phases, in order; the first failure exits non-zero:
    path), the
    cache-mode training step beside host mode,
    evaluate's throughput, then H (feats as padded rows and contiguous,
-   its five launches one by one), its two products (every wgmma tile
-   and the rule's pick beside tile_gemm and torch.mm), I and the hand
-   GEMM at
+   its five launches one by one), I (its launches one by one), the
+   block's six products (every wgmma tile and the rule's pick beside
+   tile_gemm and torch.mm) at
    B=64 and 256, the merged block beside the unmerged one and the
    merged training step beside the unmerged one; each kernel's device
    time (launches
@@ -153,7 +157,7 @@ from vqa_project_tpu_torch.ops.edge_aggregate import (
     sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
     sel_aggregate_act_vjp, sel_aggregate_act_vjp_reference)
 from vqa_project_tpu_torch.ops.graph_block import (
-    BlockResiduals, fused_graph_block, graph_block_bwd,
+    BlockGrads, BlockResiduals, fused_graph_block, graph_block_bwd,
     graph_block_bwd_reference, graph_block_fwd, graph_block_fwd_reference,
     padded_rows, tile_gemm, tile_gemm_reference, wgmma_gemm)
 from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
@@ -2342,39 +2346,84 @@ def check_tile_gemm(dev, gen):
 WGMMA_TILES = ((128, 128), (128, 256), (192, 192), (0, 0))
 
 
+def wgmma_tol(k):
+    """Normalized tolerance of a wgmma product of depth k against one
+    torch.mm: 1e-5 up to k = 2052, the deepest of H's products (PR 8),
+    then in proportion to k. The tensor cores' f32 accumulator is not
+    rounded to nearest at each k16 step, so the two products'
+    difference grows linearly with the depth: I's TN products reduce
+    over B*K rows (9252 at B=257)."""
+    return 1e-5 * max(1.0, k / 2052)
+
+
 def check_wgmma_gemm(dev, gen):
-    """Phase 13: kernel H's wgmma product against torch.mm (f32 sums of
-    the same bf16 operands) at proj1 (A a view of rows padded to 2056)
-    and proj2, B*K = 36, 408, 2304 and 9252 rows, every tile
-    (WGMMA_TILES), within 1e-5 normalized, and a second run equal bit
-    for bit."""
+    """Phase 13: the wgmma product against torch.mm (f32 sums of the same
+    bf16 operands) at the block's six products (block_gemm_shapes),
+    B*K = 36, 408, 2304 and 9252 rows, every tile (WGMMA_TILES), within
+    wgmma_tol (1e-5 up to a depth of 2052) normalized, and a second run
+    equal bit for bit: H's NN proj1 (A a view of rows padded to 2056)
+    and proj2, then I's TN dW2 and dW1
+    (A a view of padded rows) and NT dh1 and dfeats, the last two also
+    through their epilogues (I's relu/dropout gate, the bf16 store)
+    against tile_gemm_reference. I's products draw from their own
+    generator, so that H's and I's later inputs stay those of earlier
+    runs."""
     worst = 0.0
+    gen_i = torch.Generator().manual_seed(SEED + 13)
     for b, k in ((1, 36), (8, 51), (TRAIN_B, 36), (257, 36)):
-        for label, _, sa, sb in block_gemm_shapes(b, k)[:2]:
-            a = padded_rows([torch.randn(sa[0], 1, sa[1], generator=gen)
-                             .to(dev)], torch.bfloat16)[:, 0]
-            w = torch.randn(*sb, generator=gen).to(dev, torch.bfloat16)
-            want = library_mm(a.float(), w.float(), "nn")
+        for i, (label, layout, sa, sb) in enumerate(block_gemm_shapes(b, k)):
+            g_ = gen if i < 2 else gen_i
+            a = torch.randn(sa[0], 1, sa[1], generator=g_).to(dev)
+            a = (padded_rows([a], torch.bfloat16)[:, 0]
+                 if label.startswith(("proj1", "dW1"))
+                 else a[:, 0].to(torch.bfloat16))
+            w = torch.randn(*sb, generator=g_).to(dev, torch.bfloat16)
+            want = library_mm(a.float(), w.float(), layout)
+            depth = sa[0] if layout == "tn" else sa[1]
+            epilogues = [("f32", None, 1.0)]
+            if label.startswith("dh1"):
+                gate = torch.randn(*want.shape, generator=gen_i).to(
+                    dev, torch.bfloat16)
+                epilogues.append(("gate", gate, 1.0 / (1.0 - DROPOUT)))
+            elif label.startswith("dfeats"):
+                epilogues.append(("operand", None, 1.0))
             for tile in WGMMA_TILES:
-                got = wgmma_gemm(a, w, tile)
-                again = wgmma_gemm(a, w, tile)
-                torch.cuda.synchronize()
-                e = norm_err(got, want)
-                worst = max(worst, e)
-                same = torch.equal(got, again)
-                print(f"wgmma_gemm {label} a{tuple(a.shape)} (row stride "
-                      f"{a.stride(0)}) b{sb} tile {tile}: normalized err "
-                      f"vs torch.mm {e:.2e} (<= 1e-5); rerun equal bit for "
-                      f"bit {same}", flush=True)
-                require(e <= 1e-5 and same,
-                        f"wgmma_gemm {label} {tile} disagrees")
+                for epilogue, gate, scale in epilogues:
+                    got = wgmma_gemm(a, w, tile, layout, epilogue, gate,
+                                     scale)
+                    again = wgmma_gemm(a, w, tile, layout, epilogue, gate,
+                                       scale)
+                    ref = (want if epilogue == "f32" else
+                           tile_gemm_reference(a, w, layout, epilogue, gate,
+                                               scale))
+                    torch.cuda.synchronize()
+                    e = norm_err(got, ref)
+                    tol = 8e-3 if epilogue == "operand" else wgmma_tol(depth)
+                    if epilogue != "operand":
+                        worst = max(worst, e)
+                    same = torch.equal(got, again)
+                    extra = ""
+                    if epilogue == "gate":
+                        zeros = bool((got[gate.float() <= 0] == 0).all())
+                        extra = f"; zeros where gate <= 0 {zeros}"
+                        same = same and zeros
+                    print(f"wgmma_gemm {layout} {label} a{tuple(a.shape)} "
+                          f"(row stride {a.stride(0)}) b{sb} tile {tile} "
+                          f"epilogue {epilogue}: normalized err vs "
+                          f"{'torch.mm' if epilogue == 'f32' else 'plain'} "
+                          f"{e:.2e} (<= {tol:.3g}); rerun equal bit for bit "
+                          f"{torch.equal(got, again)}{extra}", flush=True)
+                    require(e <= tol and same, f"wgmma_gemm {layout} {label} "
+                            f"{tile} {epilogue} disagrees")
+            del a, w, want
     return worst
 
 
-# kernel H's shapes: (label, B, K, m, n, d1, d2); d1 = d2 = None are the
-# VQA widths. "tile rule" has n d2 = 36, not a multiple of 8, so its
-# bf16 proj2 goes to tile_gemm (graph_block.cu's wgmma_fits) and its proj1
-# to wgmma.
+# kernel H's and I's shapes: (label, B, K, m, n, d1, d2); d1 = d2 = None
+# are the VQA widths. "tile rule" has n d2 = 36, not a multiple of 8, so
+# its bf16 products with an n d2-wide operand (H's proj2, I's dW2 and dh1)
+# go to tile_gemm (wgmma_gemm::fits) and the others (H's proj1, I's dW1
+# and dfeats) to wgmma.
 BLOCK_SHAPES = [("vqa", TRAIN_B, 36, 16, 8, None, None),
                 ("medical", 8, 51, 19, 8, None, None),
                 ("B=1", 1, 36, 16, 8, None, None),
@@ -2386,10 +2435,11 @@ BLOCK_SHAPES = [("vqa", TRAIN_B, 36, 16, 8, None, None),
 
 def projection_products(fn, n=3):
     """The products that `n` calls of `fn` launched, read from a profile
-    (torch.profiler): a subset of {"wgmma" (wgmma_gemm.cuh), "tile"
-    (tile_gemm.cuh)}. A set, several calls and up to three profiles,
-    since a profile that follows others in one process was seen to drop
-    a kernel's event, and another to come back empty."""
+    (torch.profiler): a subset of {"wgmma" (wgmma_gemm.cuh's gemm_kernel,
+    every layout), "tile" (tile_gemm.cuh)}. A set, several calls and up
+    to three profiles, since a profile that follows others in one
+    process was seen to drop a kernel's event, and another to come back
+    empty."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -2403,7 +2453,7 @@ def projection_products(fn, n=3):
         for evt in prof.events():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            if "gemm_nn_kernel" in evt.name:
+            if "wgmma_gemm::gemm_kernel" in evt.name:
                 kinds.add("wgmma")
             elif ("wmma_gemm_kernel" in evt.name
                   or "f32_gemm_kernel" in evt.name):
@@ -2418,14 +2468,23 @@ def check_graph_block(dev, gen, errs):
     on the same inputs (I from H's residuals), f32 and bf16, with conv1's
     dropout at 0.5, at BLOCK_SHAPES; feats both as a view of padded rows
     (the model's) and contiguous (the wrapper pads a copy), the two equal
-    bit for bit, and a rerun into NaN-filled outputs equal bit for bit;
-    the products H launched asserted (projection_products); in f32 H's
-    h1 equal to kernel C's output bit for bit for the same alpha, f32
-    projection and seeds (the same Philox mask); the mask equal to the
-    plain selection's."""
+    bit for bit, and reruns of H and I into NaN-filled outputs equal bit
+    for bit; the products H and I launched asserted (projection_products);
+    at n = 1 (precisions from [0.5, 1), every Gaussian above the 1e-20
+    clamp) I's dpseudo and dgparams exactly 0, as the plain version's;
+    in f32 H's h1 equal to kernel C's output bit for bit for the
+    same alpha, f32 projection and seeds (the same Philox mask); the mask
+    equal to the plain selection's."""
     for label, b, k, m, n, d1, d2 in BLOCK_SHAPES:
         adj, pseudo, feats, w1cat, w2cat, gp1, gp2, seeds = block_inputs(
             b, k, m, gen, dev, n, d1, d2)
+        if n == 1:
+            # the shape holds the cancellation of every pseudo and gparams
+            # term where ghat is 1: precisions from [0.5, 1) keep each
+            # edge's single Gaussian above the 1e-20 clamp (from [0, 1) it
+            # fell below it on every edge: nothing left to cancel)
+            for gp in (gp1, gp2):
+                gp[2:] = 0.5 + 0.5 * gp[2:]
         g = torch.randn(b, k, w2cat.shape[1], generator=gen).to(dev)
         for dtype, tol_h, tol_i in ((torch.float32, 1e-5, 1e-5),
                                     (torch.bfloat16, 1e-2, 1e-2)):
@@ -2449,10 +2508,17 @@ def check_graph_block(dev, gen, errs):
                                     m, DROPOUT, out=nan)
             ref = graph_block_fwd_reference(adj, pseudo, x, w1, w2, gp1, gp2,
                                             seeds, m, DROPOUT)
-            grads = graph_block_bwd(g, res, pseudo, x, w1, w2, gp1, gp2,
-                                    DROPOUT, need_dfeats=True)
-            ref_g = graph_block_bwd_reference(g, res, pseudo, x, w1, w2, gp1,
-                                              gp2, DROPOUT, need_dfeats=True)
+            bargs = (g, res, pseudo, x, w1, w2, gp1, gp2, DROPOUT)
+            pick_i = projection_products(
+                lambda: graph_block_bwd(*bargs, need_dfeats=True))
+            require(pick_i == want_pick,
+                    f"kernel I launched products {pick_i} at {label} "
+                    f"{dtype}, not {want_pick}")
+            grads = graph_block_bwd(*bargs, need_dfeats=True)
+            nan_g = BlockGrads(*(torch.full_like(t, float("nan"))
+                                 for t in grads))
+            rerun_g = graph_block_bwd(*bargs, need_dfeats=True, out=nan_g)
+            ref_g = graph_block_bwd_reference(*bargs, need_dfeats=True)
             torch.cuda.synchronize()
             e_h = {f: norm_err(x_, y) for f, x_, y in zip(res._fields, res,
                                                            ref)}
@@ -2460,6 +2526,18 @@ def check_graph_block(dev, gen, errs):
             same_mask = torch.equal(res.mask, ref.mask)
             same_dense = all(torch.equal(p, q) for p, q in zip(res, dense))
             same_nan = all(torch.equal(p, q) for p, q in zip(res, rerun))
+            same_nan_i = all(torch.equal(p, q) for p, q in zip(grads,
+                                                                 rerun_g))
+            # n = 1: on every edge whose Gaussian clears the 1e-20 clamp in
+            # both convs, ghat is 1 and each pseudo term cancels exactly (the
+            # kernel rounds the cross term as the plain version does); an
+            # edge below the clamp has ghat = w / 1e-20 and a true, nonzero
+            # gradient, summed into dgp in another order than the plain one
+            clear = (res.den1 > 1e-20) & (res.den2 > 1e-20)
+            cancels = bool((grads.dpseudo[clear] == 0).all()
+                           and (ref_g.dpseudo[clear] == 0).all())
+            exact = {f: float((getattr(grads, f) - getattr(ref_g, f)).abs()
+                              .max()) for f in ("dpseudo", "dgp1", "dgp2")}
             print(f"kernel H {label} B={b} K={k} m={m} n={n} "
                   f"d1={w1.shape[1] // n} d2={w2.shape[1] // n} "
                   f"{str(dtype)[6:]} dropout {DROPOUT}, projections "
@@ -2467,15 +2545,27 @@ def check_graph_block(dev, gen, errs):
                   + ", ".join(f"{f} {e:.2e}" for f, e in e_h.items())
                   + f" (<= {tol_h}); mask equal {same_mask}; contiguous "
                   f"feats equal bit for bit {same_dense}; NaN-filled rerun "
-                  f"equal bit for bit {same_nan}; kernel I "
+                  f"equal bit for bit {same_nan}; kernel I, products "
+                  f"{'/'.join(sorted(pick_i))}: "
                   f"dadj/dpseudo/dfeats/dW1/dW2/dgp1/dgp2 "
                   + "/".join(f"{e:.2e}" for e in e_i)
-                  + f" (<= {tol_i})", flush=True)
+                  + f" (<= {tol_i}); NaN-filled rerun equal bit for bit "
+                  f"{same_nan_i}; max abs difference of dpseudo/dgp1/dgp2 "
+                  + "/".join(f"{e:.3e}" for e in exact.values())
+                  + (f"; n = 1: dpseudo exactly 0 in kernel and plain on the "
+                     f"{int(clear.sum())} edges above the clamp {cancels} "
+                     f"({int((~clear).sum())} below it)"
+                     if label == "n=1" else ""), flush=True)
             require(same_mask and max(e_h.values()) <= tol_h,
                     f"kernel H {label} {dtype} disagrees")
             require(same_dense and same_nan,
                     f"kernel H {label} {dtype} is not repeatable")
             require(max(e_i) <= tol_i, f"kernel I {label} {dtype} disagrees")
+            require(same_nan_i, f"kernel I {label} {dtype} is not repeatable")
+            require(label != "n=1" or (cancels and bool(clear.all())
+                                       and max(exact.values()) == 0),
+                    f"kernel I's n = 1 pseudo and gparams gradients do not "
+                    f"cancel: {exact}")
             if label == "vqa" and dtype == torch.bfloat16:
                 errs["graph_block_fwd"] = max(
                     float((x_.float() - y.float()).abs().max())
@@ -2501,6 +2591,7 @@ def check_graph_block(dev, gen, errs):
             require(torch.equal(c_out, res.h1) and mismatched == 0,
                     "kernel H's dropout differs from kernel C's")
         del adj, pseudo, feats, w1cat, w2cat, res, dense, rerun, ref, grads
+        del rerun_g, nan_g, bargs
         torch.cuda.empty_cache()
 
 
@@ -2565,32 +2656,42 @@ def kernel_rows(fn, n=10):
     return sorted(rows, reverse=True)
 
 
-def time_projections(dev, gen, b, x):
-    """H's two products at B*K rows: the wgmma product in each of
-    WGMMA_TILES (proj1 from the padded view x), tile_gemm (its
-    contiguous operands) and one torch.mm of the same bf16 operands (f32
-    out), beside the bound."""
+def time_products(dev, gen, b, x):
+    """The block's six products at B*K rows (H's two NN, I's TN dW2 and
+    dW1 and NT dh1 and dfeats): the wgmma product in each of WGMMA_TILES
+    (proj1 and dW1 from the padded view x; dh1 through I's gate, dfeats
+    storing bf16), tile_gemm (contiguous operands, the same epilogue) and
+    one torch.mm of the same bf16 operands (f32 out, no epilogue), beside
+    the bound."""
     bf = torch.bfloat16
     out = {}
-    for label, _, sa, sb in block_gemm_shapes(b)[:2]:
-        a_ = (x.reshape(-1, x.shape[-1]) if label.startswith("proj1")
+    for label, layout, sa, sb in block_gemm_shapes(b):
+        a_ = (x.reshape(-1, x.shape[-1]) if label.startswith(("proj1", "dW1"))
               else torch.randn(*sa, generator=gen).to(dev, bf))
         a_dense = a_.contiguous()
         b_ = torch.randn(*sb, generator=gen).to(dev, bf)
-        mm, kk = sa
-        nn = sb[1]
+        mm, kk = (sa[1], sa[0]) if layout == "tn" else sa
+        nn = sb[0] if layout == "nt" else sb[1]
+        ep = ("gate", torch.randn(mm, nn, generator=gen).to(dev, bf),
+              1.0 / (1.0 - DROPOUT)) if label.startswith("dh1") else (
+            ("operand", None, 1.0) if label.startswith("dfeats")
+            else ("f32", None, 1.0))
         t = {f"wgmma_{bm}x{bn}_ms": time_device_ms(
-            lambda tile=(bm, bn): wgmma_gemm(a_, b_, tile))
+            lambda tile=(bm, bn): wgmma_gemm(a_, b_, tile, layout, *ep))
              for bm, bn in WGMMA_TILES}
-        t["tile_gemm_ms"] = time_device_ms(lambda: tile_gemm(a_dense, b_))
-        t["library_ms"] = time_device_ms(lambda: library_mm(a_, b_, "nn"))
+        t["tile_gemm_ms"] = time_device_ms(
+            lambda: tile_gemm(a_dense, b_, layout, *ep))
+        t["library_ms"] = time_device_ms(lambda: library_mm(a_, b_, layout))
+        out_bytes = (2 if ep[0] == "operand" else 4) * mm * nn
         t["bound_ms"], t["bound_by"] = bound(
-            2 * (a_.numel() + b_.numel()) + 4 * mm * nn,
+            2 * (a_.numel() + b_.numel()) + out_bytes
+            + (2 * mm * nn if ep[0] == "gate" else 0),
             2 * mm * nn * kk / PEAK_FLOPS[bf])
         t["wgmma_tflops"] = {
             f"{bm}x{bn}": 2 * mm * nn * kk / t[f"wgmma_{bm}x{bn}_ms"] / 1e9
             for bm, bn in WGMMA_TILES}
-        out[f"{label} ({mm}x{nn}x{kk})"] = t
+        out[f"{layout} {label} ({mm}x{nn}x{kk})"] = t
+        del a_, a_dense, b_, ep
     return out
 
 
@@ -2598,12 +2699,11 @@ def time_graph_block(dev, gen, counts, errs):
     """Phase 6, the merged block's part: H and I at B=64 (the main path)
     and 256, beside their plain versions and bounds, H with feats as the
     model hands them (a view of padded rows) and as a contiguous
-    2052-wide tensor (the wrapper's padded copy in its time), H's
-    launches one by one; H's two products beside torch.mm and tile_gemm;
-    the hand GEMM at the block's six products beside one torch.mm each;
-    the merged block's forward + backward beside the unmerged one
-    (cuBLAS projections + C + D, selection by masked_neighbourhood) in
-    turns."""
+    2052-wide tensor (the wrapper's padded copy in its time), H's and
+    I's launches one by one; the block's six products on the wgmma
+    product in every tile beside tile_gemm and one torch.mm each; the
+    merged block's forward + backward beside the unmerged one (cuBLAS
+    projections + C + D, selection by masked_neighbourhood) in turns."""
     entries, detail = [], {}
     bf = torch.bfloat16
     n = FULL["n_kernels"]
@@ -2626,25 +2726,17 @@ def time_graph_block(dev, gen, counts, errs):
                   lambda: graph_block_bwd_reference(
                       *bargs, need_dfeats=False),
                   *block_vjp_bound(x, w1, w2, n, False))
+        i["launches_ms"] = kernel_rows(
+            lambda: graph_block_bwd(*bargs, need_dfeats=False))
         i_dfeats = time_device_ms(lambda: graph_block_bwd(*bargs))
-        gemms = {}
-        for label, layout, sa, sb in block_gemm_shapes(b):
-            a_ = torch.randn(*sa, generator=gen).to(dev, bf)
-            b_ = torch.randn(*sb, generator=gen).to(dev, bf)
-            mm, kk = (sa[1], sa[0]) if layout == "tn" else sa
-            nn = sb[0] if layout == "nt" else sb[1]
-            t = dict(ms=time_device_ms(lambda: tile_gemm(a_, b_, layout)),
-                     library_ms=time_device_ms(
-                         lambda: library_mm(a_, b_, layout)))
-            t["bound_ms"], t["bound_by"] = bound(
-                2 * (a_.numel() + b_.numel()) + 4 * mm * nn,
-                2 * mm * nn * kk / PEAK_FLOPS[bf])
-            t["tflops"] = 2 * mm * nn * kk / t["ms"] / 1e9
-            gemms[f"{layout} {label} ({mm}x{nn}x{kk})"] = t
+        products = time_products(dev, gen, b, x)
+        # I's products in one torch.mm each (without dfeats: the model's)
+        i["products_library_ms"] = sum(
+            t["library_ms"] for key, t in products.items()
+            if key.split()[1] in ("dW2", "dh1", "dW1"))
         detail[f"B={b}"] = {"graph_block_fwd": h, "graph_block_bwd": i,
                             "graph_block_bwd_with_dfeats_ms": i_dfeats,
-                            "projections": time_projections(dev, gen, b, x),
-                            "tile_gemm": gemms,
+                            "products": products,
                             "block_fwd_bwd": block_fwd_bwd(
                                 dev, gen, b, adj, pseudo, x, seeds, g)}
         if b == TRAIN_B:
@@ -2653,15 +2745,16 @@ def time_graph_block(dev, gen, counts, errs):
         del res, fargs, bargs
         torch.cuda.empty_cache()
     print("merged block timing detail (bf16, dropout 0.5, device times "
-          "behind a sleep kernel; H = 5 launches (launches_ms: each "
-          "kernel's device ms per call, torch.profiler), feats a view of "
-          "rows padded to 2056 (contiguous_feats_ms: a contiguous "
-          "2052-wide feats, the wrapper's padded copy included); I without "
-          "dfeats = 7 launches, with = 8; projections = H's wgmma product "
-          "in each BM x BN tile (0x0 = the rule's pick) beside tile_gemm and "
-          "one torch.mm "
-          "(library); tile_gemm = kernel I's hand GEMM at the block's six "
-          "products, library = one torch.mm, bf16 operands, f32 out; "
+          "behind a sleep kernel; H = 5 launches, I without dfeats = 7 "
+          "launches and the partials' two sums, with = 8 (launches_ms: "
+          "each kernel's device ms per call, torch.profiler), feats a view "
+          "of rows padded to 2056 (contiguous_feats_ms: a contiguous "
+          "2052-wide feats, the wrapper's padded copy included); "
+          "products_library_ms = I's dW2, dh1 and dW1 in one torch.mm each; "
+          "products = the block's six products on the wgmma product in "
+          "each BM x BN tile (0x0 = the rule's pick) beside tile_gemm and "
+          "one torch.mm (library), bf16 operands, f32 out, dh1 through I's "
+          "gate and dfeats stored bf16 (torch.mm without them); "
           "block_fwd_bwd = forward + backward of both convs, merged vs "
           "unmerged, CUDA events back to back and device time, run "
           "unmerged, merged, merged, unmerged): " + json.dumps(detail),

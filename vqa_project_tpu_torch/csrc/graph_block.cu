@@ -40,7 +40,7 @@
 // (2) in the same launch, the selection, a warp per adjacency row: the
 //     pairwise rank gives the mask, and its softmax alpha;
 // (3) proj1: with bf16 operands that meet TMA's rules (row strides that
-//     are multiples of 8 elements, rows on 16 bytes; wgmma_fits) the
+//     are multiples of 8 elements, rows on 16 bytes; wgmma_gemm::fits) the
 //     wgmma + TMA product of wgmma_gemm.cuh, feats read by its row stride
 //     ldf (the model hands over a 2052-wide view of rows padded to 2056);
 //     f32 operands take tile_gemm.cuh's exact SIMT product, the parity
@@ -349,23 +349,18 @@ cudaError_t launch_conv(const ConvArgs& a, int B, cudaStream_t s) {
   }
 }
 
-// whether wgmma_gemm.cuh takes A (row stride lda) @ B (row stride ldb):
-// TMA reads rows at strides that are multiples of 16 bytes from 16-byte
-// aligned starts
-inline bool wgmma_fits(const void* A, int lda, const void* B, int ldb) {
-  return lda % 8 == 0 && ldb % 8 == 0 &&
-         reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(B) % 16 == 0;
-}
-
 // C (M, N) f32 = A (M, K), row stride lda, @ B (K, N), row stride N: on
-// wgmma where the operands are bf16 and fit it, else tile_gemm's product
+// wgmma where the operands are bf16 and fit it (wgmma_gemm::fits), else
+// tile_gemm's product
 template <typename T>
 cudaError_t project(const T* A, int lda, const T* B, float* C, int M, int N,
                     int K, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    if (wgmma_fits(A, lda, B, N))
-      return wgmma_gemm::gemm_nn(A, lda, B, N, C, N, M, N, K, 0, 0, s);
+    if (wgmma_gemm::fits(A, lda, B, N))
+      return wgmma_gemm::gemm<wgmma_gemm::kNN>(
+          A, lda, B, N,
+          wgmma_gemm::Epilogue{wgmma_gemm::kStoreF32, C, N, nullptr, 1.f}, M,
+          N, K, 0, 0, s);
   return tile_gemm::gemm<T>(
       tile_gemm::kNN, A, B, M, N, K, lda, N,
       tile_gemm::Epilogue<T>{tile_gemm::kStoreF32, C, N, nullptr, 1.f}, s);
@@ -435,8 +430,9 @@ cudaError_t run(const void* adj, const void* pseudo, const void* feats,
 // den2 (B, K, K); pseudo (B, K, K, 2); gp1, gp2 (4, n); ghat1, ghat2 (B,
 // n, K, K); the projections proj1 (B*K, n*d1) and proj2 (B*K, n*d2),
 // which the backward reads. seeds (B,) int32 or null (no dropout). Each
-// projection runs on wgmma where its operands fit (bf16, wgmma_fits), else
-// on tile_gemm.cuh. Needs K <= 64, n <= 32, d2 <= d1. Five launches.
+// projection runs on wgmma where its operands fit (bf16,
+// wgmma_gemm::fits), else on tile_gemm.cuh. Needs K <= 64, n <= 32, d2
+// <= d1. Five launches.
 // Returns cudaError_t.
 extern "C" int graph_block_fwd(const void* adj, const void* pseudo,
                                const void* feats, const void* w1cat,
@@ -468,17 +464,35 @@ extern "C" int graph_block_fwd(const void* adj, const void* pseudo,
   return static_cast<int>(e);
 }
 
-// The bare wgmma product of wgmma_gemm.cuh: C (M, N) f32, row stride ldc,
-// = A (M, K) @ B (K, N), bf16, row strides lda and ldb (multiples of 8);
-// the tile bm x bn one of 128 x 128, 128 x 256, 192 x 192, or 0 x 0 for
-// the rule kernel H uses. One launch. Returns cudaError_t.
-extern "C" int wgmma_gemm_run(const void* A, const void* B, void* C, int M,
-                              int N, int K, int lda, int ldb, int ldc, int bm,
-                              int bn, void* stream) {
-  return static_cast<int>(wgmma_gemm::gemm_nn(
-      static_cast<const __nv_bfloat16*>(A), lda,
-      static_cast<const __nv_bfloat16*>(B), ldb, static_cast<float*>(C), ldc,
-      M, N, K, bm, bn, static_cast<cudaStream_t>(stream)));
+// The bare wgmma product of wgmma_gemm.cuh: C (M, N), row stride ldc, =
+// op(A) op(B), bf16, row strides lda and ldb (multiples of 8); layout 0 =
+// NN, 1 = NT, 2 = TN and epilogue 0 = store f32, 1 = store bf16, 2 = f32
+// gated by `gate` (bf16, row stride ldc) as tile_gemm_run's; the tile bm
+// x bn one of 128 x 128, 128 x 256, 192 x 192, or 0 x 0 for the rule
+// kernels H and I use. One launch. Returns cudaError_t.
+extern "C" int wgmma_gemm_run(const void* A, const void* B, void* C,
+                              const void* gate, int M, int N, int K, int lda,
+                              int ldb, int ldc, int layout, int epilogue,
+                              float scale, int bm, int bn, void* stream) {
+  const auto* a = static_cast<const __nv_bfloat16*>(A);
+  const auto* b = static_cast<const __nv_bfloat16*>(B);
+  const wgmma_gemm::Epilogue ep{epilogue, C, ldc,
+                                static_cast<const __nv_bfloat16*>(gate),
+                                scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (layout == wgmma_gemm::kNN)
+    e = wgmma_gemm::gemm<wgmma_gemm::kNN>(a, lda, b, ldb, ep, M, N, K, bm,
+                                          bn, s);
+  else if (layout == wgmma_gemm::kNT)
+    e = wgmma_gemm::gemm<wgmma_gemm::kNT>(a, lda, b, ldb, ep, M, N, K, bm,
+                                          bn, s);
+  else if (layout == wgmma_gemm::kTN)
+    e = wgmma_gemm::gemm<wgmma_gemm::kTN>(a, lda, b, ldb, ep, M, N, K, bm,
+                                          bn, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 // The bare product C = op(A) op(B) of tile_gemm.cuh: layout 0 = NN, 1 =

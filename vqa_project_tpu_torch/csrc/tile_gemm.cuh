@@ -1,10 +1,10 @@
-// Tiled matrix products written by hand for Hopper (sm_90a): every
-// product of the merged graph block's backward (graph_block_bwd.cu,
-// kernel I, which replaces vqa_project_tpu/ops/pallas/graph_block.py::
-// _block_bwd_kernel), the forward's projections (kernel H, graph_block.cu)
-// with f32 operands and at bf16 widths that wgmma_gemm.cuh does not take,
-// and the bare product graph_block.cu exports as tile_gemm_run. Kernel H's
-// bf16 projections run on wgmma_gemm.cuh.
+// Tiled matrix products written by hand for Hopper (sm_90a): the
+// products of the merged graph block (kernel H, graph_block.cu, and its
+// backward, kernel I, graph_block_bwd.cu, which replaces
+// vqa_project_tpu/ops/pallas/graph_block.py::_block_bwd_kernel) with f32
+// operands and at bf16 widths that wgmma_gemm.cuh does not take, and the
+// bare product graph_block.cu exports as tile_gemm_run. H's and I's bf16
+// products whose operands fit TMA run on wgmma_gemm.cuh.
 //
 // C (M, N) = op(A) op(B), all operands row-major, in three layouts:
 //   kNN  A (M, K),  B (K, N):  x @ W
@@ -31,8 +31,8 @@
 // (M = B*K = 2304 at B=64, N and K up to 2052) operations, ~2 x 10^10
 // flops against a few tens of MB. wmma with register-staged loads does
 // not reach the tensor cores' rate (PERF.md has its times beside
-// torch.mm); moving kernel I's NT and TN products onto wgmma is the next
-// step, as kernel H's NN products have moved.
+// torch.mm and wgmma_gemm.cuh's), which is why the bf16 products that fit
+// TMA no longer come here.
 
 #pragma once
 

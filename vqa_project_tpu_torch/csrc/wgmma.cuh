@@ -2,7 +2,7 @@
 // by TMA: mbarriers, 2-D TMA loads into 128-byte-swizzled shared tiles,
 // wgmma shared-memory descriptors, the m64n{128,192,256}k16 bf16 wgmmas,
 // and the host-side tensor map. Used by gru_wgrad.cu (kernel E's weight
-// gradient) and wgmma_gemm.cuh (kernel H's projections).
+// gradient) and wgmma_gemm.cuh (kernels H's and I's products).
 //
 // Tile layout. A 2-D TMA box of 64 (inner, 128 bytes of bf16) x rows
 // (outer) with CU_TENSOR_MAP_SWIZZLE_128B lands as `rows` rows of 128

@@ -41,7 +41,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signature of each library's entry points (all return cudaError_t,
-# except edge_aggregate_bwd_tiles, a count)
+# except edge_aggregate_bwd_tiles and graph_block_bwd_groups, counts)
 _SIGNATURES = {
     "edge_aggregate": {
         "edge_aggregate_fwd": [_P] * 6 + [_I] * 7 + [_P],
@@ -58,9 +58,10 @@ _SIGNATURES = {
     "graph_block": {
         "graph_block_fwd": [_P] * 18 + [_I] * 8 + [_U, _F, _I, _P],
         "tile_gemm_run": [_P] * 4 + [_I] * 9 + [_F, _P],
-        "wgmma_gemm_run": [_P] * 3 + [_I] * 8 + [_P],
+        "wgmma_gemm_run": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
     },
     "graph_block_bwd": {
+        "graph_block_bwd_groups": [_I],
         "graph_block_bwd": [_P] * 28 + [_I] * 7 + [_F, _I, _P],
     },
     "gru_scan": {

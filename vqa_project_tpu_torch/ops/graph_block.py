@@ -16,14 +16,15 @@ tensors:
 - I, ``csrc/graph_block_bwd.cu::graph_block_bwd`` (``graph_block_bwd``):
   its hand-derived VJP.
 
-H runs each of its two projections, where the operands are bf16 with
-rows at strides that are multiples of 8 elements from 16-byte aligned
-starts, on the wgmma + TMA product of ``csrc/wgmma_gemm.cuh`` (exported
-bare as ``wgmma_gemm``); its other projections (f32, the exact parity
-path, and other widths), and I for every product, run on the
-hand-written GEMM of ``csrc/tile_gemm.cuh`` (bf16 on the tensor cores
-through wmma, exact f32 FMAs for f32), exported bare as ``tile_gemm``.
-``graph_block.cu`` makes that choice (``wgmma_fits``).
+Both run each product whose operands are bf16 with rows at strides that
+are multiples of 8 elements from 16-byte aligned starts on the wgmma +
+TMA product of ``csrc/wgmma_gemm.cuh`` (NN for H's projections, TN for
+I's weight gradients, NT for I's g1 and dfeats; exported bare as
+``wgmma_gemm``); their other products (f32, the exact parity path, and
+other widths) run on the hand-written GEMM of ``csrc/tile_gemm.cuh``
+(bf16 on the tensor cores through wmma, exact f32 FMAs for f32),
+exported bare as ``tile_gemm``. The kernels make that choice
+(``wgmma_gemm::fits``).
 
 TMA reads rows whose stride is a multiple of 16 bytes, so both kernels
 take feats as B*K rows of F1 at a row stride that is a multiple of 8
@@ -191,36 +192,52 @@ def tile_gemm(a: torch.Tensor, b: torch.Tensor, layout: str = "nn",
 tile_gemm.launches = 0
 
 
-def wgmma_gemm(a: torch.Tensor, b: torch.Tensor, tile=(0, 0)
-               ) -> torch.Tensor:
-    """C (M, N) f32 = a (M, K) @ b (K, N), bf16, in kernel H's wgmma + TMA
-    product. a may be a view whose rows lie at a stride that is a
-    multiple of 8 (b contiguous). Its plain version is
-    ``tile_gemm_reference``.
+def wgmma_gemm(a: torch.Tensor, b: torch.Tensor, tile=(0, 0),
+               layout: str = "nn", epilogue: str = "f32",
+               gate: Optional[torch.Tensor] = None,
+               scale: float = 1.0) -> torch.Tensor:
+    """C = op(a) op(b) in kernels H's and I's wgmma + TMA product, bf16
+    operands, f32 sums, in ``tile_gemm``'s layouts ("nn", "nt", "tn")
+    and epilogues ("f32"; "operand" = bf16 and "gate" in "nt", kernel
+    I's dfeats and g1, only). a and b may be
+    views whose rows lie at a stride that is a multiple of 8 elements.
+    Its plain version is ``tile_gemm_reference``.
 
     ``tile`` (BM, BN) = (128, 128), (128, 256) or (192, 192) forces a
-    tile; (0, 0), what kernel H always takes, is ``pick_tile``'s choice
-    (``csrc/wgmma_gemm.cuh``). The forced tiles exist so that
-    chip_smoke.py can time every tile beside the pick at H's shapes: the
-    evidence for the rule's weights."""
+    tile; (0, 0), what kernels H and I always take, is ``pick_tile``'s
+    choice (``csrc/wgmma_gemm.cuh``). The forced tiles and this bare
+    entry exist so that chip_smoke.py can check and time every tile of
+    each layout beside the pick at the block's shapes."""
     if a.device.type == "cpu":
-        return tile_gemm_reference(a, b)
+        return tile_gemm_reference(a, b, layout, epilogue, gate, scale)
+    if layout not in _LAYOUTS or epilogue not in _EPILOGUES:
+        raise ValueError(f"layout {layout!r} / epilogue {epilogue!r}")
+    if epilogue != "f32" and layout != "nt":
+        raise ValueError("wgmma_gemm takes the gate and operand epilogues "
+                         "in the nt layout only")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"wgmma_gemm takes bfloat16 operands, got "
                         f"{a.dtype} and {b.dtype}")
     if a.dim() != 2 or b.dim() != 2 or b.device != a.device:
         raise ValueError("wgmma_gemm takes two 2-D tensors on one device")
-    if a.stride(1) != 1 or not b.is_contiguous():
-        raise ValueError("a's rows and b must be contiguous")
-    m, k = a.shape
-    if b.shape[0] != k:
-        raise ValueError(f"inner sizes differ: {k} and {b.shape[0]}")
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if a.stride(1) != 1 or b.stride(1) != 1:
+        raise ValueError("a's and b's rows must be contiguous")
+    m, k = (a.shape[1], a.shape[0]) if layout == "tn" else tuple(a.shape)
+    n, kb = (b.shape[0], b.shape[1]) if layout == "nt" else (b.shape[1],
+                                                             b.shape[0])
+    if k != kb:
+        raise ValueError(f"inner sizes differ: {k} and {kb}")
+    out = torch.empty((m, n), device=a.device,
+                      dtype=a.dtype if epilogue == "operand"
+                      else torch.float32)
+    if epilogue == "gate":
+        _check_like("gate", gate, (m, n), a.dtype, a.device)
     lib = _build.load("graph_block")
-    rc = lib.wgmma_gemm_run(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-                            n, k, a.stride(0), n, n, *tile,
-                            torch.cuda.current_stream(a.device).cuda_stream)
+    rc = lib.wgmma_gemm_run(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        gate.data_ptr() if epilogue == "gate" else None, m, n, k,
+        a.stride(0), b.stride(0), n, _LAYOUTS[layout], _EPILOGUES[epilogue],
+        float(scale), *tile, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "wgmma_gemm_run")
     wgmma_gemm.launches += 1
     return out
@@ -419,14 +436,26 @@ graph_block_fwd.launches = 0
 # ---------------- kernel I ----------------
 
 
+class BlockGrads(NamedTuple):
+    """Kernel I's outputs: the merged block's gradients in the kernels'
+    layout."""
+
+    dadj: torch.Tensor                # (B, K, K) f32
+    dpseudo: torch.Tensor             # (B, K, K, 2) f32
+    dfeats: Optional[torch.Tensor]    # (B, K, F1) compute dtype, or None
+    dw1cat: torch.Tensor              # (F1, n*d1) f32
+    dw2cat: torch.Tensor              # (n*d1, n*d2) f32
+    dgp1: torch.Tensor                # (4, n) f32
+    dgp2: torch.Tensor                # (4, n) f32
+
+
 def graph_block_bwd_reference(g, res: BlockResiduals, pseudo, feats, w1cat,
                               w2cat, gp1, gp2, dropout_rate: float = 0.0,
-                              need_dfeats: bool = True):
-    """Plain version of kernel I: (dadj, dpseudo, dfeats or None, dW1cat,
-    dW2cat, dgp1, dgp2), the hand VJP of kernel H from its residuals.
-    Each conv's aggregation backward is kernel D's plain version; the
-    per-conv dproj is rounded once to the compute dtype before the
-    products, which sum in f32."""
+                              need_dfeats: bool = True) -> BlockGrads:
+    """Plain version of kernel I: the hand VJP of kernel H from its
+    residuals. Each conv's aggregation backward is kernel D's plain
+    version; the per-conv dproj is rounded once to the compute dtype
+    before the products, which sum in f32."""
     b, k, _ = feats.shape
     cdt = feats.dtype
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
@@ -445,19 +474,31 @@ def graph_block_bwd_reference(g, res: BlockResiduals, pseudo, feats, w1cat,
     dw1cat = tile_gemm_reference(feats.reshape(b * k, -1), dp1, "tn")
     dfeats = (tile_gemm_reference(dp1, w1cat, "nt", "operand").reshape(
         feats.shape) if need_dfeats else None)
-    return dadj, dpseudo2 + dpseudo1, dfeats, dw1cat, dw2cat, dgp1, dgp2
+    return BlockGrads(dadj, dpseudo2 + dpseudo1, dfeats, dw1cat, dw2cat,
+                      dgp1, dgp2)
 
 
 def graph_block_bwd(g, res: BlockResiduals, pseudo, feats, w1cat, w2cat,
                     gp1, gp2, dropout_rate: float = 0.0,
-                    need_dfeats: bool = True):
+                    need_dfeats: bool = True,
+                    out: Optional[BlockGrads] = None) -> BlockGrads:
     """Kernel I on CUDA tensors (up to eight launches), its plain version
     on CPU tensors: the gradients as ``graph_block_bwd_reference``
-    returns them, g (B, K, n*d2) float32; feats as kernel H took it."""
+    returns them, g (B, K, n*d2) float32; feats as kernel H took it.
+    ``out``, gradients of the shapes and dtypes of ``BlockGrads`` (dfeats
+    None unless asked for), is written and returned instead of new
+    ones."""
     feats, ldf = feats_rows(feats)
     if feats.device.type == "cpu":
-        return graph_block_bwd_reference(g, res, pseudo, feats, w1cat, w2cat,
-                                         gp1, gp2, dropout_rate, need_dfeats)
+        grads = graph_block_bwd_reference(g, res, pseudo, feats, w1cat,
+                                          w2cat, gp1, gp2, dropout_rate,
+                                          need_dfeats)
+        if out is None:
+            return grads
+        for t, x in zip(out, grads):
+            if x is not None:
+                t.copy_(x)
+        return out
     dev, cdt = feats.device, feats.dtype
     b, k, f1 = feats.shape
     n = gp1.shape[1]
@@ -482,20 +523,38 @@ def graph_block_bwd(g, res: BlockResiduals, pseudo, feats, w1cat, w2cat,
     _check_like("pseudo", pseudo, (b, k, k, 2), f32, dev)
     _check_like("gp1", gp1, (4, n), f32, dev)
     _check_like("gp2", gp2, (4, n), f32, dev)
+    shapes = BlockGrads(
+        dadj=((b, k, k), f32), dpseudo=((b, k, k, 2), f32),
+        dfeats=((b, k, f1), cdt), dw1cat=((f1, n * d1), f32),
+        dw2cat=((n * d1, n * d2), f32), dgp1=((4, n), f32),
+        dgp2=((4, n), f32))
+    if out is None:
+        def empty(name):
+            shape, dt = getattr(shapes, name)
+            return torch.empty(shape, dtype=dt, device=dev)
+
+        # dgp1 and dgp2 are the partials' sums, made below
+        grads = BlockGrads(empty("dadj"), empty("dpseudo"),
+                           empty("dfeats") if need_dfeats else None,
+                           empty("dw1cat"), empty("dw2cat"), None, None)
+    else:
+        if (out.dfeats is not None) != need_dfeats:
+            raise ValueError("out.dfeats must be given exactly when "
+                             "need_dfeats is")
+        for name, t, (shape, dt) in zip(BlockGrads._fields, out, shapes):
+            if t is not None:
+                _check_like(name, t, shape, dt, dev)
+        grads = out
     lib = _build.load("graph_block_bwd")
     f32d = dict(dtype=f32, device=dev)
     ge = torch.empty((b, n, k, k), **f32d)
     dp2 = torch.empty((b * k, n * d2), dtype=cdt, device=dev)
     g1 = torch.empty((b * k, n * d1), **f32d)
     dp1 = torch.empty((b * k, n * d1), dtype=cdt, device=dev)
-    dadj = torch.empty((b, k, k), **f32d)
-    dpseudo = torch.empty((b, k, k, 2), **f32d)
-    dfeats = (torch.empty((b, k, f1), dtype=cdt, device=dev)
-              if need_dfeats else None)
-    dw1cat = torch.empty((f1, n * d1), **f32d)
-    dw2cat = torch.empty((n * d1, n * d2), **f32d)
-    dgp1 = torch.empty((b, 4, n), **f32d)
-    dgp2 = torch.empty((b, 4, n), **f32d)
+    # conv2's and conv1's (4, n) gparams partials, one column per image
+    # and row group of the edge part
+    parts = torch.empty((2, 4, n, b * lib.graph_block_bwd_groups(k)),
+                        **f32d)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     rc = lib.graph_block_bwd(
         g.data_ptr(), res.out.data_ptr(), res.h1.data_ptr(),
@@ -504,16 +563,21 @@ def graph_block_bwd(g, res: BlockResiduals, pseudo, feats, w1cat, w2cat,
         res.mask.data_ptr(), res.ghat1.data_ptr(), res.ghat2.data_ptr(),
         res.den1.data_ptr(), res.den2.data_ptr(), pseudo.data_ptr(),
         gp1.data_ptr(), gp2.data_ptr(), ge.data_ptr(), dp2.data_ptr(),
-        g1.data_ptr(), dp1.data_ptr(), dadj.data_ptr(), dpseudo.data_ptr(),
-        dfeats.data_ptr() if need_dfeats else None, dw1cat.data_ptr(),
-        dw2cat.data_ptr(), dgp1.data_ptr(), dgp2.data_ptr(), b, k, f1, ldf,
-        n, d1, d2, inv_keep, _DTYPE_CODE[cdt],
-        torch.cuda.current_stream(dev).cuda_stream)
+        g1.data_ptr(), dp1.data_ptr(), grads.dadj.data_ptr(),
+        grads.dpseudo.data_ptr(),
+        grads.dfeats.data_ptr() if need_dfeats else None,
+        grads.dw1cat.data_ptr(), grads.dw2cat.data_ptr(),
+        parts[1].data_ptr(), parts[0].data_ptr(), b, k, f1, ldf, n, d1, d2,
+        inv_keep, _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "graph_block_bwd")
     graph_block_bwd.launches += 1
-    # the per-image partials, summed in a fixed order (no atomics)
-    return (dadj, dpseudo, dfeats, dw1cat, dw2cat, dgp1.sum(dim=0),
-            dgp2.sum(dim=0))
+    # the partials, summed along their rows in a fixed order (no atomics)
+    dgp = parts.sum(dim=-1)
+    if out is None:
+        return grads._replace(dgp1=dgp[1], dgp2=dgp[0])
+    grads.dgp1.copy_(dgp[1])
+    grads.dgp2.copy_(dgp[0])
+    return grads
 
 
 graph_block_bwd.launches = 0
