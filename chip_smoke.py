@@ -63,15 +63,22 @@ Phases, in order; the first failure exits non-zero:
     65, 257 a run into outputs filled with NaN (-128 for an int8 copy)
     first; G
     on the (N, 36, 4) boxes and odd row shapes at B in {1, 16, 33, 64,
-    256}; rows 0 and N-1, duplicates and clamped -1 / N;
+    256}; rows 0 and N-1, duplicates and clamped -1 / N; the image
+    gather (G's redesign, one launch writing the node rows feat||bbox
+    and the f32 boxes) against its plain version bit for bit, on the
+    VQA v2-size bf16 and int8 tables and at N=4096 in f32, at K = 36
+    and 51, for every (table, node) dtype pair (bf16 and f32 nodes from
+    bf16, f32 and int8 tables), contiguous and padded rows, at every B
+    above, into NaN-filled buffers whose pad columns must come back 0,
+    and on shapes that take its element-wise variant;
 11. training with the device cache, the main path: fit() as in phase 9
     but with the bf16 feature cache, index batches and a resident
-    mini-validation; per step F 1, G 1, C 2, D 2, B 1, E 1 + 1, A 0,
-    and step 1's loss equal to phase 9's bit for bit;
+    mini-validation; per step the image gather 1, F 0, G 0, C 2, D 2,
+    B 1, E 1 + 1, A 0, and step 1's loss equal to phase 9's bit for bit;
 12. evaluate() to result.json with phase 11's model: val through the
-    cache (resident) and through host mode (streaming) give the same
-    result list; the unannotated test split; collect_adjacency; an int8
-    cache;
+    cache (resident, one image gather per batch) and through host mode
+    (streaming) give the same result list; the unannotated test split;
+    collect_adjacency; an int8 cache;
 13. the merged block's kernels against their plain versions: the bare
     GEMM against torch.mm at the block's six products (NN, NT, TN; f32
     and bf16) and its epilogues; the wgmma product against torch.mm at
@@ -90,8 +97,8 @@ Phases, in order; the first failure exits non-zero:
     in f32 H's conv1 output equal to kernel C's bit for bit;
 14. training with the merged block, the main path: fit() as in phase 11
     with ModelConfig(merged_block=True); per step H 1, I 1, A, C, D 0,
-    B 1, E 1 + 1, F 1, G 1, and step 1's loss within 1e-2 of phase
-    11's; the merged serving forward at B=16 launches H and B once and
+    B 1, E 1 + 1, the image gather 1 (into padded rows), F 0, G 0, and
+    step 1's loss within 1e-2 of phase 11's; the merged serving forward at B=16 launches H and B once and
     not A and picks the unmerged answer on >= 75% of rows;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
@@ -104,8 +111,11 @@ Phases, in order; the first failure exits non-zero:
    alone; E's dW/db beside cuBLAS and the SIMT reduction; kernel B with
    and without hp), after phase 14 the gather kernels at
    B=64 and 256 (F and index_select six times each in turns; the int8
-   path), the
-   cache-mode training step beside host mode,
+   path), the image gather in both layouts beside the F + G + cast +
+   concatenation it replaces, F alone, the library sequence and its
+   byte bound (six times each in turns), the
+   cache-mode training step beside host mode (profiled: device busy
+   and launches per step),
    evaluate's throughput, then H (feats as padded rows and contiguous,
    its five launches one by one), I (its launches one by one), the
    block's six products (every wgmma tile and the rule's pick beside
@@ -149,9 +159,12 @@ from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        polar_pseudo_coords)
 from vqa_project_tpu_torch.ops.dropout import keep_threshold, philox_keep
 from vqa_project_tpu_torch.ops.matmul import matmul
-from vqa_project_tpu_torch.ops.gather_rows import (gather_rows_blocked,
+from vqa_project_tpu_torch.ops.gather_rows import (gather_image_reference,
+                                                   gather_image_rows,
+                                                   gather_rows_blocked,
                                                    gather_rows_packed,
-                                                   gather_rows_reference)
+                                                   gather_rows_reference,
+                                                   node_row_stride)
 from vqa_project_tpu_torch.ops.edge_aggregate import (
     aggregate_kernel, fused_sel_aggregate_act, sel_aggregate_act_reference,
     sel_aggregate_act_residuals, sel_aggregate_act_residuals_reference,
@@ -211,6 +224,8 @@ SOURCES = {
                            "vqa_project_tpu/ops/pallas/gather_rows.py:91"),
     "gather_rows_blocked": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
                             "vqa_project_tpu/ops/pallas/gather_rows.py:46"),
+    "gather_image_rows": ("vqa_project_tpu_torch/csrc/gather_rows.cu",
+                          "vqa_project_tpu/ops/pallas/gather_rows.py:46"),
     "graph_block_fwd": ("vqa_project_tpu_torch/csrc/graph_block.cu",
                         "vqa_project_tpu/ops/pallas/graph_block.py:77"),
     "graph_block_bwd": ("vqa_project_tpu_torch/csrc/graph_block_bwd.cu",
@@ -226,18 +241,20 @@ WRAPPERS = {
     "gru_wgrad": gru_wgrad,                                    # E, dW/db
     "gather_rows_packed": gather_rows_packed,                  # F
     "gather_rows_blocked": gather_rows_blocked,                # G
+    "gather_image_rows": gather_image_rows,                    # G, fused
     "graph_block_fwd": graph_block_fwd,                        # H
     "graph_block_bwd": graph_block_bwd,                        # I
 }
-# launches of one bf16 training step (host mode: F and G 0); kernels B
+# launches of one bf16 training step (host mode: no gather); kernels B
 # and E's sweep are persistent, one launch each for all 16 steps
 TRAIN_STEP_LAUNCHES = {
     "edge_aggregate_fwd": 0, "gru_scan_fwd": 1, "edge_aggregate_fwd_res": 2,
     "edge_aggregate_bwd": 2, "gru_scan_bwd_persistent": 1, "gru_wgrad": 1,
     "gather_rows_packed": 0, "gather_rows_blocked": 0,
-    "graph_block_fwd": 0, "graph_block_bwd": 0}
-CACHE_STEP_LAUNCHES = {**TRAIN_STEP_LAUNCHES, "gather_rows_packed": 1,
-                       "gather_rows_blocked": 1}
+    "gather_image_rows": 0, "graph_block_fwd": 0, "graph_block_bwd": 0}
+# the device cache: one image gather writes the model's node rows and
+# boxes; the standalone F and G do not run
+CACHE_STEP_LAUNCHES = {**TRAIN_STEP_LAUNCHES, "gather_image_rows": 1}
 # the merged block (ModelConfig.merged_block) replaces C and D by H and I
 MERGED_STEP_LAUNCHES = {**CACHE_STEP_LAUNCHES, "edge_aggregate_fwd_res": 0,
                         "edge_aggregate_bwd": 0, "graph_block_fwd": 1,
@@ -1284,7 +1301,8 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
     cache None is host mode, merged the merged graph block. Checks the
     losses, the moved parameters and the checkpoint, and the launches per
     step (the mini-validation's forwards launch A twice, or H once with
-    the merged block, B once, and with a cache F and G once, per batch).
+    the merged block, B once, and with a cache the image gather once, per
+    batch).
     Returns (model, per-step losses, launch counts)."""
     mcfg = ModelConfig(**FULL, merged_block=merged)  # bf16, dropout 0.5
     with tempfile.TemporaryDirectory() as tmp:
@@ -1326,8 +1344,7 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
     per_step["gru_scan_fwd"] -= val_batches
     want = TRAIN_STEP_LAUNCHES
     if cache is not None:
-        per_step["gather_rows_packed"] -= val_batches
-        per_step["gather_rows_blocked"] -= val_batches
+        per_step["gather_image_rows"] -= val_batches
         want = MERGED_STEP_LAUNCHES if merged else CACHE_STEP_LAUNCHES
     per_step = {k: v / n_steps for k, v in per_step.items()}
     step_ms = [1e3 / r["steps_per_sec"] for r in recs[2:]]
@@ -1370,7 +1387,8 @@ def train_cache_main_path(dev, ds, cache, host_losses):
 
 def profile(fn, label: str, n: int = 10) -> None:
     """Device time per call by kernel (torch.profiler, CUPTI) beside the
-    wall time of the same calls: the device's busy share."""
+    wall time of the same calls: the device's busy share, and the device
+    items (kernels, copies and fills) launched per call."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -1382,24 +1400,30 @@ def profile(fn, label: str, n: int = 10) -> None:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
+    rows, counts = [], {}
     for evt in prof.key_averages():
         # kernels and copies only: an aten op's device time repeats its
         # kernels', and so does a user range such as Optimizer.step's
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)):
             rows.append((evt.self_device_time_total / n / 1e3, evt.key))
+            counts[evt.key] = evt.count / n
     rows.sort(reverse=True)
     busy = sum(ms for ms, _ in rows)
     gru = [[round(ms, 5), key[:60]] for ms, key in rows if "gru_" in key]
     edge = [[round(ms, 5), key[:70]] for ms, key in rows
             if "edge_" in key or "gauss" in key]
+    gather = [[round(ms, 5), counts[key], key[:70]] for ms, key in rows
+              if "gather" in key or "CatArray" in key]
     print(f"profile of {label}: wall {wall_ms:.4f} ms per call (profiler "
-          f"on), device busy {busy:.4f} ms ({100 * busy / wall_ms:.1f}%); "
-          f"top device items (ms per call): "
+          f"on), device busy {busy:.4f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{sum(counts.values()):g} device items launched per call; top "
+          f"device items (ms per call): "
           + json.dumps([[round(ms, 5), key[:80]] for ms, key in rows[:12]])
           + "; the GRU kernels: " + json.dumps(gru)
-          + "; the aggregation kernels: " + json.dumps(edge), flush=True)
+          + "; the aggregation kernels: " + json.dumps(edge)
+          + "; the gathers and concatenations (ms, launches per call): "
+          + json.dumps(gather), flush=True)
 
 
 def measure(dev, gen, launches, errs, model):
@@ -1977,6 +2001,87 @@ def check_gathers(dev):
     return errs
 
 
+# phase 10's image gathers: (label, N, K, F, table dtype, node dtypes).
+# The VQA v2-size tables (64-bit offsets), K = 51 (the medical preset:
+# odd boxes in every image), and shapes that take the element-wise
+# variant (F = 20 bf16, F = 24 int8, F = 6 f32) or the vector body with
+# 8-byte stores inside a box (F = 24 bf16: boxes of 3 vectors)
+IMAGE_TABLES = (
+    ("bf16", VQA_IMAGES, 36, 2048, torch.bfloat16,
+     (torch.bfloat16, torch.float32)),
+    ("int8", VQA_IMAGES, 36, 2048, torch.int8,
+     (torch.bfloat16, torch.float32)),
+    ("f32", 4096, 36, 2048, torch.float32, (torch.float32, torch.bfloat16)),
+    ("bf16 K=51", 4096, 51, 2048, torch.bfloat16,
+     (torch.bfloat16, torch.float32)),
+    ("int8 K=51", 4096, 51, 2048, torch.int8,
+     (torch.bfloat16, torch.float32)),
+    ("f32 K=51", 4096, 51, 2048, torch.float32,
+     (torch.float32, torch.bfloat16)),
+    ("bf16 F=24", 1000, 7, 24, torch.bfloat16,
+     (torch.bfloat16, torch.float32)),
+    ("bf16 F=20", 1000, 5, 20, torch.bfloat16,
+     (torch.bfloat16, torch.float32)),
+    ("int8 F=24", 1000, 7, 24, torch.int8, (torch.bfloat16, torch.float32)),
+    ("f32 F=6", 1000, 3, 6, torch.float32, (torch.float32, torch.bfloat16)),
+)
+
+
+def check_image_gathers(dev):
+    """Phase 10, the image gather (kernel G's redesign): gather_image_rows
+    against gather_image_reference, bit for bit, for every IMAGE_TABLES
+    entry, node dtype and layout (contiguous F + 4 and padded rows) at
+    every GATHER_B (F <= 24: B in {1, 63, 65, 257}), into NaN-filled
+    buffers whose pad columns must come back exactly 0, and once into
+    fresh buffers. Returns the max abs error."""
+    rng = np.random.default_rng(SEED + 6)
+    worst = 0.0
+    for label, n, k, f, dtype, node_dtypes in IMAGE_TABLES:
+        table = random_table(n, k, f, dtype, dev)
+        boxes = random_table(n, k, 4, torch.float32, dev, seed=SEED + 7)
+        scales = (torch.rand((n, k), device=dev) * 0.05
+                  if dtype == torch.int8 else None)
+        sizes = GATHER_B if f > 24 else (1, 63, 65, 257)
+        for nd in node_dtypes:
+            for padded in (False, True):
+                ld = node_row_stride(f + 4, padded)
+                for b in sizes:
+                    r = torch.from_numpy(gather_rows_for(b, n, rng)).to(dev)
+                    want = gather_image_reference(table, boxes, r, scales,
+                                                  nd, padded)
+                    buf = torch.full((b, k, ld), float("nan"), dtype=nd,
+                                     device=dev)
+                    bx = torch.full((b, k, 4), float("nan"), device=dev)
+                    got = gather_image_rows(table, boxes, r, scales, nd,
+                                            padded, out=(buf, bx))
+                    fresh = (gather_image_rows(table, boxes, r, scales, nd,
+                                               padded) if b == 65 else got)
+                    torch.cuda.synchronize()
+                    for g in (got, fresh):
+                        same = (torch.equal(g.nodes, want.nodes)
+                                and torch.equal(g.boxes, want.boxes))
+                        worst = max(worst, float(
+                            (g.nodes.float() - want.nodes.float()).abs()
+                            .max()), float((g.boxes - want.boxes).abs().max()))
+                        require(same, f"gather_image_rows {label} -> {nd} "
+                                f"padded={padded} B={b} disagrees with "
+                                f"its plain version")
+                    pad = buf[..., f + 4:]
+                    require(int(torch.count_nonzero(pad)) == 0
+                            and not bool(buf.isnan().any()),
+                            f"gather_image_rows {label} -> {nd} padded="
+                            f"{padded} B={b}: pad columns not 0, or a NaN "
+                            f"left in the buffer")
+                print(f"image gather {label} table {n} x {k} x {f} -> "
+                      f"{str(nd)[6:]} nodes, row stride {ld}: equal bit for "
+                      f"bit to gather_image_reference at B = {list(sizes)} "
+                      f"(into NaN-filled buffers, pad columns 0; B=65 also "
+                      f"into fresh ones)", flush=True)
+        del table, boxes, scales
+        torch.cuda.empty_cache()
+    return worst
+
+
 def evaluate_checks(dev, model, ds, cache):
     """Phase 12: evaluate() with phase 11's model. Returns the int8
     cache's agreement with the bf16 cache."""
@@ -1984,16 +2089,17 @@ def evaluate_checks(dev, model, ds, cache):
     words = set(val.a_itow.values())
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "result.json")
-        f0 = gather_rows_packed.launches
+        f0 = gather_image_rows.launches
         acc_r, res_r, adj = evaluate(model, val, TRAIN_B, result_path=path,
                                      cache=cache, device=dev)
         with open(path) as f:
             loaded = json.load(f)
-        f_launches = gather_rows_packed.launches - f0
+        f_launches = gather_image_rows.launches - f0
         acc_s, res_s, _ = evaluate(model, val, TRAIN_B, result_path=None,
                                    cache=None, device=dev)
         print(f"evaluate val ({val.n_questions} questions): resident "
-              f"(device cache, F launched {f_launches} times) accuracy "
+              f"(device cache, the image gather launched {f_launches} "
+              f"times) accuracy "
               f"{acc_r:.4f}%, streaming (host mode) {acc_s:.4f}%; result "
               f"lists equal {res_r == res_s}; {len(res_r)} entries, "
               f"{len({r['answer'] for r in res_r})} distinct answers; "
@@ -2001,7 +2107,7 @@ def evaluate_checks(dev, model, ds, cache):
               flush=True)
         require(adj is None and f_launches == math.ceil(
             val.n_questions / TRAIN_B), "the resident path did not gather "
-            "every batch through kernel F")
+            "every batch in one launch of gather_image_rows")
         require(res_r == res_s, "resident and streaming results differ")
         require(abs(acc_r - acc_s) <= 1e-4, "accuracies differ")
         require(len(res_r) == val.n_questions and loaded == res_r,
@@ -2030,12 +2136,13 @@ def evaluate_checks(dev, model, ds, cache):
                             model.cfg.compute_dtype, dev)
     require(isinstance(qc, QuantizedFeatureCache)
             and qc.features.dtype == torch.int8, "no int8 cache")
-    f0 = gather_rows_packed.launches
+    f0 = gather_image_rows.launches
     acc_q, res_q, _ = evaluate(model, val, TRAIN_B, result_path=None,
                                cache=qc, device=dev)
-    f_launches = gather_rows_packed.launches - f0
+    f_launches = gather_image_rows.launches - f0
     agree = float(np.mean([a == b for a, b in zip(res_q, res_r)]))
-    print(f"evaluate val with the int8 cache: F launched {f_launches} "
+    print(f"evaluate val with the int8 cache: the image gather launched "
+          f"{f_launches} "
           f"times on the int8 table; accuracy {acc_q:.4f}%; answers equal "
           f"to the bf16 cache's: {agree:.4f}", flush=True)
     require(f_launches == math.ceil(val.n_questions / TRAIN_B)
@@ -2137,6 +2244,111 @@ def time_gathers(dev, counts, errs):
     return entries
 
 
+def image_bytes(b, k, f, ld, table_dtype, node_dtype):
+    """Bytes the image gather must move: each table row, box row, row
+    index and (int8) scale read once, the node rows (pad included) and
+    the f32 boxes written once."""
+    el = torch.empty((), dtype=table_dtype).element_size()
+    out = torch.empty((), dtype=node_dtype).element_size()
+    return (b * k * f * el + b * k * 16 + b * 4
+            + (b * k * 4 if table_dtype == torch.int8 else 0)
+            + b * k * ld * out + b * k * 16)
+
+
+def time_image_gathers(dev, counts, errs):
+    """Phase 6, the cache part: the image gather (one launch writing the
+    node rows and boxes) on the VQA v2-size table in bf16 and int8 ->
+    bf16, at B=64 and 256, contiguous and padded rows, beside (a) the
+    assembly it replaces (F + G + the boxes' cast + torch.cat, or F + G +
+    padded_rows), (b) F alone on the same rows, (c) the library sequence
+    (two index_selects, the boxes' cast and a torch.cat; F.pad after it
+    for padded rows; bf16 only) and (d) its byte bound; in bf16 all four
+    timed six times each in turns (gather_spread)."""
+    rng = np.random.default_rng(SEED + 5)
+    entries, detail = [], {}
+    k, f, nd = 36, 2048, torch.bfloat16
+    boxes = random_table(VQA_IMAGES, k, 4, torch.float32, dev)
+    for label, dtype in (("bf16", torch.bfloat16), ("int8 -> bf16",
+                                                    torch.int8)):
+        table = random_table(VQA_IMAGES, k, f, dtype, dev)
+        scales = (torch.rand((VQA_IMAGES, k), device=dev) * 0.05
+                  if dtype == torch.int8 else None)
+        f_out = nd if scales is not None else None
+        for b in (TRAIN_B, 256):
+            sets = [torch.from_numpy(rng.integers(0, VQA_IMAGES, b).astype(
+                np.int32)).to(dev) for _ in range(16)]
+            it = iter(range(10 ** 9))
+
+            def rows():
+                return sets[next(it) % len(sets)]
+
+            for padded in (False, True):
+                ld = node_row_stride(f + 4, padded)
+
+                def fused():
+                    gather_image_rows(table, boxes, rows(), scales, nd,
+                                      padded)
+
+                def plain():
+                    gather_image_reference(table, boxes, rows(), scales, nd,
+                                           padded)
+
+                def assembly():
+                    r = rows()
+                    parts = [gather_rows_packed(table, r, scales, f_out),
+                             gather_rows_blocked(boxes, r)]
+                    if padded:
+                        padded_rows(parts, nd)
+                    else:
+                        torch.cat([parts[0], parts[1].to(nd)], dim=-1)
+
+                def f_alone():
+                    gather_rows_packed(table, rows(), scales, f_out)
+
+                def library():
+                    r = rows()
+                    x = torch.cat([torch.index_select(table, 0, r),
+                                   torch.index_select(boxes, 0, r).to(nd)],
+                                  dim=-1)
+                    if padded:
+                        torch.nn.functional.pad(x, (0, ld - f - 4))
+
+                t = dict(ms=time_device_ms(fused),
+                         plain_ms=time_device_ms(plain),
+                         assembly_ms=time_device_ms(assembly),
+                         f_alone_ms=time_device_ms(f_alone),
+                         library_sequence_ms=(None if scales is not None
+                                              else time_device_ms(library)),
+                         library_ms=None, back_to_back_ms=time_ms(fused))
+                t["g_marginal_ms"] = t["ms"] - t["f_alone_ms"]
+                t["bound_ms"], t["bound_by"] = bound(
+                    image_bytes(b, k, f, ld, dtype, nd), 0.0)
+                if scales is None:
+                    t["spread"] = gather_spread({
+                        "fused_ms": fused, "assembly_ms": assembly,
+                        "F_ms": f_alone, "library_sequence_ms": library})
+                key = f"{label} B={b} {'padded' if padded else 'contiguous'}"
+                detail[key] = t
+                if label == "bf16" and b == TRAIN_B and not padded:
+                    entries.append(entry("gather_image_rows", t, counts,
+                                         errs))
+        del table, scales
+        torch.cuda.empty_cache()
+    del boxes
+    torch.cuda.empty_cache()
+    print("image gather timing detail (bf16 nodes, device times from CUDA "
+          "events, launches queued behind a sleep kernel; ms = "
+          "gather_image_rows, one launch; plain = gather_image_reference; "
+          "assembly = the replaced F + G + cast + torch.cat, or F + G + "
+          "padded_rows; f_alone = F on the same rows; g_marginal = ms - "
+          "f_alone; library_sequence = two index_selects + the boxes' cast "
+          "+ torch.cat (+ F.pad for padded rows); library_ms null: no one "
+          "call; spread = fused, assembly, F and the library sequence timed "
+          "6 times each in turns, each a median of 50 samples; bound = bytes "
+          "read + written at 3.35 TB/s): " + json.dumps(detail), flush=True)
+    return entries
+
+
 def random_index_batch(b, cfg, n_images, rng):
     """An index batch as the Batcher yields it: random questions, image
     rows and sparse labels (3 answers a row), the last row padding."""
@@ -2189,7 +2401,7 @@ def time_cache_steps(dev, gen, n=10, n_images=4096):
     step at B=64."""
     cfg = ModelConfig(**FULL)
     cache = random_cache(dev, n_images)
-    image_fn = make_image_fn(cache)
+    image_fn = make_image_fn(cache, cfg.compute_dtype)
     rng = np.random.default_rng(SEED + 3)
     out = {}
     for b in (TRAIN_B, 256):
@@ -2861,7 +3073,6 @@ def time_merged_steps(dev, n=10, n_images=4096):
     step at B=64."""
     cfg = ModelConfig(**FULL)
     cache = random_cache(dev, n_images)
-    image_fn = make_image_fn(cache)
     rng = np.random.default_rng(SEED + 4)
     out = {}
     for b in (TRAIN_B, 256):
@@ -2873,8 +3084,10 @@ def time_merged_steps(dev, n=10, n_images=4096):
                                   device=dev, seed=SEED)
             optimizer, _ = make_optimizer(model, TrainConfig(), 100)
             generator = torch.Generator(device=dev).manual_seed(SEED)
+            image_fn = make_image_fn(cache, cfg.compute_dtype, merged)
 
-            def step(model=model, optimizer=optimizer, generator=generator):
+            def step(model=model, optimizer=optimizer, generator=generator,
+                     image_fn=image_fn):
                 float(train_step(model, optimizer, None, index, generator,
                                  image_fn)["loss"])
 
@@ -2941,6 +3154,7 @@ def main() -> int:
     entries += measure_training(dev, gen, counts, errs)
     phase("10 gather kernels against their plain versions")
     errs.update(check_gathers(dev))
+    errs["gather_image_rows"] = check_image_gathers(dev)
     phase("11 training with the device cache (main path)")
     cache = make_feature_cache(ds["train"], TrainConfig(),
                                ModelConfig().compute_dtype, dev)
@@ -2957,6 +3171,7 @@ def main() -> int:
     merged_serving_forward(dev, gen, serve_model)
     phase("6 timing (device cache)")
     entries += time_gathers(dev, cache_counts, errs)
+    entries += time_image_gathers(dev, cache_counts, errs)
     time_cache_steps(dev, gen)
     time_evaluate(dev, model, ds, cache)
     phase("6 timing (merged block)")

@@ -3,7 +3,8 @@
 The index-mode Batcher and the packed index batch, the cache's mode
 selection, the model's (features, boxes) input, one cache-mode training
 step against JAX's cache-mode step (its Pallas kernels and its blocked
-row gather in interpret mode), and fit in cache mode against host mode.
+row gather in interpret mode), and fit in cache mode (its images
+gathered as NodeImages) against host mode.
 """
 
 import dataclasses
@@ -191,12 +192,15 @@ def test_pair_input_equals_concatenated_input(rng):
         torch.testing.assert_close(train(image), train(pair), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("pallas_gather", [False, True])
-def test_cache_train_step_matches_jax(rng, pallas_gather):
+@pytest.mark.parametrize("pallas_gather,merged", [
+    (False, False), (True, False), (False, True)],
+    ids=["False", "True", "merged"])
+def test_cache_train_step_matches_jax(rng, pallas_gather, merged):
     """One cache-mode step from the same weights, table and index batch:
     JAX's build_train_step (its densify, sparse score and row gather;
     pallas_gather runs the blocked Pallas gather in interpret mode) and
-    the port's train_step with kernels F and G's plain versions."""
+    the port's train_step with its image gather's plain version (the
+    NodeImage; in padded rows for the port's merged block)."""
     feats, boxes, host = _cache_and_batch(rng)
     jcfg = dataclasses.replace(CFG, use_pallas=True, dropout=0.0)
     jmodel = JaxModel(cfg=jcfg)
@@ -232,13 +236,15 @@ def test_cache_train_step_matches_jax(rng, pallas_gather):
     np.testing.assert_allclose(float(j_metrics["loss"]), float(j_loss),
                                rtol=1e-6)
 
-    model = GraphVQAModel(_port_cfg(dropout=0.0), device="cpu")
+    model = GraphVQAModel(_port_cfg(dropout=0.0, merged_block=merged),
+                          device="cpu")
     model.load_state_dict(state_dict_from_jax_params(params))
     p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
     optimizer, _ = make_optimizer(model, TrainConfig(lr=LR), 10)
     m = train_step(model, optimizer, None, pack_index_batch(host), None,
                    make_image_fn((torch.from_numpy(feats),
-                                  torch.from_numpy(boxes))))
+                                  torch.from_numpy(boxes)),
+                                 model.cfg.compute_dtype, merged))
     np.testing.assert_allclose(float(m["loss"]), float(j_loss), rtol=1e-5)
     np.testing.assert_allclose(float(m["score"]), float(j_score), rtol=1e-6)
     np.testing.assert_allclose(float(m["score"]),
@@ -275,6 +281,30 @@ def test_fit_cache_mode_equals_host_mode(tmp_path):
             recs = [json.loads(line) for line in f]
         runs[mode] = (model, acc, [(r["loss"], r["vqa_acc"]) for r in recs])
     assert len(runs["cache"][2]) == 2 * 12 // 4
+    assert runs["cache"][1:] == runs["host"][1:]
+    for (k, a), b in zip(runs["cache"][0].state_dict().items(),
+                         runs["host"][0].state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("merged,dtype", [
+    (False, "bfloat16"), (True, "float32"), (True, "bfloat16")])
+def test_fit_node_image_equals_host_mode(tmp_path, merged, dtype):
+    """The case above with the merged block and in bf16: fit's image
+    gather (NodeImage nodes in the compute dtype, padded rows for the
+    merged block) takes the same steps as host mode's dense images."""
+    ds, mcfg, tcfg = _tiny_run(tmp_path, epochs=1, eval_interval=6)
+    mcfg = dataclasses.replace(mcfg, merged_block=merged,
+                               compute_dtype=dtype)
+    runs = {}
+    for mode, kw in (("cache", {}), ("host", {"cache": None})):
+        path = str(tmp_path / f"{mode}.jsonl")
+        model, _, acc = fit(tcfg, mcfg, ds["train"], ds["val"],
+                            device="cpu", jsonl_path=path, **kw)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        runs[mode] = (model, acc, [(r["loss"], r["vqa_acc"]) for r in recs])
+    assert len(runs["cache"][2]) == 12 // 4
     assert runs["cache"][1:] == runs["host"][1:]
     for (k, a), b in zip(runs["cache"][0].state_dict().items(),
                          runs["host"][0].state_dict().values()):

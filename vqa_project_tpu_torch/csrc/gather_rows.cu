@@ -14,6 +14,10 @@
 //      block per output row, any (K, F) row shape, in the widest element
 //      (16, 8, 4, 2 or 1 bytes) that divides the row.
 //
+//   G  gather_image_rows <- _copy_kernel too, redesigned: the step's boxes
+//      are gathered inside F's launch, which writes the model's input
+//      directly (below).
+//
 // Rows are clamped as jnp.take(mode="clip") does, so a bad index never
 // reads out of bounds. Row offsets are 64-bit: the VQA v2 table holds
 // 123,287 x 36 x 2048 = 9.1e9 elements (18.2 GB in bf16).
@@ -46,9 +50,31 @@
 // or 32 (bf16) bytes per vector. Where F % 16 != 0 an element-wise
 // kernel takes the rows, one block per (kChunk elements, row).
 
+// gather_image_rows: the cache-mode step's whole image assembly in one
+// launch. G alone moved 576 bytes an image in a launch of its own (~2.6
+// us of ramp for a 22 ns bound), and the model then cast the boxes and
+// concatenated them onto F's features, a second pass over F's bytes. Here
+// each row's blocks convert F's vectors straight into the node rows
+// nodes[i, k, :] = cvt(features[r, k, :]) || cvt(boxes[r, k, :]) || 0-pad
+// at the row stride ld (F + 4, or padded for the merged block's TMA), and
+// chunk 0's first K threads also carry the box tails and the f32 boxes.
+// cvt is a copy, an exact bf16 -> f32 widening, one round to nearest
+// f32 -> bf16, or float(q) * scale rounded once (F's int8 arithmetic).
+// Each thread's input vector is as wide as gives it 16 output bytes (8
+// for f32 -> bf16), so that every warp's store fills whole 32-byte
+// sectors: 16 int8 -> 32 bf16 bytes in two stores would leave each
+// store instruction half of every sector it touches (a quarter in 8-byte
+// stores), for the memory system to merge. Odd boxes of an
+// unpadded bf16 row start 8 bytes off 16: their lanes realign in
+// registers (a warp shuffle) and store 16-byte vectors. Shapes that do
+// not split into such vectors take an element-wise variant, one block per
+// (kChunk elements, image).
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -190,6 +216,275 @@ gather_blocked_kernel(const V* __restrict__ table,
     dst[e] = src[e];
 }
 
+// ---- gather_image_rows: the image rows as the model reads them ----
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename Out>
+__device__ __forceinline__ Out from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// 8 bytes written once
+__device__ __forceinline__ void store8(void* p, uint32_t x, uint32_t y) {
+  asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};\n"
+               :: "l"(p), "r"(x), "r"(y) : "memory");
+}
+
+// 8 and 4 bytes read once, as load16
+__device__ __forceinline__ uint2 load_nc(const uint2* p) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];\n"
+      : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t load_nc(const uint32_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];\n"
+      : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint4 load_nc(const uint4* p) { return load16(p); }
+
+// The input vector of an (In, Out) pair: as many input bytes as give at
+// most 16 output bytes, so that a warp's store covers whole 32-byte
+// sectors (16 int8 in, 32 bf16 bytes out, would leave each store
+// instruction a half-written sector behind it)
+template <int kBytes> struct Raw;
+template <> struct Raw<16> { using T = uint4; };
+template <> struct Raw<8> { using T = uint2; };
+template <> struct Raw<4> { using T = uint32_t; };
+
+template <typename In, typename Out>
+struct ImagePair {
+  static constexpr int kInBytes =
+      sizeof(In) >= sizeof(Out) ? 16 : 16 * sizeof(In) / sizeof(Out);
+  static constexpr int kIn = kInBytes / sizeof(In);      // elements
+  static constexpr int kOutBytes = kIn * sizeof(Out);    // 16, or 8
+  static constexpr int kPerT = 64 / kInBytes;   // loads in flight: 64 B
+  using V = typename Raw<kInBytes>::T;
+};
+
+// one input vector -> its kIn outputs of Out, as 32-bit words; s is the
+// box's scale (int8 only)
+template <typename In, typename Out, typename V>
+__device__ __forceinline__ void convert(const V& v, float s, uint32_t* w) {
+  constexpr int kIn = sizeof(V) / sizeof(In);
+  if constexpr (std::is_same<In, Out>::value) {
+    const uint32_t* x = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int t = 0; t < static_cast<int>(sizeof(V) / 4); ++t) w[t] = x[t];
+  } else {
+    const In* x = reinterpret_cast<const In*>(&v);
+    Out* o = reinterpret_cast<Out*>(w);
+#pragma unroll
+    for (int t = 0; t < kIn; ++t) {
+      if constexpr (std::is_same<In, int8_t>::value)
+        o[t] = from_float<Out>(to_float(x[t]) * s);
+      else
+        o[t] = from_float<Out>(to_float(x[t]));
+    }
+  }
+}
+
+// box k's tail of node row (i, k): its 4 coordinates in Out, then zeros
+// up to ld; and the f32 box to boxes_out
+template <typename Out>
+__device__ __forceinline__ void write_tail(Out* row, float* box_out,
+                                           uint4 bx, int F, int ld) {
+  store16(reinterpret_cast<uint4*>(box_out), bx);
+  const float b[4] = {__uint_as_float(bx.x), __uint_as_float(bx.y),
+                      __uint_as_float(bx.z), __uint_as_float(bx.w)};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) row[F + q] = from_float<Out>(b[q]);
+  for (int c = F + 4; c < ld; ++c) row[c] = from_float<Out>(0.0f);
+}
+
+// One block per (chunk of kThreads * kPerT input vectors, image i), as
+// F: each thread loads its kPerT vectors (and, in chunk 0, box
+// threadIdx.x) before it converts and stores them. F % kIn == 0, so a
+// vector lies inside one box; ld * sizeof(Out) % 8 == 0 and nodes is
+// 16-byte aligned, so every output vector starts on 8 bytes. A box whose
+// node row starts 8 bytes off 16 (odd boxes of an unpadded bf16 row) is
+// realigned in registers: each lane stores its high 8 bytes with the
+// next lane's low 8 as one 16-byte vector, and only a run's first low
+// half and last high half go out as 8-byte stores.
+template <typename In, typename Out>
+__global__ void __launch_bounds__(kThreads)
+gather_image_kernel(const In* __restrict__ table,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ boxes,
+                    const int* __restrict__ rows, Out* __restrict__ nodes,
+                    float* __restrict__ boxes_out, long long n_rows, int K,
+                    int F, int ld) {
+  using P = ImagePair<In, Out>;
+  using V = typename P::V;
+  constexpr int kWords = P::kOutBytes / 4;
+  const int i = blockIdx.y;
+  const long long r = clamp_row(rows, i, n_rows);
+  const int vpb = F / P::kIn;                 // vectors per box
+  const int row_vecs = K * vpb;
+  const V* src = reinterpret_cast<const V*>(
+      table + r * K * static_cast<long long>(F));
+  Out* dst = nodes + static_cast<long long>(i) * K * ld;
+  const uint4* bsrc = reinterpret_cast<const uint4*>(boxes) + r * K;
+  float* bdst = boxes_out + static_cast<long long>(i) * K * 4;
+  const int lane = threadIdx.x & 31;
+  const int base = blockIdx.x * kThreads * P::kPerT + threadIdx.x;
+  V v[P::kPerT];
+#pragma unroll
+  for (int j = 0; j < P::kPerT; ++j) {
+    const int e = base + j * kThreads;
+    if (e < row_vecs) v[j] = load_nc(src + e);
+  }
+  const bool tails = blockIdx.x == 0;
+  uint4 bx;
+  if (tails && static_cast<int>(threadIdx.x) < K)
+    bx = load16(bsrc + threadIdx.x);
+#pragma unroll
+  for (int j = 0; j < P::kPerT; ++j) {
+    const int e = base + j * kThreads;
+    const bool valid = e < row_vecs;
+    const int k = valid ? e / vpb : 0;        // 32-bit: e < K * F
+    const int at = e - k * vpb;               // the vector's place in box k
+    uint32_t w[kWords] = {};
+    if (valid) {
+      float s = 1.0f;
+      if constexpr (std::is_same<In, int8_t>::value)
+        s = __ldg(scales + r * K + k);
+      convert<In, Out>(v[j], s, w);
+    }
+    char* d = reinterpret_cast<char*>(dst + static_cast<long long>(k) * ld +
+                                      at * P::kIn);
+    if constexpr (P::kOutBytes == 16) {
+      // every lane takes part: the next lane's low half
+      const uint32_t nx = __shfl_down_sync(0xffffffffu, w[0], 1);
+      const uint32_t ny = __shfl_down_sync(0xffffffffu, w[1], 1);
+      if (!valid) continue;
+      if ((reinterpret_cast<uintptr_t>(d) & 15) == 0) {
+        store16(reinterpret_cast<uint4*>(d),
+                make_uint4(w[0], w[1], w[2], w[3]));
+      } else {
+        // lane - 1 holds vector e - 1 and lane + 1 vector e + 1: in this
+        // box unless a box starts there, and stored unless past the row
+        const bool after_prev = lane > 0 && at != 0;
+        const bool before_next = lane < 31 && e + 1 < row_vecs &&
+                                 at + 1 != vpb;
+        if (!after_prev) store8(d, w[0], w[1]);
+        if (before_next)
+          store16(reinterpret_cast<uint4*>(d + 8),
+                  make_uint4(w[2], w[3], nx, ny));
+        else
+          store8(d + 8, w[2], w[3]);
+      }
+    } else {
+      if (valid) store8(d, w[0], w[1]);
+    }
+  }
+  if (tails) {
+    for (int k = threadIdx.x; k < K; k += kThreads) {
+      if (k != static_cast<int>(threadIdx.x)) bx = load16(bsrc + k);
+      write_tail(dst + static_cast<long long>(k) * ld, bdst + 4 * k, bx, F,
+                 ld);
+    }
+  }
+}
+
+// The element-wise variant: one output element of the (K, ld) node row
+// per thread, one block per (kChunk elements, image); chunk 0 also copies
+// the f32 boxes
+template <typename In, typename Out>
+__global__ void __launch_bounds__(kThreads)
+gather_image_scalar_kernel(const In* __restrict__ table,
+                           const float* __restrict__ scales,
+                           const float* __restrict__ boxes,
+                           const int* __restrict__ rows,
+                           Out* __restrict__ nodes,
+                           float* __restrict__ boxes_out, long long n_rows,
+                           int K, int F, int ld) {
+  const int i = blockIdx.y;
+  const long long r = clamp_row(rows, i, n_rows);
+  const long long n = static_cast<long long>(K) * ld;
+  const In* src = table + r * K * static_cast<long long>(F);
+  const float* bsrc = boxes + r * K * 4;
+  Out* dst = nodes + i * n;
+  const long long stop =
+      min(n, static_cast<long long>(blockIdx.x + 1) * kChunk);
+  for (long long e = static_cast<long long>(blockIdx.x) * kChunk +
+                     threadIdx.x;
+       e < stop; e += kThreads) {
+    const int k = static_cast<int>(e / ld);
+    const int c = static_cast<int>(e - static_cast<long long>(k) * ld);
+    float x = 0.0f;
+    if (c < F) {
+      x = to_float(src[static_cast<long long>(k) * F + c]);
+      if constexpr (std::is_same<In, int8_t>::value)
+        x *= __ldg(scales + r * K + k);
+    } else if (c < F + 4) {
+      x = bsrc[4 * k + c - F];
+    }
+    dst[e] = from_float<Out>(x);
+  }
+  if (blockIdx.x == 0)
+    for (int e = threadIdx.x; e < 4 * K; e += kThreads)
+      boxes_out[static_cast<long long>(i) * K * 4 + e] = bsrc[e];
+}
+
+template <typename In, typename Out>
+cudaError_t launch_image(const void* table, const float* scales,
+                         const float* boxes, const int* rows, void* nodes,
+                         float* boxes_out, long long n_rows, int B, int K,
+                         int F, int ld, cudaStream_t s) {
+  using P = ImagePair<In, Out>;
+  const In* t = static_cast<const In*>(table);
+  Out* o = static_cast<Out*>(nodes);
+  const long long row_vecs = static_cast<long long>(K) * F / P::kIn;
+  if (F % P::kIn == 0 && row_vecs < (1LL << 31) &&
+      (static_cast<long long>(ld) * sizeof(Out)) % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(nodes) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(boxes) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(boxes_out) % 16 == 0) {
+    const long long chunk = kThreads * P::kPerT;
+    const dim3 grid((row_vecs + chunk - 1) / chunk, B);
+    gather_image_kernel<In, Out><<<grid, kThreads, 0, s>>>(
+        t, scales, boxes, rows, o, boxes_out, n_rows, K, F, ld);
+  } else {
+    const long long n = static_cast<long long>(K) * ld;
+    const dim3 grid((n + kChunk - 1) / kChunk, B);
+    gather_image_scalar_kernel<In, Out><<<grid, kThreads, 0, s>>>(
+        t, scales, boxes, rows, o, boxes_out, n_rows, K, F, ld);
+  }
+  return cudaGetLastError();
+}
+
+template <typename In>
+cudaError_t launch_image_to(int out_dtype, const void* table,
+                            const float* scales, const float* boxes,
+                            const int* rows, void* nodes, float* boxes_out,
+                            long long n_rows, int B, int K, int F, int ld,
+                            cudaStream_t s) {
+  if (out_dtype == 0)
+    return launch_image<In, float>(table, scales, boxes, rows, nodes,
+                                   boxes_out, n_rows, B, K, F, ld, s);
+  if (out_dtype == 1)
+    return launch_image<In, __nv_bfloat16>(table, scales, boxes, rows, nodes,
+                                           boxes_out, n_rows, B, K, F, ld, s);
+  return cudaErrorInvalidValue;
+}
+
 size_t elem_bytes(int dtype) {
   return dtype == 0 ? 4 : dtype == 1 ? 2 : dtype == 2 ? 1 : 0;
 }
@@ -300,4 +595,40 @@ extern "C" int gather_rows_blocked(const void* table, const void* rows,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel G, redesigned: the cache-mode step's images in one launch.
+// features (n_rows, K, F) of in_dtype (0 f32, 1 bf16, 2 int8; int8 with
+// its (n_rows, K) f32 scales, else scales null); boxes (n_rows, K, 4)
+// f32; rows (B) int32, clamped to [0, n_rows). Writes nodes (B, K, ld) of
+// out_dtype (0 f32, 1 bf16), ld >= F + 4: columns 0..F-1 the features
+// converted, F..F+3 the boxes rounded to out_dtype, the rest 0; and
+// boxes_out (B, K, 4) f32. Returns cudaError_t.
+extern "C" int gather_image_rows(const void* table, const void* scales,
+                                 const void* boxes, const void* rows,
+                                 void* nodes, void* boxes_out,
+                                 long long n_rows, int B, int K, int F,
+                                 int ld, int in_dtype, int out_dtype,
+                                 void* stream) {
+  if (n_rows <= 0 || B <= 0 || B > 65535 || K <= 0 || F <= 0 ||
+      ld < F + 4 || (in_dtype == 2) != (scales != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scales);
+  const float* bx = static_cast<const float*>(boxes);
+  const int* r = static_cast<const int*>(rows);
+  float* bo = static_cast<float*>(boxes_out);
+  switch (in_dtype) {
+    case 0:
+      return static_cast<int>(launch_image_to<float>(
+          out_dtype, table, sc, bx, r, nodes, bo, n_rows, B, K, F, ld, s));
+    case 1:
+      return static_cast<int>(launch_image_to<__nv_bfloat16>(
+          out_dtype, table, sc, bx, r, nodes, bo, n_rows, B, K, F, ld, s));
+    case 2:
+      return static_cast<int>(launch_image_to<int8_t>(
+          out_dtype, table, sc, bx, r, nodes, bo, n_rows, B, K, F, ld, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -37,6 +37,7 @@ from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
 from vqa_project_tpu_torch.ops.dropout import dropout
+from vqa_project_tpu_torch.ops.gather_rows import NodeImage
 from vqa_project_tpu_torch.ops.graph_block import padded_rows
 from vqa_project_tpu_torch.ops.matmul import matmul
 
@@ -190,8 +191,10 @@ class GraphVQAModel(nn.Module):
     """Full conditioned-graph VQA forward pass.
 
     ``forward(question (B, T) int, image (B, K, feat_dim) float32 with
-    the xyxy box in the last 4 channels, or a (features (B, K,
-    feat_dim - 4), boxes (B, K, 4) float32) pair, qlen (B,) int)`` returns
+    the xyxy box in the last 4 channels, a (features (B, K,
+    feat_dim - 4), boxes (B, K, 4) float32) pair, or the device cache's
+    ``NodeImage`` (nodes already in the compute dtype), qlen (B,) int)``
+    returns
     (logits (B, out_dim) f32, adjacency (B, K, K) f32, h_max_indices
     (B, hid_dim) int64). Weights are made from ``seed`` with torch's
     default initializers; ``load_state_dict`` replaces them.
@@ -246,25 +249,35 @@ class GraphVQAModel(nn.Module):
 
     def _forward(self, question, image, qlen, rate, generator):
         cfg, cdt = self.cfg, self.compute_dtype
-        if isinstance(image, (tuple, list)):
-            # the device cache's (features, boxes) pair: features in the
-            # table's dtype, boxes in f32 for the pseudo-coordinates; the
-            # node tensor is the same as from the concatenated image
+        nodes = None
+        if isinstance(image, NodeImage):
+            # the device cache's gather wrote the nodes themselves, in
+            # the compute dtype and (for the merged block) padded rows,
+            # and the f32 boxes
+            nodes, boxes = image
+            if nodes.dtype != cdt:
+                raise TypeError(f"NodeImage nodes in {nodes.dtype}, the "
+                                f"model computes in {cdt}")
+        elif isinstance(image, (tuple, list)):
+            # a (features, boxes) pair: features in the table's dtype,
+            # boxes in f32; the node tensor is the same as from the
+            # concatenated image
             feats, boxes = image
-            pseudo = polar_pseudo_coords(bbox_centres(boxes.float()))
             parts = [feats, boxes]
         else:
-            pseudo = polar_pseudo_coords(bbox_centres(image.float()))
-            parts = [image]
+            boxes, parts = image, [image]
+        pseudo = polar_pseudo_coords(bbox_centres(boxes.float()))
         if cfg.merged_block:
             # the block reads the nodes' rows by TMA (16-byte row
             # strides): build them in rows padded to a multiple of 8
             # elements and keep the unpadded view; dropout writes there too
-            nodes = padded_rows(parts, cdt)
+            if nodes is None:
+                nodes = padded_rows(parts, cdt)
             nodes = dropout(nodes, rate, generator, out=nodes)
         else:
-            nodes = (torch.cat([p.to(cdt) for p in parts], dim=-1)
-                     if len(parts) > 1 else parts[0].to(cdt))
+            if nodes is None:
+                nodes = (torch.cat([p.to(cdt) for p in parts], dim=-1)
+                         if len(parts) > 1 else parts[0].to(cdt))
             nodes = dropout(nodes, rate, generator)
 
         emb = F.embedding(question.long(), self.wembed.weight)

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "gather_rows": {
         "gather_rows_packed": [_P, _P, _P, _P, _L] + [_I] * 5 + [_P],
         "gather_rows_blocked": [_P, _P, _P, _L, _I, _L, _I, _P],
+        "gather_image_rows": [_P] * 6 + [_L] + [_I] * 6 + [_P],
     },
     "graph_block": {
         "graph_block_fwd": [_P] * 18 + [_I] * 8 + [_U, _F, _I, _P],

@@ -9,22 +9,28 @@ tensors:
   dequantization ``(float(q) * scales[row, k])`` rounded once to
   ``out_dtype``;
 - ``gather_rows_blocked`` launches kernel G (the TPU's blocked gather):
-  one block per row, any row shape; the cache uses it for the (N, K, 4)
-  boxes.
+  one block per row, any row shape;
+- ``gather_image_rows`` launches G's redesign, the cache-mode step's
+  whole image in one launch: F's features and the boxes gathered
+  together, converted to the compute dtype and written straight into
+  the model's node rows ``feat||bbox`` (padded for the merged block),
+  with the f32 boxes beside them (a ``NodeImage``).
 
 Rows are clamped to [0, N), as ``jnp.take(mode="clip")`` does. On CPU
-tensors each takes ``gather_rows_reference``: ``index_select`` of the
-clamped rows plus the same dequantization. There is no VJP: the table is
-data, not a parameter.
+tensors each takes its plain version: ``gather_rows_reference``
+(``index_select`` of the clamped rows plus the same dequantization), or
+``gather_image_reference`` (that, then the cast and the concatenation).
+There is no VJP: the table is data, not a parameter.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vqa_project_tpu_torch.ops import _build
+from vqa_project_tpu_torch.ops.graph_block import ROW_ALIGN, padded_rows
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -155,3 +161,122 @@ def gather_rows_blocked(table: torch.Tensor, rows: torch.Tensor
 
 
 gather_rows_blocked.launches = 0
+
+
+class NodeImage(NamedTuple):
+    """A batch of images as the model reads them, from one gather: the
+    node rows feat||bbox in the compute dtype, the (B, K, F + 4) view of
+    rows at a stride of F + 4 or, for the merged block, padded with zeros
+    to a multiple of ``ROW_ALIGN``; and the boxes in float32 for the
+    pseudo-coordinates."""
+
+    nodes: torch.Tensor      # (B, K, F + 4)
+    boxes: torch.Tensor      # (B, K, 4) float32
+
+
+def node_row_stride(width: int, padded: bool) -> int:
+    """The row stride of a NodeImage's nodes of ``width`` columns."""
+    return -(-width // ROW_ALIGN) * ROW_ALIGN if padded else width
+
+
+def gather_image_reference(features: torch.Tensor, boxes: torch.Tensor,
+                           rows: torch.Tensor,
+                           scales: Optional[torch.Tensor] = None,
+                           node_dtype: torch.dtype = torch.float32,
+                           padded: bool = False) -> NodeImage:
+    """The plain ``gather_image_rows``: both tables gathered by
+    ``gather_rows_reference`` (an int8 table dequantized to
+    ``node_dtype``), then cast to ``node_dtype`` and concatenated, into
+    padded rows (``padded_rows``) when ``padded``."""
+    feats = gather_rows_reference(features, rows, scales, node_dtype)
+    bx = gather_rows_reference(boxes, rows)
+    if padded:
+        nodes = padded_rows([feats, bx], node_dtype)
+    else:
+        nodes = torch.cat([feats.to(node_dtype), bx.to(node_dtype)], dim=-1)
+    return NodeImage(nodes, bx)
+
+
+def gather_image_rows(features: torch.Tensor, boxes: torch.Tensor,
+                      rows: torch.Tensor,
+                      scales: Optional[torch.Tensor] = None,
+                      node_dtype: torch.dtype = torch.float32,
+                      padded: bool = False,
+                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> NodeImage:
+    """A batch's images from the device cache in one launch (kernel G's
+    redesign): ``NodeImage(nodes, boxes)`` of the clamped ``rows``.
+
+    features (N, K, F) float32, bfloat16 or int8 (int8 with its (N, K)
+    float32 ``scales``, dequantized as kernel F does); boxes (N, K, 4)
+    float32; rows (B,) int32. nodes are feat||bbox in ``node_dtype``
+    (float32 or bfloat16), the (B, K, F + 4) view of rows at stride
+    ``node_row_stride(F + 4, padded)``, their pad columns 0. ``out``, a
+    pair of contiguous tensors (B, K, that stride) of ``node_dtype`` and
+    (B, K, 4) float32, is written instead of new ones.
+    """
+    _check_rows(features, rows)
+    if features.dim() != 3:
+        raise ValueError(f"features must be (N, K, F), got "
+                         f"{tuple(features.shape)}")
+    n, k, f = features.shape
+    if (boxes.dtype != torch.float32 or tuple(boxes.shape) != (n, k, 4)
+            or boxes.device != features.device):
+        raise ValueError(f"boxes must be float32 {(n, k, 4)} on "
+                         f"{features.device}, got {boxes.dtype} "
+                         f"{tuple(boxes.shape)} on {boxes.device}")
+    if features.dtype not in _DTYPE_CODE:
+        raise TypeError(f"features must be float32, bfloat16 or int8, got "
+                        f"{features.dtype}")
+    if (features.dtype == torch.int8) != (scales is not None):
+        raise TypeError("an int8 table needs its scales, and only an int8 "
+                        "table takes scales")
+    if scales is not None and (scales.dtype != torch.float32
+                               or tuple(scales.shape) != (n, k)
+                               or scales.device != features.device):
+        raise ValueError(f"scales must be float32 {(n, k)} on "
+                         f"{features.device}")
+    if node_dtype not in _OUT_CODE:
+        raise TypeError(f"node_dtype must be float32 or bfloat16, got "
+                        f"{node_dtype}")
+    b, ld = rows.shape[0], node_row_stride(f + 4, padded)
+    if out is not None:
+        buf, bx = out
+        if ((tuple(buf.shape), buf.dtype) != ((b, k, ld), node_dtype)
+                or (tuple(bx.shape), bx.dtype) != ((b, k, 4), torch.float32)
+                or any(t.device != features.device or not t.is_contiguous()
+                       for t in out)):
+            raise ValueError(f"out must be contiguous {node_dtype} "
+                             f"{(b, k, ld)} and float32 {(b, k, 4)} "
+                             f"tensors on {features.device}")
+    if features.device.type == "cpu":
+        res = gather_image_reference(features, boxes, rows, scales,
+                                     node_dtype, padded)
+        if out is None:
+            return res
+        buf[..., :f + 4].copy_(res.nodes)
+        buf[..., f + 4:].zero_()
+        return NodeImage(buf[..., :f + 4], bx.copy_(res.boxes))
+    if not all(t.is_contiguous() for t in (features, boxes, rows, scales)
+               if t is not None):
+        raise ValueError("features, boxes, rows and scales must be "
+                         "contiguous")
+    if out is None:
+        buf = torch.empty((b, k, ld), dtype=node_dtype,
+                          device=features.device)
+        bx = torch.empty((b, k, 4), dtype=torch.float32,
+                         device=features.device)
+    if b > 0:
+        lib = _build.load("gather_rows")
+        stream = torch.cuda.current_stream(features.device).cuda_stream
+        rc = lib.gather_image_rows(
+            features.data_ptr(),
+            None if scales is None else scales.data_ptr(), boxes.data_ptr(),
+            rows.data_ptr(), buf.data_ptr(), bx.data_ptr(), n, b, k, f, ld,
+            _DTYPE_CODE[features.dtype], _OUT_CODE[node_dtype], stream)
+        _build.check(rc, "gather_image_rows")
+        gather_image_rows.launches += 1
+    return NodeImage(buf[..., :f + 4], bx)
+
+
+gather_image_rows.launches = 0

@@ -183,7 +183,8 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     if cache is _UNSET:
         cache = make_feature_cache(train_ds, train_cfg,
                                    model_cfg.compute_dtype, dev)
-    image_fn = make_image_fn(cache)
+    image_fn = make_image_fn(cache, model_cfg.compute_dtype,
+                             model_cfg.merged_block)
     loader = Batcher(train_ds, bs, shuffle=True, seed=train_cfg.seed,
                      drop_last=True, materialize=cache is None)
     steps_per_epoch = len(loader)
@@ -202,7 +203,8 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         if val_cache is None:
             val_fn = lambda: mini_validation(model, val_iter)  # noqa: E731
         else:
-            val_image_fn = make_image_fn(val_cache)
+            val_image_fn = make_image_fn(val_cache, model_cfg.compute_dtype,
+                                         model_cfg.merged_block)
             val_fn = lambda: mini_validation_resident(  # noqa: E731
                 model, val_iter, val_image_fn, dev)
     logger = MetricLogger(train_cfg.log_interval, jsonl_path, batch_size=bs)
@@ -287,7 +289,8 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
     if cache is _UNSET:
         cache = make_feature_cache(ds, train_cfg or TrainConfig(
             batch_size=batch_size), model.cfg.compute_dtype, dev)
-    image_fn = make_image_fn(cache)
+    image_fn = make_image_fn(cache, model.cfg.compute_dtype,
+                             model.cfg.merged_block)
     batches = iter(Batcher(ds, batch_size, shuffle=False,
                            materialize=cache is None))
     if max_batches is not None:

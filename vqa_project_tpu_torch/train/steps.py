@@ -6,8 +6,8 @@ Counterpart of ``vqa_project_tpu/train/steps.py``. Ingest modes:
   (a ``(features, boxes)`` pair or a ``QuantizedFeatureCache``); a batch
   carries token ids, lengths, image rows and SPARSE answer/vote entries
   (``data.loader.pack_index_batch``), and the step gathers its images
-  with kernels F and G (``make_image_fn``) and densifies its labels on
-  the device;
+  as the model's node rows in one launch (``make_image_fn``, a
+  ``NodeImage``) and densifies its labels on the device;
 - host mode: the batch carries dense images, answers and votes.
 
 One training step is forward, masked loss, backward, Adam and the score;
@@ -24,8 +24,7 @@ import torch
 
 from vqa_project_tpu_torch.config import torch_dtype
 from vqa_project_tpu_torch.data.loader import DENSE_KEYS, pack_index_batch
-from vqa_project_tpu_torch.ops.gather_rows import (gather_rows_blocked,
-                                                   gather_rows_packed)
+from vqa_project_tpu_torch.ops.gather_rows import NodeImage, gather_image_rows
 from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
                                               vqa_score)
 
@@ -33,8 +32,9 @@ from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
 class QuantizedFeatureCache(NamedTuple):
     """int8 device feature table with per-box dequantization scales
     (``ops.quant.quantize_feature_table``): a quarter of the f32 table's
-    memory, half of bf16's. Kernel F dequantizes the gathered rows to
-    ``out_dtype`` (the compute dtype); the model is unchanged."""
+    memory, half of bf16's. The gather dequantizes the rows to
+    ``out_dtype``, which must be the model's compute dtype; the model is
+    unchanged."""
 
     features: torch.Tensor   # (N, K, F) int8
     scales: torch.Tensor     # (N, K) float32
@@ -68,32 +68,30 @@ def sparse_vqa_score(logits: torch.Tensor, vote_idx: torch.Tensor,
     return score.sum()
 
 
-def make_image_fn(feature_cache) -> Optional[Callable]:
-    """``rows (B,) int32 -> (features (B, K, F), boxes (B, K, 4) f32)``
-    for a device feature cache, or None in host mode (no cache).
+def make_image_fn(feature_cache, compute_dtype: str,
+                  merged_block: bool = False) -> Optional[Callable]:
+    """``rows (B,) int32 -> NodeImage`` for a device feature cache, or
+    None in host mode (no cache).
 
-    The features come from kernel F (dequantized there for an int8
-    cache), the boxes from kernel G; a feature table whose rows are not
-    16-byte vectors goes through G as well."""
+    One launch of ``gather_image_rows`` writes the model's input: the
+    node rows feat||bbox in ``compute_dtype`` (an int8 cache dequantized
+    there), in rows padded for the merged block when ``merged_block``,
+    and the f32 boxes. An int8 cache must dequantize to ``compute_dtype``.
+    """
     if feature_cache is None:
         return None
+    node_dtype = torch_dtype(compute_dtype)
     if isinstance(feature_cache, QuantizedFeatureCache):
         features, scales, boxes, out = feature_cache
-        out_dtype = torch_dtype(out)
+        if torch_dtype(out) != node_dtype:
+            raise ValueError(f"the int8 cache dequantizes to {out}, the "
+                             f"model computes in {compute_dtype}")
+    else:
+        (features, boxes), scales = feature_cache, None
 
-        def image_fn(rows):
-            return (gather_rows_packed(features, rows, scales, out_dtype),
-                    gather_rows_blocked(boxes, rows))
-
-        return image_fn
-    features, boxes = feature_cache
-    row_bytes = features[0].numel() * features.element_size()
-    gather = (gather_rows_packed
-              if row_bytes % 16 == 0 and features.data_ptr() % 16 == 0
-              else gather_rows_blocked)
-
-    def image_fn(rows):
-        return gather(features, rows), gather_rows_blocked(boxes, rows)
+    def image_fn(rows) -> NodeImage:
+        return gather_image_rows(features, boxes, rows, scales, node_dtype,
+                                 padded=merged_block)
 
     return image_fn
 
