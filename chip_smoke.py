@@ -100,6 +100,21 @@ Phases, in order; the first failure exits non-zero:
     B 1, E 1 + 1, the image gather 1 (into padded rows), F 0, G 0, and
     step 1's loss within 1e-2 of phase 11's; the merged serving forward at B=16 launches H and B once and
     not A and picks the unmerged answer on >= 75% of rows;
+15. the CLI from files, the main path (in a temporary working
+    directory): the port's blosc decoder builds and decodes the committed
+    frames of tests/fixtures/blosc/ bit for bit; cli.run.main in this
+    process with --synthetic at full VQA v2 width (512 images of 36 x
+    2048 written as zlib zarr, packed once and cached on the card in
+    bf16; 3000 answers, 12k words, 2560 questions, batch 64): --train
+    for 2 epochs with phase 11's launches per step (the mini-validations'
+    taken out), per-epoch checkpoints and finite losses; --train resumed
+    from the epoch-1 checkpoint, its epoch-2 windows equal bit for bit;
+    --eval from the epoch-2 checkpoint, its accuracy equal to evaluate()'s,
+    result.json one row per question, per batch the image gather 1, A 2,
+    B 1; --test without an accuracy; --trainval for one epoch, its named
+    .pt loaded by load_reference_checkpoint into a fresh model that
+    answers the val split as the trained one; the pack time, fit's
+    median step beside phase 11's and --eval's questions/s printed;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -134,11 +149,14 @@ fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import http.client
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -149,10 +167,14 @@ import time
 import numpy as np
 import torch
 
+from vqa_project_tpu_torch.cli import run as cli
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
-from vqa_project_tpu_torch.data import (FeatureStore, generate_synthetic_vqa,
+from vqa_project_tpu_torch.data import (FeatureStore, GraphVQADataset,
+                                        generate_synthetic_vqa, native,
                                         pack_index_batch, tokenize)
-from vqa_project_tpu_torch.models import GraphVQAModel
+from vqa_project_tpu_torch.data.store import pack_paths
+from vqa_project_tpu_torch.models import (GraphVQAModel,
+                                          load_reference_checkpoint)
 from vqa_project_tpu_torch.models.graph_vqa import GaussianGraphConv
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
@@ -1303,7 +1325,7 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
     step (the mini-validation's forwards launch A twice, or H once with
     the merged block, B once, and with a cache the image gather once, per
     batch).
-    Returns (model, per-step losses, launch counts)."""
+    Returns (model, per-step losses, launch counts, median step ms)."""
     mcfg = ModelConfig(**FULL, merged_block=merged)  # bf16, dropout 0.5
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(lr=1e-4, epochs=1, batch_size=TRAIN_B,
@@ -1364,7 +1386,7 @@ def run_fit(dev, ds, cache, label, n_steps=20, val_batches=10,
     require(counts["edge_aggregate_fwd"] == (0 if merged
                                              else 2 * val_batches),
             "kernel A ran outside the mini-validation")
-    return model, losses, counts
+    return model, losses, counts, med
 
 
 def train_cache_main_path(dev, ds, cache, host_losses):
@@ -1373,7 +1395,7 @@ def train_cache_main_path(dev, ds, cache, host_losses):
     bit, and every step's within 1e-3."""
     require(isinstance(cache, tuple) and cache[0].dtype == torch.bfloat16
             and cache[0].device.type == "cuda", "no bf16 cache on the card")
-    model, losses, counts = run_fit(dev, ds, cache, "device cache")
+    model, losses, counts, med = run_fit(dev, ds, cache, "device cache")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, host_losses)]
     print("relative loss difference from host mode (phase 9), per step: "
           + json.dumps(rel), flush=True)
@@ -1382,7 +1404,7 @@ def train_cache_main_path(dev, ds, cache, host_losses):
             f"{host_losses[0]!r}")
     require(max(rel) <= 1e-3, "a cache-mode step's loss differs from host "
             "mode's by more than 1e-3")
-    return model, losses, counts
+    return model, losses, counts, med
 
 
 def profile(fn, label: str, n: int = 10) -> None:
@@ -3055,8 +3077,8 @@ def train_merged_main_path(dev, ds, cache, cache_losses):
     F 1, G 1; step 1's loss (same weights, batch and dropout draws as
     phase 11) within 1e-2 relative of phase 11's: the block keeps the
     projections in f32, where the unmerged path rounds them to bf16."""
-    model, losses, counts = run_fit(dev, ds, cache, "merged block, device "
-                                    "cache", merged=True)
+    model, losses, counts, _ = run_fit(dev, ds, cache, "merged block, "
+                                       "device cache", merged=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, cache_losses)]
     print("relative loss difference from the unmerged cache mode (phase "
           "11), per step: " + json.dumps(rel), flush=True)
@@ -3111,6 +3133,276 @@ def time_merged_steps(dev, n=10, n_images=4096):
     return out
 
 
+# ---------------- the CLI from files ----------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# `--synthetic` at full VQA v2 width: 512 images of 36 x 2048 f32 (151 MB
+# as zlib zarr), a 3000-answer head over 1500 classes in binary, 12k
+# question words, 2560 questions (train 1920: 30 steps of 64; val 640: 10
+# batches; test 640); the model flags keep their defaults (hid 1024, 8
+# kernels, 16 neighbours, K=36, bf16, dropout 0.5)
+CLI_DATA = ["--synthetic", "--data_dir", "data", "--synthetic_feat_dim",
+            "2048", "--synthetic_answers", "3000", "--synthetic_classes",
+            "1500", "--synthetic_encoding", "binary", "--synthetic_vocab",
+            "12000", "--synthetic_images", "512", "--synthetic_questions",
+            "2560", "--bsize", str(TRAIN_B)]
+# one resident evaluation batch: the image gather, A in both
+# convolutions, B
+EVAL_BATCH_LAUNCHES = {"gather_image_rows": 1, "edge_aggregate_fwd": 2,
+                       "gru_scan_fwd": 1}
+
+
+def check_blosc_fixtures() -> float:
+    """Phase 15: the port's blosc decoder builds and decodes the
+    committed frames of tests/fixtures/blosc/ to their bytes, bit for
+    bit. Returns the build's seconds."""
+    t0 = time.perf_counter()
+    native.load_native()
+    build_s = time.perf_counter() - t0
+    folder = os.path.join(REPO, "tests", "fixtures", "blosc")
+    with open(os.path.join(folder, "manifest.json")) as f:
+        cases = json.load(f)
+    for case in cases:
+        with open(os.path.join(folder, case["name"] + ".blosc"), "rb") as f:
+            frame = f.read()
+        with open(os.path.join(folder, case["name"] + ".raw"), "rb") as f:
+            raw = f.read()
+        require(native.native_blosc_decompress(frame, len(raw)) == raw,
+                f"blosc frame {case['name']} decoded wrongly")
+    print(f"blosc decoder built in {build_s:.2f} s at "
+          f"{native.native_lib_path()}; {len(cases)} committed frames "
+          f"({', '.join(c['name'] for c in cases)}) decoded bit for bit",
+          flush=True)
+    return build_s
+
+
+class _Tee(io.StringIO):
+    """Standard output kept and still printed."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def cli_main(argv):
+    """``cli.main(argv)`` in this process: (stdout, launch counts, wall
+    seconds); the counts are set to 0 just before and read just after."""
+    out = _Tee()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return out.getvalue(), read_counts(), time.perf_counter() - t0
+
+
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _pack_mtimes(sdir):
+    (meta, feat, box), _ = pack_paths(
+        os.path.join(sdir, "trainval.zarr"),
+        os.path.join(sdir, "trainval_boxes.zarr"),
+        os.path.join(sdir, "trainval_image_size.csv"), FULL["n_obj"])
+    return {p: os.stat(p).st_mtime_ns for p in (meta, feat, box)}
+
+
+def cli_sizes():
+    """(train steps an epoch, val batches, test questions) of CLI_DATA."""
+    args, _, _ = cli.input_args(CLI_DATA)
+    n_train = int(args.synthetic_questions * 0.75)
+    return (n_train // args.bsize,
+            -(-(args.synthetic_questions - n_train) // args.bsize),
+            args.synthetic_questions // 4)
+
+
+def cli_train(smi, cache_step_ms):
+    """Phase 15, --train: two epochs; per step phase 11's launches
+    (the two mini-validations' launches taken out), checkpoints per
+    epoch, finite losses. Returns the median step ms."""
+    out, counts, wall = cli_main(
+        ["--train", *CLI_DATA, "--ep", "2", "--log_interval", "5",
+         "--eval_interval", "20", "--save_dir", "run"])
+    steps_per_epoch, val_batches, _ = cli_sizes()
+    n_steps = 2 * steps_per_epoch
+    per_step = dict(counts)
+    for k, v in EVAL_BATCH_LAUNCHES.items():
+        per_step[k] -= 2 * val_batches * v
+    per_step = {k: v / n_steps for k, v in per_step.items()}
+    recs = _records(os.path.join("run", "metrics.jsonl"))
+    require(os.path.exists(os.path.join("run", "model_1.ckpt"))
+            and os.path.exists(os.path.join("run", "model_2.ckpt")),
+            "--train wrote no per-epoch checkpoints")
+    require(len(recs) == n_steps // 5
+            and all(math.isfinite(r["loss"]) for r in recs),
+            f"--train's logged windows {recs}")
+    require(out.count("Validation accuracy") == 2,
+            "--train ran other than two mini-validations")
+    # one window's ms per step, skipping the first window (warm-up)
+    step_ms = [1e3 / r["steps_per_sec"] for r in recs[1:]]
+    med = statistics.median(step_ms)
+    print(f"--train (CLI, {smi}): {n_steps} steps at full width in "
+          f"{wall:.3f} s with 2 mini-validations; losses "
+          f"{recs[0]['loss']:.5f} -> {recs[-1]['loss']:.5f}, all finite; "
+          f"median step {med:.3f} ms over windows 2-{len(recs)} of 5 steps "
+          f"(host clock; phase 11's fit() median {cache_step_ms:.3f} ms); "
+          f"launches {counts}, per train step {per_step}", flush=True)
+    require(per_step == CACHE_STEP_LAUNCHES, f"launches per train step "
+            f"{per_step}, want {CACHE_STEP_LAUNCHES}")
+    return med
+
+
+def cli_resume():
+    """Phase 15, --train resumed from the epoch-1 checkpoint: its windows
+    of epoch 2 equal the uninterrupted run's bit for bit."""
+    cli_main(["--train", *CLI_DATA, "--ep", "2", "--log_interval", "5",
+              "--eval_interval", "20", "--save_dir", "resumed",
+              "--model_path", os.path.join("run", "model_1.ckpt")])
+    keys = ("epoch", "step", "loss", "vqa_acc", "lr")
+    want = [[r[k] for k in keys]
+            for r in _records(os.path.join("run", "metrics.jsonl"))
+            if r["epoch"] == 1]
+    got = [[r[k] for k in keys]
+           for r in _records(os.path.join("resumed", "metrics.jsonl"))
+           if r["epoch"] == 1]
+    require(len(want) == cli_sizes()[0] // 5 and got == want,
+            f"the resumed run's epoch 2 {got} differs from the "
+            f"uninterrupted run's {want}")
+    print(f"--train --model_path run/model_1.ckpt: epoch 2's {len(got)} "
+          f"windows (loss, accuracy, step, lr) equal the uninterrupted "
+          f"run's bit for bit", flush=True)
+
+
+def _cli_model(dev, ds, state_dict):
+    """A fresh model of CLI_DATA's flags holding ``state_dict``."""
+    mcfg, _ = cli.make_configs(cli.input_args(CLI_DATA)[0])
+    model = build_model(mcfg, ds, device=dev)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def cli_eval_test(dev, smi, sdir):
+    """Phase 15, --eval and --test from the epoch-2 checkpoint: the
+    printed accuracy equals an in-process evaluate() of that checkpoint,
+    result.json has one row per question, per batch the image gather 1,
+    A 2, B 1. Returns (CLI questions/s, evaluate questions/s)."""
+    ckpt = os.path.join("run", "model_2.ckpt")
+    out, counts, wall = cli_main(["--eval", *CLI_DATA, "--model_path",
+                                  ckpt])
+    (acc,) = [float(line.split()[1]) for line in out.splitlines()
+              if line.startswith("accuracy: ")]
+    with open("result.json") as f:
+        rows = json.load(f)
+    val = GraphVQADataset.vqa2(sdir, "val")
+    _, val_batches, n_test = cli_sizes()
+    require(len(rows) == val.n_questions, f"--eval wrote {len(rows)} rows")
+    want = {k: 0 for k in counts}
+    want.update({k: val_batches * v for k, v in EVAL_BATCH_LAUNCHES.items()})
+    require(counts == want, f"--eval launches {counts}, want {want}")
+    model = _cli_model(dev, val, load_reference_checkpoint(ckpt))
+    cache = make_feature_cache(val, TrainConfig(), model.cfg.compute_dtype,
+                               dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc_in, result, _ = evaluate(model, val, TRAIN_B, result_path=None,
+                                     cache=cache, device=dev)
+        times.append(time.perf_counter() - t0)
+    require(acc_in == acc and result == rows,
+            f"--eval's accuracy {acc!r} or answers differ from evaluate()'s "
+            f"{acc_in!r}")
+    cli_qps = val.n_questions / wall
+    eval_qps = val.n_questions / statistics.median(times)
+    print(f"--eval (CLI, {smi}): accuracy {acc} % equal to evaluate() of "
+          f"the checkpoint, {len(rows)} rows; launches {counts}; "
+          f"{cli_qps:.1f} questions/s end to end ({wall:.3f} s: the "
+          f"dataset, the model, the checkpoint, the cache upload and the "
+          f"resident evaluation); evaluate() alone on a built cache "
+          f"{eval_qps:.1f} questions/s (median of 3, host clock)",
+          flush=True)
+    out, _, _ = cli_main(["--test", *CLI_DATA, "--model_path", ckpt])
+    with open("result.json") as f:
+        rows = json.load(f)
+    require(len(rows) == n_test and "accuracy" not in out,
+            f"--test wrote {len(rows)} rows, want {n_test}, and no accuracy")
+    print(f"--test: result.json holds {len(rows)} rows, no accuracy "
+          f"printed", flush=True)
+    return cli_qps, eval_qps
+
+
+def cli_trainval(dev, sdir):
+    """Phase 15, --trainval for one epoch: the named .pt loads through
+    load_reference_checkpoint into a fresh model whose weights equal the
+    trained model's bit for bit and which answers the val split as the
+    trained one does."""
+    args, _, unparsed = cli.input_args(["--trainval", *CLI_DATA, "--ep", "1",
+                                        "--log_interval", "10",
+                                        "--save_dir", "tv"])
+    require(not unparsed, f"unparsed {unparsed}")
+    trained, path, acc = cli.trainval(args)
+    val = GraphVQADataset.vqa2(sdir, "val")
+    fresh = _cli_model(dev, val, load_reference_checkpoint(path))
+    weights = trained.state_dict()
+    require(all(torch.equal(v, weights[k])
+                for k, v in fresh.state_dict().items()),
+            "the .pt's weights differ from the trained model's")
+    got = evaluate(fresh, val, TRAIN_B, result_path=None, device=dev)
+    want = evaluate(trained, val, TRAIN_B, result_path=None, device=dev)
+    require(got[:2] == want[:2], "the .pt's model answers otherwise")
+    print(f"--trainval --ep 1: {os.path.basename(path)} (epoch accuracy "
+          f"{acc:.2f}%); a fresh model from load_reference_checkpoint "
+          f"holds the trained weights bit for bit and answers the val "
+          f"split as the trained one (accuracy "
+          f"{got[0]:.4f}%, {len({r['answer'] for r in got[1]})} distinct "
+          f"answers)", flush=True)
+
+
+def cli_main_path(dev, smi, cache_step_ms):
+    """Phase 15, the main path: the CLI from files, in a temporary
+    working directory."""
+    t_phase = time.perf_counter()
+    check_blosc_fixtures()
+    old_cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        os.chdir(work)
+        args, _, _ = cli.input_args(CLI_DATA)
+        t0 = time.perf_counter()
+        sdir = cli.synthetic_dir(args)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        FeatureStore.from_zarr(
+            os.path.join(sdir, "trainval.zarr"),
+            os.path.join(sdir, "trainval_boxes.zarr"),
+            os.path.join(sdir, "trainval_image_size.csv"), FULL["n_obj"])
+        pack_s = time.perf_counter() - t0
+        packed = _pack_mtimes(sdir)
+        size = os.path.getsize(next(p for p in packed if
+                                    p.endswith("_feat.npy")))
+        print(f"synthetic set written as zlib zarr in {write_s:.3f} s; "
+              f"pack of the {args.synthetic_images}-image store "
+              f"({size / 1e6:.1f} MB f32) {pack_s:.3f} s ({smi})",
+              flush=True)
+        med = cli_train(smi, cache_step_ms)
+        require(_pack_mtimes(sdir) == packed, "the CLI packed the store "
+                "again")
+        cli_resume()
+        cli_qps, eval_qps = cli_eval_test(dev, smi, sdir)
+        cli_trainval(dev, sdir)
+    finally:
+        os.chdir(old_cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 15 in {phase_s:.1f} s ({smi}): " + json.dumps({
+        "pack_s": pack_s, "fit_median_step_ms": med,
+        "phase11_median_step_ms": cache_step_ms,
+        "eval_cli_questions_per_s": cli_qps,
+        "evaluate_questions_per_s": eval_qps}), flush=True)
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -3149,7 +3441,7 @@ def main() -> int:
     train_step_card_vs_cpu(dev, gen)
     phase("9 training (main path)")
     ds = train_dataset()
-    _, host_losses, counts = run_fit(dev, ds, None, "host mode")
+    _, host_losses, counts, _ = run_fit(dev, ds, None, "host mode")
     phase("6 timing (training)")
     entries += measure_training(dev, gen, counts, errs)
     phase("10 gather kernels against their plain versions")
@@ -3158,7 +3450,7 @@ def main() -> int:
     phase("11 training with the device cache (main path)")
     cache = make_feature_cache(ds["train"], TrainConfig(),
                                ModelConfig().compute_dtype, dev)
-    model, cache_losses, cache_counts = train_cache_main_path(
+    model, cache_losses, cache_counts, cache_step_ms = train_cache_main_path(
         dev, ds, cache, host_losses)
     phase("12 evaluate to result.json")
     evaluate_checks(dev, model, ds, cache)
@@ -3177,6 +3469,8 @@ def main() -> int:
     phase("6 timing (merged block)")
     entries += time_graph_block(dev, gen, merged_counts, errs)
     time_merged_steps(dev)
+    phase("15 the CLI from files (main path)")
+    cli_main_path(dev, smi, cache_step_ms)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

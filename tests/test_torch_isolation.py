@@ -33,6 +33,9 @@ def test_scan_covers_the_port():
     assert "vqa_project_tpu_torch/serve.py" in names
     assert "vqa_project_tpu_torch/ops/edge_aggregate.py" in names
     assert "vqa_project_tpu_torch/ops/graph_block.py" in names
+    assert "vqa_project_tpu_torch/cli/run.py" in names
+    assert "vqa_project_tpu_torch/data/zarr_store.py" in names
+    assert "vqa_project_tpu_torch/data/native/__init__.py" in names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -6,7 +6,8 @@ serving and training paths' kernels (the graph aggregation forward and
 backward, the GRU scan and its backward) are hand-written CUDA for
 Hopper (``csrc/``); each has a plain PyTorch version beside it that
 serves CPU tensors. Entry points (``serve.InferenceServer``,
-``train.fit``) take a ``device`` argument that defaults to ``"cuda"``.
+``train.fit``, the CLI ``python -m vqa_project_tpu_torch.cli.run``) take
+a device that defaults to ``"cuda"``.
 """
 
 from vqa_project_tpu_torch.config import (ModelConfig, TrainConfig,

@@ -1,0 +1,276 @@
+"""VQA v2 CLI: train / trainval / eval / test, on the card.
+
+    python -m vqa_project_tpu_torch.cli.run --train --data_dir ./data
+    python -m vqa_project_tpu_torch.cli.run --eval --model_path m.ckpt
+
+Counterpart of ``vqa_project_tpu/cli/run.py`` with its flag names and
+defaults, reading the same artifacts (``GraphVQADataset.vqa2``) or, with
+``--synthetic``, generating them under ``<data_dir>/synthetic`` (again
+when a ``--synthetic_*`` knob changes). Left out: ``--num_devices``,
+``--tp`` and ``--grad_reduce_dtype`` (one card), ``--adam_mu_dtype``,
+``--adam_nu_dtype`` and ``--fast_math`` (Adam keeps float32 moments),
+and the TPU-only ``--pallas``, ``--no_pallas`` and ``--pallas_gather``:
+passing any of them, or any other unknown argument, raises SystemExit.
+Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
+versions of the kernels).
+
+- ``--train``: fit on the train split with a mini-validation on val
+  every ``--eval_interval`` steps, ``{save_dir}/{name}_{epoch}.ckpt``
+  after each epoch and ``{save_dir}/metrics.jsonl``; ``--model_path``
+  resumes (a port checkpoint or a reference ``.pt``).
+- ``--trainval``: fit on train + val and save
+  ``{save_dir}/vqa_{n_obj}_{n_kernels}_{neighbourhood_size}_{acc:.2f}.pt``
+  (a port checkpoint whose ``state_dict`` has the reference's names).
+- ``--eval`` / ``--test``: load ``--model_path`` (a port checkpoint or a
+  reference ``.pt``, bare or full dict), write the EvalAI
+  ``result.json`` to the working directory, and for ``--eval`` print the
+  val accuracy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+
+from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
+from vqa_project_tpu_torch.data import GraphVQADataset, write_synthetic_vqa
+
+
+def input_args(argv=None):
+    """(args, parser, unparsed arguments)."""
+    parser = argparse.ArgumentParser(
+        description="Conditional Graph Convolutions for VQA (PyTorch/CUDA)")
+    parser.add_argument("--train", action="store_true", default=False,
+                        help="set this to training mode.")
+    parser.add_argument("--trainval", action="store_true", default=False,
+                        help="set this to train+val mode.")
+    parser.add_argument("--eval", action="store_true", default=False,
+                        help="set this to evaluation mode.")
+    parser.add_argument("--test", action="store_true", default=False,
+                        help="set this to test mode.")
+    parser.add_argument("--lr", metavar="", type=float, default=1e-4,
+                        help="initial learning rate")
+    parser.add_argument("--ep", metavar="", type=int, default=40,
+                        help="number of epochs.")
+    parser.add_argument("--bsize", metavar="", type=int, default=64,
+                        help="batch size.")
+    parser.add_argument("--n_kernels", type=int, default=8,
+                        help="number of Gaussian kernels.")
+    parser.add_argument("--hid", metavar="", type=int, default=1024,
+                        help="hidden dimension")
+    parser.add_argument("--emb", metavar="", type=int, default=300,
+                        help="question embedding dimension")
+    parser.add_argument("--neighbourhood_size", type=int, default=16,
+                        help="number of graph neighbours to consider")
+    parser.add_argument("--n_obj", type=int, default=36,
+                        help="number of boxes per image")
+    parser.add_argument("--data_dir", metavar="", type=str, default="./data",
+                        help="path to data directory")
+    parser.add_argument("--save_dir", type=str, default="./save")
+    parser.add_argument("--plot_dir", type=str, default="./figures")
+    parser.add_argument("--log_interval", type=int, default=40)
+    parser.add_argument("--eval_interval", type=int, default=400)
+    parser.add_argument("--name", metavar="", type=str, default="model",
+                        help="model name")
+    parser.add_argument("--dropout", metavar="", type=float, default=0.5,
+                        help="dropout probability")
+    parser.add_argument("--model_path", type=str, default=None,
+                        help="trained model path.")
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"])
+    parser.add_argument("--feature_cache_dtype", type=str, default="auto",
+                        choices=["auto", "bfloat16", "float32", "int8"],
+                        help="dtype of the feature table on the card: "
+                             "auto follows --compute_dtype; int8 "
+                             "row-quantizes it")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (cpu runs the plain PyTorch "
+                             "versions of the kernels)")
+    add_synthetic_args(parser)
+    parser.add_argument("--seed", type=int, default=1000)
+    args, unparsed = parser.parse_known_args(argv)
+    return args, parser, unparsed
+
+
+def add_synthetic_args(parser) -> None:
+    """The --synthetic flag group (``synthetic_dir`` reads every knob)."""
+    parser.add_argument("--synthetic", action="store_true",
+                        help="run on a generated synthetic mini-dataset")
+    parser.add_argument("--synthetic_questions", type=int, default=96,
+                        help="QA pairs in the synthetic set (changing any "
+                             "--synthetic_* knob regenerates the dataset "
+                             "in place on the next run)")
+    parser.add_argument("--synthetic_images", type=int, default=24)
+    parser.add_argument("--synthetic_feat_dim", type=int, default=64)
+    parser.add_argument("--synthetic_vocab", type=int, default=40)
+    parser.add_argument("--synthetic_answers", type=int, default=12,
+                        help="answer-vocab size of the synthetic set "
+                             "(3000 = the real VQA v2 head)")
+    parser.add_argument("--synthetic_classes", type=int, default=0,
+                        help="distinct image classes (0 = answers/2)")
+    parser.add_argument("--synthetic_encoding", type=str,
+                        default="scalar", choices=["scalar", "binary"],
+                        help="how the image class is written into the "
+                             "features (binary scales to many classes)")
+
+
+def make_configs(args):
+    mcfg = ModelConfig(
+        emb_dim=args.emb, hid_dim=args.hid, n_kernels=args.n_kernels,
+        neighbourhood_size=args.neighbourhood_size, n_obj=args.n_obj,
+        dropout=args.dropout, compute_dtype=args.compute_dtype)
+    tcfg = TrainConfig(
+        lr=args.lr, epochs=args.ep, batch_size=args.bsize,
+        log_interval=args.log_interval, eval_interval=args.eval_interval,
+        save_dir=args.save_dir, name=args.name, seed=args.seed, feature_cache_dtype=args.feature_cache_dtype)
+    return mcfg, tcfg
+
+
+def synthetic_dir(args) -> str:
+    """``<data_dir>/synthetic``, (re)generated unless its
+    ``fingerprint.json`` holds exactly these --synthetic_* knobs (the
+    JAX CLI's rule and file, so either CLI reuses the other's set)."""
+    sdir = os.path.join(args.data_dir, "synthetic")
+    knobs = dict(n_obj=args.n_obj,
+                 n_questions=args.synthetic_questions,
+                 n_images=args.synthetic_images,
+                 feat_dim=args.synthetic_feat_dim,
+                 q_vocab=args.synthetic_vocab,
+                 n_answers=args.synthetic_answers,
+                 n_classes=args.synthetic_classes,
+                 class_encoding=args.synthetic_encoding)
+    fp_path = os.path.join(sdir, "fingerprint.json")
+    on_disk = None
+    if os.path.exists(fp_path):
+        with open(fp_path) as f:
+            on_disk = json.load(f)
+    if on_disk != knobs:
+        if os.path.exists(sdir):
+            # wholly generated: a smaller set must leave nothing behind
+            print(f"Synthetic knobs changed vs {fp_path}: regenerating the "
+                  "dataset", flush=True)
+            shutil.rmtree(sdir)
+        write_synthetic_vqa(sdir, with_test=True, **knobs)
+        tmp = fp_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(knobs, f)
+        os.replace(tmp, fp_path)   # a crash leaves no half fingerprint
+    return sdir
+
+
+def _dataset(args, split):
+    data_dir = synthetic_dir(args) if args.synthetic else args.data_dir
+    return GraphVQADataset.vqa2(data_dir, split, args.emb, args.n_obj)
+
+
+def train(args):
+    """Train-split mode with periodic mini-validation; returns fit's
+    (model, optimizer, epoch accuracy)."""
+    from vqa_project_tpu_torch.train.loop import fit
+
+    mcfg, tcfg = make_configs(args)
+    print("Loading data", flush=True)
+    train_ds = _dataset(args, "train")
+    val_ds = _dataset(args, "val")
+    _print_params(train_ds, args)
+    return fit(tcfg, mcfg, train_ds, val_ds, device=args.device,
+               resume_path=args.model_path, save_every_epoch=True,
+               jsonl_path=os.path.join(args.save_dir, "metrics.jsonl"))
+
+
+def trainval(args):
+    """Train on train + val and save the named checkpoint; returns
+    (model, its path, epoch accuracy)."""
+    from vqa_project_tpu_torch.train.loop import fit
+    from vqa_project_tpu_torch.train.state import save_checkpoint
+
+    mcfg, tcfg = make_configs(args)
+    print("Loading data", flush=True)
+    ds = _dataset(args, "trainval")
+    _print_params(ds, args)
+    model, optimizer, acc = fit(
+        tcfg, mcfg, ds, device=args.device, resume_path=args.model_path,
+        jsonl_path=os.path.join(args.save_dir, "metrics.jsonl"))
+    os.makedirs(args.save_dir, exist_ok=True)
+    name = (f"vqa_{args.n_obj}_{args.n_kernels}_"
+            f"{args.neighbourhood_size}_{acc:.2f}.pt")
+    path = os.path.join(args.save_dir, name)
+    step = max((int(s["step"]) for s in optimizer.state.values()),
+               default=0)
+    save_checkpoint(path, model, optimizer, step=step, epoch=tcfg.epochs,
+                    model_cfg=model.cfg, train_cfg=tcfg,
+                    extra={"accuracy": acc, "config": vars(args)})
+    print(f"Saved {name}", flush=True)
+    return model, path, acc
+
+
+def eval_model(args):
+    """Validation accuracy and result.json; returns the accuracy."""
+    acc = _run_eval(args, split="val")
+    print("accuracy: {} %".format(acc), flush=True)
+    print("Validation done", flush=True)
+    return acc
+
+
+def test(args):
+    """The test split's result.json for EvalAI: its questions carry no
+    answers, so no accuracy is computed or printed."""
+    _run_eval(args, split="test")
+    print("Testing done", flush=True)
+
+
+def _run_eval(args, split):
+    from vqa_project_tpu_torch.models.weights import load_reference_checkpoint
+    from vqa_project_tpu_torch.train.loop import build_model, evaluate
+    from vqa_project_tpu_torch.train.state import require_torch_file
+
+    if not (args.model_path and os.path.isfile(args.model_path)):
+        raise SystemExit("Need to provide model path.")
+    require_torch_file(args.model_path)
+    print("Resuming from checkpoint %s" % args.model_path, flush=True)
+    mcfg, tcfg = make_configs(args)
+    print("Loading data", flush=True)
+    ds = _dataset(args, split)
+    _print_params(ds, args)
+    model = build_model(mcfg, ds, device=args.device, seed=args.seed)
+    # the port's checkpoint and the reference's .pt (bare or full dict)
+    # both hold the weights under the reference's names
+    model.load_state_dict(load_reference_checkpoint(args.model_path))
+    acc, _, _ = evaluate(model, ds, args.bsize, result_path="result.json",
+                         train_cfg=tcfg, device=args.device)
+    return acc
+
+
+def _print_params(ds, args):
+    print("Parameters:\n\t"
+          "vocab size: %d\n\tembedding dim: %d\n\tfeature dim: %d"
+          "\n\thidden dim: %d\n\toutput dim: %d" % (
+              ds.q_words, args.emb, ds.feat_dim, args.hid, ds.n_answers),
+          flush=True)
+
+
+def main(argv=None) -> None:
+    args, parser, unparsed = input_args(argv)
+    if len(unparsed) != 0:
+        raise SystemExit("Unknown argument: {}".format(unparsed))
+    ran = False
+    if args.train:
+        train(args)
+        ran = True
+    if args.trainval:
+        trainval(args)
+        ran = True
+    if args.eval:
+        eval_model(args)
+        ran = True
+    if args.test:
+        test(args)
+        ran = True
+    if not ran:
+        parser.print_help()
+
+
+if __name__ == "__main__":
+    main()

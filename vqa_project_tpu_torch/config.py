@@ -68,13 +68,18 @@ class TrainConfig:
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """The torch device for ``device``; asking for CUDA without a usable
-    GPU raises instead of quietly running on the CPU."""
+    """The torch device for ``device``, "cuda" with its index (the
+    current card), so that it compares equal to a tensor's device;
+    asking for CUDA without a usable GPU raises instead of quietly
+    running on the CPU."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; "
-            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but CUDA is not available; "
+                "pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

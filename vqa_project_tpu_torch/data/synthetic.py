@@ -1,13 +1,20 @@
-"""Synthetic VQA dataset, in memory.
+"""Synthetic VQA dataset, in memory or as the reference's files.
 
 Counterpart of ``vqa_project_tpu/data/synthetic.py::
 generate_synthetic_vqa``: the same numpy draws in the same order from
-the same seed, so the same images, boxes, classes and questions, but
-returned as ``GraphVQADataset`` objects instead of zarr groups, size CSV,
-vocabulary pickles and QA json on disk. Image rows follow the order the
-JAX loader gives them (ids sorted as strings), boxes are normalized by
-the image size in float32 as that loader does, and the embeddings are
-the loader's no-GloVe ``random_embeddings``.
+the same seed, so the same images, boxes, classes and questions.
+
+- ``write_synthetic_vqa(data_dir, ...)`` writes the artifact set the
+  VQA v2 adapter reads (zarr feature and box groups,
+  ``*_image_size.csv``, ``train_q_dict.p`` / ``train_a_dict.p``,
+  ``vqa_{train,val}_final_3000.json`` and, with ``with_test``, the test
+  store and ``vqa_test_toked.json``), file for file what the JAX
+  generator writes (its raw JPEGs, ``with_images``, are not written);
+- ``generate_synthetic_vqa(...)`` returns the splits as
+  ``GraphVQADataset`` objects with no file written: image rows in the
+  order the loader gives them (ids sorted as strings), boxes normalized
+  by the image size in float32 as the loader does, and the no-GloVe
+  ``random_embeddings``.
 
 The task is learnable: the answer is a function of the question's first
 token (its type) and of a class written into every region feature of
@@ -16,35 +23,24 @@ the image, so training accuracy above chance is a meaningful signal.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict
 
 import numpy as np
 
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
-from vqa_project_tpu_torch.data.store import FeatureStore
+from vqa_project_tpu_torch.data.store import FeatureStore, write_sizes_csv
+from vqa_project_tpu_torch.data.vocab import save_vocab
+from vqa_project_tpu_torch.data.zarr_store import ZarrWriter
 
 
-def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
-                           n_obj: int = 36, feat_dim: int = 64,
-                           q_vocab: int = 40, n_answers: int = 12,
-                           seed: int = 1000, n_classes: int = 0,
-                           class_encoding: str = "scalar",
-                           emb_dim: int = 300, max_qlen: int = 16,
-                           with_test: bool = False
-                           ) -> Dict[str, GraphVQADataset]:
-    """Splits "train" (75% of the questions), "val" and "trainval", and
-    with ``with_test`` a "test" split: n_questions // 4 unannotated
-    questions over the first max(2, n_images // 4) images, with a store
-    of its own (as the test2015 features are), drawn after the other
-    splits so that their draws are unchanged.
-
-    feat_dim is the region feature width without the 4 box channels;
-    n_answers the answer vocabulary (the datasets' n_answers is one more,
-    the pad slot). n_classes (default n_answers // 2) image classes each
-    own two answers, one per question type; class_encoding "scalar"
-    writes the class into channel 0, "binary" writes its bits as +-2
-    across the first ceil(log2(n_classes)) channels.
-    """
+def _draw(n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers,
+          seed, n_classes, class_encoding, with_test):
+    """Every draw of the JAX generator, in its order: per image its size,
+    features (the class written in), class and pixel boxes; then the QA
+    rows of train, val and, with_test, test (unannotated, over the first
+    max(2, n_images // 4) images)."""
     n_classes = n_classes or n_answers // 2
     if 2 * n_classes > n_answers:
         raise ValueError(
@@ -57,7 +53,7 @@ def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
                          f"channels, feat_dim={feat_dim}")
     rng = np.random.default_rng(seed)
 
-    feats, boxes, img_class = {}, {}, {}
+    images, img_class = {}, {}
     for i in range(n_images):
         iid = str(100 + i)
         w, h = int(rng.integers(300, 640)), int(rng.integers(300, 640))
@@ -74,22 +70,11 @@ def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
         b = np.concatenate([xy1, xy1 + wh], axis=-1).astype(np.float32)
         b[:, [0, 2]] *= w           # pixel boxes, as written to disk
         b[:, [1, 3]] *= h
-        size = np.array([w, h], dtype=np.float32)
-        b[:, [0, 2]] /= size[0]     # normalized, as the loader reads them
-        b[:, [1, 3]] /= size[1]
-        feats[iid], boxes[iid] = f, b
-    ids = list(feats)
-    order = sorted(ids)             # the loader's row order
-    store = FeatureStore(np.stack([feats[i] for i in order]),
-                         np.stack([boxes[i] for i in order]),
-                         {iid: row for row, iid in enumerate(order)})
+        images[iid] = (f, b, (w, h))
+    ids = list(images)
 
     q_words = [f"word{i}" for i in range(q_vocab)]
-    q_itow = {i + 1: w for i, w in enumerate(q_words)}
-    q_wtoi = {w: i + 1 for i, w in enumerate(q_words)}
     a_words = [f"answer{i}" for i in range(n_answers)]
-    a_itow = {i: w for i, w in enumerate(a_words)}
-    a_wtoi = {w: i for i, w in enumerate(a_words)}
 
     def make_rows(count, qid0):
         rows = []
@@ -115,21 +100,110 @@ def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
     n_train = int(n_questions * 0.75)
     splits = {"train": make_rows(n_train, 0),
               "val": make_rows(n_questions - n_train, 10_000)}
-    splits["trainval"] = splits["train"] + splits["val"]
-    stores = dict.fromkeys(splits, store)
+    test_ids = ids[:max(2, n_images // 4)]
     if with_test:
-        tids = ids[:max(2, n_images // 4)]
         rows = make_rows(n_questions // 4, 20_000)
         for r in rows:
-            r["image_id"] = tids[int(rng.integers(0, len(tids)))]
+            r["image_id"] = test_ids[int(rng.integers(0, len(test_ids)))]
             del r["answers"], r["answers_w_scores"], r["answer"]
         splits["test"] = rows
-        test_order = sorted(tids)
-        stores["test"] = FeatureStore(
-            np.stack([feats[i] for i in test_order]),
-            np.stack([boxes[i] for i in test_order]),
-            {iid: row for row, iid in enumerate(test_order)})
+    return images, q_words, a_words, splits, test_ids
+
+
+def _vocabs(q_words, a_words):
+    q_itow = {i + 1: w for i, w in enumerate(q_words)}
+    q_wtoi = {w: i + 1 for i, w in enumerate(q_words)}
+    a_itow = {i: w for i, w in enumerate(a_words)}
+    a_wtoi = {w: i for i, w in enumerate(a_words)}
+    return q_itow, q_wtoi, a_itow, a_wtoi
+
+
+def write_synthetic_vqa(data_dir: str, n_images: int = 24,
+                        n_questions: int = 96, n_obj: int = 36,
+                        feat_dim: int = 64, q_vocab: int = 40,
+                        n_answers: int = 12, seed: int = 1000,
+                        with_test: bool = False, n_classes: int = 0,
+                        class_encoding: str = "scalar") -> str:
+    """Write the synthetic set as the reference's VQA v2 artifacts under
+    ``data_dir`` (the arguments and files of the JAX generator); returns
+    ``data_dir``. The questions split 75% train, 25% val; with_test adds
+    n_questions // 4 unannotated test questions over a test store of the
+    first max(2, n_images // 4) images."""
+    images, q_words, a_words, splits, test_ids = _draw(
+        n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers, seed,
+        n_classes, class_encoding, with_test)
+    os.makedirs(data_dir, exist_ok=True)
+
+    def write_store(prefix, ids):
+        feats = ZarrWriter(os.path.join(data_dir, f"{prefix}.zarr"))
+        boxes = ZarrWriter(os.path.join(data_dir, f"{prefix}_boxes.zarr"))
+        for iid in ids:
+            feats.create_dataset(iid, images[iid][0])
+            boxes.create_dataset(iid, images[iid][1])
+        write_sizes_csv(os.path.join(data_dir, f"{prefix}_image_size.csv"),
+                        {iid: images[iid][2] for iid in ids})
+
+    write_store("trainval", list(images))
+    q_itow, q_wtoi, a_itow, a_wtoi = _vocabs(q_words, a_words)
+    save_vocab(os.path.join(data_dir, "train_q_dict.p"), q_itow, q_wtoi)
+    save_vocab(os.path.join(data_dir, "train_a_dict.p"), a_itow, a_wtoi)
+    names = {"train": "vqa_train_final_3000.json",
+             "val": "vqa_val_final_3000.json",
+             "test": "vqa_test_toked.json"}
+    for split, rows in splits.items():
+        with open(os.path.join(data_dir, names[split]), "w") as f:
+            json.dump(rows, f)
+    if with_test:
+        write_store("test", test_ids)
+    return data_dir
+
+
+def _store(images, ids) -> FeatureStore:
+    """The store the loader packs from these images: rows in sorted-id
+    order, boxes divided by the image size in float32."""
+    order = sorted(ids)
+    boxes = []
+    for iid in order:
+        b = images[iid][1].copy()
+        size = np.array(images[iid][2], dtype=np.float32)
+        b[:, [0, 2]] /= size[0]
+        b[:, [1, 3]] /= size[1]
+        boxes.append(b)
+    return FeatureStore(np.stack([images[i][0] for i in order]),
+                        np.stack(boxes),
+                        {iid: row for row, iid in enumerate(order)})
+
+
+def generate_synthetic_vqa(n_images: int = 24, n_questions: int = 96,
+                           n_obj: int = 36, feat_dim: int = 64,
+                           q_vocab: int = 40, n_answers: int = 12,
+                           seed: int = 1000, n_classes: int = 0,
+                           class_encoding: str = "scalar",
+                           emb_dim: int = 300, max_qlen: int = 16,
+                           with_test: bool = False
+                           ) -> Dict[str, GraphVQADataset]:
+    """Splits "train" (75% of the questions), "val" and "trainval", and
+    with ``with_test`` a "test" split: n_questions // 4 unannotated
+    questions over the first max(2, n_images // 4) images, with a store
+    of its own (as the test2015 features are), drawn after the other
+    splits so that their draws are unchanged.
+
+    feat_dim is the region feature width without the 4 box channels;
+    n_answers the answer vocabulary (the datasets' n_answers is one more,
+    the pad slot). n_classes (default n_answers // 2) image classes each
+    own two answers, one per question type; class_encoding "scalar"
+    writes the class into channel 0, "binary" writes its bits as +-2
+    across the first ceil(log2(n_classes)) channels.
+    """
+    images, q_words, a_words, splits, test_ids = _draw(
+        n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers, seed,
+        n_classes, class_encoding, with_test)
+    vocabs = _vocabs(q_words, a_words)
+    splits["trainval"] = splits["train"] + splits["val"]
+    store = _store(images, list(images))
+    stores = dict.fromkeys(splits, store)
+    if with_test:
+        stores["test"] = _store(images, test_ids)
     return {name: GraphVQADataset.from_rows(
-        stores[name], rows, q_itow, q_wtoi, a_itow, a_wtoi,
-        emb_dim=emb_dim, max_qlen=max_qlen)
+        stores[name], rows, *vocabs, emb_dim=emb_dim, max_qlen=max_qlen)
         for name, rows in splits.items()}

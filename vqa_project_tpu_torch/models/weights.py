@@ -61,15 +61,24 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def reference_name(key: str) -> str:
+    """A reference state_dict key under the port's name (the
+    parametrize weight-norm naming -> weight_g / weight_v)."""
+    return (key.replace(".parametrizations.weight.original0", ".weight_g")
+               .replace(".parametrizations.weight.original1", ".weight_v"))
+
+
+def reference_state_dict(ckpt: Mapping) -> Dict[str, torch.Tensor]:
+    """A loaded reference checkpoint (bare state_dict or full dict) as a
+    float32 state_dict under the port's names."""
+    sd = ckpt
+    if isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
+    return {reference_name(key): value.float() for key, value in sd.items()}
+
+
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """``torch.load(weights_only=True)`` of a reference checkpoint, as a
     state_dict the port's model loads directly."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd.get("state_dict"), dict):
-        sd = sd["state_dict"]
-    out: Dict[str, torch.Tensor] = {}
-    for key, value in sd.items():
-        key = (key.replace(".parametrizations.weight.original0", ".weight_g")
-                  .replace(".parametrizations.weight.original1", ".weight_v"))
-        out[key] = value.float()
-    return out
+    return reference_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True))

@@ -95,7 +95,7 @@ def _nvcc() -> str:
     return path
 
 
-def _build_root() -> Path:
+def build_root() -> Path:
     """BUILD_ROOT inside the package where its directory is writable,
     else the same path under the user's cache directory."""
     if os.access(BUILD_ROOT.parent, os.W_OK):
@@ -111,7 +111,7 @@ def build_dir() -> Path:
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return _build_root() / h.hexdigest()[:16]
+    return build_root() / h.hexdigest()[:16]
 
 
 def _compile(nvcc: str, name: str, out: Path) -> subprocess.Popen:

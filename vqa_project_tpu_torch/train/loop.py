@@ -6,16 +6,16 @@ Counterpart of ``vqa_project_tpu/train/loop.py`` on one card:
   when it fits ``device_cache_bytes`` (as a (features, boxes) pair in
   the cache dtype, or int8 with per-box scales), else returns None:
   host mode, dense batches from the host;
-- ``fit`` (what ``run.py --train`` / ``--trainval`` call): shuffled
+- ``fit`` (what ``cli/run.py --train`` / ``--trainval`` call): shuffled
   fixed-shape batches prefetched to the device, one ``train_step`` each,
   the loss and accuracy logged per window of ``log_interval`` steps (one
-  device-to-host fetch per window), the epoch accuracy, and every
-  ``eval_interval`` steps a 10-batch mini-validation plus a checkpoint;
+  device-to-host fetch per window), the epoch accuracy, every
+  ``eval_interval`` steps a 10-batch mini-validation plus a checkpoint,
+  optionally a checkpoint per epoch, and resuming from the port's own
+  checkpoint or from a reference ``.pt``;
 - ``evaluate`` (``--eval`` / ``--test``): the accuracy over a split and
   the EvalAI ``result.json`` ([{question_id, answer}]), through a
   resident epoch with a cache, else streaming.
-
-(Resuming from a checkpoint comes with the CLI.)
 """
 
 from __future__ import annotations
@@ -34,10 +34,16 @@ from vqa_project_tpu_torch.config import (ModelConfig, TrainConfig,
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
 from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
 from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
+from vqa_project_tpu_torch.models.weights import reference_state_dict
 from vqa_project_tpu_torch.ops.quant import quantize_feature_table
 from vqa_project_tpu_torch.train.metrics import MetricLogger
-from vqa_project_tpu_torch.train.state import (make_optimizer,
-                                               save_checkpoint)
+from vqa_project_tpu_torch.train.state import (is_port_checkpoint,
+                                               make_optimizer,
+                                               reference_adam_state,
+                                               require_torch_file,
+                                               restore_checkpoint,
+                                               save_checkpoint,
+                                               set_schedule_step)
 from vqa_project_tpu_torch.train.steps import (QuantizedFeatureCache,
                                                eval_epoch, eval_step,
                                                make_image_fn,
@@ -73,6 +79,8 @@ def _upload(table: np.ndarray, dtype: torch.dtype,
     out = torch.empty(table.shape, dtype=dtype, device=device)
     for i in range(0, table.shape[0], _UPLOAD_ROWS):
         chunk = np.ascontiguousarray(table[i:i + _UPLOAD_ROWS], np.float32)
+        if not chunk.flags.writeable:   # a packed store's read-only memmap
+            chunk = chunk.copy()
         out[i:i + len(chunk)].copy_(torch.from_numpy(chunk).to(device))
     return out
 
@@ -159,23 +167,80 @@ def mini_validation_resident(model, val_iter, image_fn, device,
     return float(total) / max(n_valid, 1.0) * 100.0
 
 
+def _same_store(a, b) -> bool:
+    """True when two FeatureStores are one object or backed by the same
+    packed files (the VQA v2 train and val splits read one store)."""
+    if a is b:
+        return True
+    fa = getattr(a.features, "filename", None)
+    return fa is not None and fa == getattr(b.features, "filename", None)
+
+
+def _resume_checkpoint(path: str, model, optimizer, scheduler,
+                       generator) -> Tuple[int, int, int]:
+    """Restore training state from ``path``; returns (next epoch, steps
+    already run in it, step).
+
+    The port's checkpoint restores the weights, Adam, the scheduler, the
+    step and the dropout generator; ``step_in_epoch > 0`` marks one
+    written mid-epoch at a mini-validation. A reference ``.pt`` (bare
+    state_dict, or the full dict with epoch and torch Adam state)
+    restores the weights and, from a full dict, the Adam moments and
+    their step, which also sets the scheduler; its optimizer state is
+    refused, and the optimizer starts fresh, when it is unusable (as the
+    JAX package does)."""
+    require_torch_file(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if is_port_checkpoint(payload):
+        restore_checkpoint(payload, model, optimizer, scheduler, generator)
+        extra = payload.get("extra") or {}
+        return (int(payload["epoch"]), int(extra.get("step_in_epoch", 0)),
+                int(payload["step"]))
+    model.load_state_dict(reference_state_dict(payload))
+    epoch = step = 0
+    if isinstance(payload.get("state_dict"), dict):
+        epoch = int(payload.get("epoch", 0))
+        try:
+            opt_state, step = reference_adam_state(payload, model, optimizer)
+        except (KeyError, ValueError) as e:
+            print(f"torch checkpoint: optimizer state not imported ({e}); "
+                  "optimizer restarts fresh", flush=True)
+        else:
+            optimizer.load_state_dict(opt_state)
+    set_schedule_step(scheduler, step)
+    return epoch, 0, step
+
+
 def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         train_ds: GraphVQADataset,
         val_ds: Optional[GraphVQADataset] = None, *, device="cuda",
+        resume_path: Optional[str] = None, save_every_epoch: bool = False,
         jsonl_path: Optional[str] = None, cache=_UNSET
         ) -> Tuple[GraphVQAModel, torch.optim.Optimizer, float]:
     """Train for ``train_cfg.epochs`` epochs; returns (model, optimizer,
     accuracy % of the last epoch).
 
     ``cache`` is a prebuilt device feature cache, None for host mode, or
-    (by default) built by ``make_feature_cache``. Batches are shuffled
-    per epoch from ``train_cfg.seed`` and the last partial batch is
-    dropped: index batches with a cache, dense ones without, prefetched
-    ``train_cfg.prefetch`` deep. Dropout draws from one generator on the
-    device, seeded likewise. With ``val_ds``, every ``eval_interval``
-    steps runs a mini-validation (resident with a cache) and writes
-    ``{save_dir}/{name}_{epoch+1}.ckpt``; ``jsonl_path`` receives one
-    record per logged window."""
+    (by default) built by ``make_feature_cache``; val shares the train
+    cache when both read one store, else builds its own. Batches are
+    shuffled per epoch from ``train_cfg.seed`` and the last partial batch
+    is dropped: index batches with a cache, dense ones without,
+    prefetched ``train_cfg.prefetch`` deep. Dropout draws from one
+    generator on the device, seeded likewise. With ``val_ds``, every
+    ``eval_interval`` steps of an epoch runs a mini-validation (resident
+    with a cache) and writes ``{save_dir}/{name}_{epoch+1}.ckpt``;
+    ``save_every_epoch`` writes it after every epoch too; ``jsonl_path``
+    receives one record per logged window.
+
+    ``resume_path`` (a port checkpoint or a reference ``.pt``; a missing
+    file raises FileNotFoundError) continues from it: the epochs run are
+    the checkpoint's next epoch and ``epochs - 1`` more, a mid-epoch
+    checkpoint first finishing its epoch from the batch it stopped at,
+    and the step count goes on from the checkpoint's. Resumed at either
+    kind of checkpoint, the run repeats the uninterrupted one's steps bit
+    for bit."""
+    if resume_path and not os.path.isfile(resume_path):
+        raise FileNotFoundError(f"resume checkpoint not found: {resume_path}")
     dev = resolve_device(device)
     bs = train_cfg.batch_size
     model = build_model(model_cfg, train_ds, device=dev,
@@ -190,11 +255,21 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     steps_per_epoch = len(loader)
     optimizer, scheduler = make_optimizer(model, train_cfg, steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(train_cfg.seed)
-    step = 0
-    val_iter = val_fn = None
+    step = start_epoch = resume_skip = 0
+    if resume_path:
+        print(f"Resuming from checkpoint {resume_path}", flush=True)
+        start_epoch, resume_skip, step = _resume_checkpoint(
+            resume_path, model, optimizer, scheduler, generator)
+        if resume_skip:
+            start_epoch -= 1
+            print(f"Mid-epoch checkpoint: resuming epoch {start_epoch + 1} "
+                  f"at step {resume_skip}/{steps_per_epoch}", flush=True)
+        # epoch e's order is a function of (seed, e): the resumed epoch
+        # sees the batches the uninterrupted run saw, less those done
+        loader.set_epoch(start_epoch, skip=resume_skip)
+    val_fn = None
     if val_ds is not None:
-        # the train split's cache serves val when both read one store
-        val_cache = (cache if val_ds.store is train_ds.store
+        val_cache = (cache if _same_store(val_ds.store, train_ds.store)
                      else make_feature_cache(val_ds, train_cfg,
                                              model_cfg.compute_dtype, dev))
         val_iter = _batches_forever(Batcher(
@@ -217,9 +292,13 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
             extra={"step_in_epoch": int(step_in_epoch)})
 
     epoch_acc = 0.0
-    for ep in range(train_cfg.epochs):
+    for ep in range(start_epoch, start_epoch + train_cfg.epochs):
         totals = np.zeros(3)           # loss, score, valid rows
-        n_steps = 0
+        # n_steps is the position in the epoch (a resumed epoch's
+        # mini-validations land where the uninterrupted run's did);
+        # trained counts the steps run here, the loss's denominator
+        n_steps = resume_skip if ep == start_epoch else 0
+        trained = 0
         window = []
 
         def flush_window():
@@ -240,6 +319,7 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
                                      generator, image_fn))
             step += 1
             n_steps += 1
+            trained += 1
             if len(window) >= logger.log_interval:
                 flush_window()
             if (val_fn is not None and train_cfg.eval_interval
@@ -249,10 +329,12 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
                 checkpoint(ep, n_steps % steps_per_epoch)
         if window:
             flush_window()
-        epoch_acc = 100.0 * totals[1] / max(totals[2], 1.0)
+        epoch_acc = float(100.0 * totals[1] / max(totals[2], 1.0))
         print("Epoch %02d done, average loss: %.3f, average accuracy: "
-              "%.2f%%" % (ep + 1, totals[0] / max(n_steps, 1), epoch_acc),
+              "%.2f%%" % (ep + 1, totals[0] / max(trained, 1), epoch_acc),
               flush=True)
+        if save_every_epoch:
+            checkpoint(ep, 0)
     logger.close()
     return model, optimizer, epoch_acc
 

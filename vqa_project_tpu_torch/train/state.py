@@ -4,7 +4,9 @@ Counterpart of ``vqa_project_tpu/train/state.py``: Adam (betas 0.9 /
 0.999, eps 1e-8, as torch's and optax's defaults) with the reference's
 MultiStepLR, and one checkpoint format, a full dict with the weights
 under the reference's state_dict names, written to a unique temporary
-name and renamed into place so a reader never sees half a file.
+name and renamed into place so a reader never sees half a file. The
+reference's own full-dict ``.pt`` (weights, torch Adam state keyed by
+parameter index, epoch) is read too (``reference_adam_state``).
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ import collections
 import dataclasses
 import os
 import tempfile
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from vqa_project_tpu_torch.config import TrainConfig
+from vqa_project_tpu_torch.models.weights import reference_name
 
 
 def make_optimizer(model: torch.nn.Module, cfg: TrainConfig,
@@ -84,14 +87,124 @@ def load_checkpoint(path: str, model: Optional[torch.nn.Module] = None,
     model, optimizer, scheduler and generator is given; returns the
     payload (step, epoch, extra, configs)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    restore_checkpoint(payload, model, optimizer, scheduler, generator)
+    return payload
+
+
+def restore_checkpoint(payload: dict, model=None, optimizer=None,
+                       scheduler=None, generator=None) -> None:
+    """``load_checkpoint`` on a payload already read. A checkpoint
+    without scheduler state (``--trainval``'s named file) puts the
+    scheduler at the checkpoint's step."""
     if model is not None:
         model.load_state_dict(payload["state_dict"])
     if optimizer is not None and payload.get("optimizer") is not None:
         optimizer.load_state_dict(payload["optimizer"])
-    if scheduler is not None and payload.get("scheduler") is not None:
-        sched = dict(payload["scheduler"])
-        sched["milestones"] = collections.Counter(sched["milestones"])
-        scheduler.load_state_dict(sched)
+    if scheduler is not None:
+        if payload.get("scheduler") is not None:
+            sched = dict(payload["scheduler"])
+            sched["milestones"] = collections.Counter(sched["milestones"])
+            scheduler.load_state_dict(sched)
+        else:
+            set_schedule_step(scheduler, int(payload.get("step", 0)))
     if generator is not None and payload.get("generator") is not None:
         generator.set_state(payload["generator"])
-    return payload
+
+
+def is_torch_file(path: str) -> bool:
+    """True for ``torch.save`` output: zip archives start with "PK",
+    legacy pickles with the 0x80 PROTO opcode and a small protocol byte.
+    The JAX package's msgpack checkpoints start with a fixmap whose
+    second byte is a key string marker (>= 0xa0), so the two never
+    collide."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    return head[:2] == b"PK" or (len(head) == 2 and head[0] == 0x80
+                                 and head[1] < 0x08)
+
+
+def require_torch_file(path: str) -> None:
+    """Raise ValueError unless ``path`` is a torch checkpoint: the port
+    reads its own checkpoints and the reference's ``.pt`` files, not yet
+    the JAX package's msgpack ones."""
+    if not is_torch_file(path):
+        raise ValueError(
+            f"{path} is not a torch checkpoint. A JAX-package (msgpack) "
+            "checkpoint is not read by the port yet (ROADMAP.md, section "
+            "1 item 3: checkpoint interchange); convert it to a reference "
+            ".pt with `python -m vqa_project_tpu.cli.export_torch` first")
+
+
+def is_port_checkpoint(payload) -> bool:
+    """True for a dict written by ``save_checkpoint`` (the reference's
+    full dict has no "step" or "scheduler")."""
+    return (isinstance(payload, dict) and "state_dict" in payload
+            and "step" in payload and "scheduler" in payload)
+
+
+def set_schedule_step(scheduler, step: int) -> None:
+    """Put a MultiStepLR at ``step`` updates done, as if it had been
+    stepped that many times (lr = base x gamma^(milestones <= step))."""
+    passed = sum(c for m, c in scheduler.milestones.items() if m <= step)
+    state = scheduler.state_dict()
+    lrs = [base * scheduler.gamma ** passed for base in scheduler.base_lrs]
+    state.update(last_epoch=int(step), _step_count=int(step) + 1,
+                 _last_lr=lrs)
+    scheduler.load_state_dict(state)
+    for group, lr in zip(scheduler.optimizer.param_groups, lrs):
+        group["lr"] = lr
+
+
+def reference_adam_state(ckpt: dict, model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer
+                         ) -> Tuple[Dict, int]:
+    """``optimizer``'s state_dict holding the Adam moments of a reference
+    full-dict checkpoint, and their step count.
+
+    torch keys Adam's state by the parameter's index in the reference's
+    ``model.parameters()`` order, which (no buffers) is the order of the
+    checkpoint's ``state_dict`` keys: index -> reference name -> the
+    port's parameter of that name, wherever it sits in the port's own
+    order. Raises ValueError (as the JAX package's reader does) when the
+    state is missing, not Adam's, does not cover every parameter, or
+    its per-parameter steps disagree."""
+    opt_sd = ckpt.get("optimizer") or {}
+    state = opt_sd.get("state") or {}
+    if not state:
+        raise ValueError("checkpoint carries no optimizer state")
+    first = next(iter(state.values()))
+    if "exp_avg" not in first:
+        raise ValueError("optimizer state is not Adam-shaped "
+                         f"(fields: {sorted(first)})")
+    counts = {int(torch.as_tensor(s["step"]).reshape(()).item())
+              for s in state.values()}
+    if len(counts) > 1:
+        raise ValueError(f"per-param Adam steps disagree: {sorted(counts)}")
+    count = counts.pop()
+    order = [reference_name(k) for k in ckpt["state_dict"]]
+    named = dict(model.named_parameters())
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    new_state = {}
+    for i, s in state.items():
+        if not 0 <= int(i) < len(order):
+            raise ValueError(f"optimizer state for parameter index {i} of "
+                             f"{len(order)}")
+        name = order[int(i)]
+        param = named.get(name)
+        if param is None or id(param) not in index:
+            raise ValueError(f"optimizer state for unknown parameter {name}")
+        m, v = s["exp_avg"], s["exp_avg_sq"]
+        if m.shape != param.shape or v.shape != param.shape:
+            raise ValueError(f"Adam moments of {name} have shape "
+                             f"{tuple(m.shape)}, the parameter "
+                             f"{tuple(param.shape)}")
+        new_state[index[id(param)]] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": m.float().clone(), "exp_avg_sq": v.float().clone()}
+    missing = sorted(set(index.values()) - set(new_state))
+    if missing:
+        raise ValueError(f"optimizer state lacks {len(missing)} parameters")
+    out = optimizer.state_dict()
+    out["state"] = new_state
+    return out, count
