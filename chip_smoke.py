@@ -115,6 +115,23 @@ Phases, in order; the first failure exits non-zero:
     .pt loaded by load_reference_checkpoint into a fresh model that
     answers the val split as the trained one; the pack time, fit's
     median step beside phase 11's and --eval's questions/s printed;
+16. the serving CLI from files, the main path (phase 15's directory,
+    set and trained epoch-2 checkpoint): the checkpoint written again
+    as a JAX-layout msgpack with its Adam state (write_jax_checkpoint,
+    no flax) and read back bit for bit, its load time printed;
+    cli.serve.build_server of it serving 64 requests from 8 keep-alive
+    clients over HTTP at B = 16 and 256, in bf16 (every answer equal to
+    a direct forward's top-1) and with --quantize (top-1 agreeing with
+    bf16 on >= 90%), A 2 and B 1 launched per served batch, p50 and p99
+    printed; the exported reference .pt and the port's checkpoint
+    serving the msgpack's bf16 answers and int8 weights bit for bit;
+    python -m ...cli.serve --quantize in a process of its own, then
+    stopped; at B = 16 and 256 the seven int8 products' int32 sums on
+    the card equal to the CPU plain version's bit for bit, 7
+    aten::_int_mm per forward in a profile, and the products, the
+    activation quantization and the forwards timed beside bf16;
+    cli.export_torch's .pt reloaded bit for bit and cli.validate_parity
+    printing evaluate()'s accuracy;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -167,7 +184,10 @@ import time
 import numpy as np
 import torch
 
+from vqa_project_tpu_torch.cli import export_torch as export_cli
 from vqa_project_tpu_torch.cli import run as cli
+from vqa_project_tpu_torch.cli import serve as serve_cli
+from vqa_project_tpu_torch.cli import validate_parity as parity_cli
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import (FeatureStore, GraphVQADataset,
                                         generate_synthetic_vqa, native,
@@ -176,6 +196,7 @@ from vqa_project_tpu_torch.data.store import pack_paths
 from vqa_project_tpu_torch.models import (GraphVQAModel,
                                           load_reference_checkpoint)
 from vqa_project_tpu_torch.models.graph_vqa import GaussianGraphConv
+from vqa_project_tpu_torch.ops import quant
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
@@ -204,9 +225,9 @@ from vqa_project_tpu_torch.ops.gru_scan import (gru_scan, gru_scan_bwd,
                                                 sweep_kernel, wgrad_kernel)
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
 from vqa_project_tpu_torch.train import (QuantizedFeatureCache, build_model,
-                                         evaluate, fit, make_feature_cache,
-                                         make_image_fn, make_optimizer,
-                                         train_step)
+                                         evaluate, fit, load_checkpoint,
+                                         make_feature_cache, make_image_fn,
+                                         make_optimizer, train_step)
 
 SEED = 20261016
 # VQA v2 widths (hid 1024, 8 kernels, 16 neighbours, K=36, 3001 answers,
@@ -803,20 +824,23 @@ class ServingData:
             {str(100 + i): i for i in range(n_images)})
 
 
-def serve(model, dev, n_clients=8, per_client=8):
-    """Phase 5, the main path: HTTP -> InferenceServer -> forward."""
-    ds = ServingData(model.cfg, 64, SEED)
-    rng = np.random.default_rng(SEED + 1)
+def serving_jobs(words, image_ids, n, seed):
+    """n (question, image id) requests: 3-13 random words each and the
+    image ids in turn."""
+    rng = np.random.default_rng(seed)
     jobs = []
-    for i in range(n_clients * per_client):
-        n_words = int(rng.integers(3, 14))
-        words = [f"w{int(w)}" for w in rng.integers(1, model.cfg.vocab_size,
-                                                   n_words)]
-        jobs.append((" ".join(words) + " ?", str(100 + i % 64)))
+    for i in range(n):
+        picks = rng.integers(0, len(words), int(rng.integers(3, 14)))
+        jobs.append((" ".join(words[int(w)] for w in picks) + " ?",
+                     image_ids[i % len(image_ids)]))
+    return jobs
 
-    reset_counts()
-    srv = InferenceServer(model, ds, device=dev, batch_size=SERVE_B,
-                          max_wait_ms=5.0)
+
+def http_serve(srv, jobs, n_clients=8):
+    """``jobs`` as POST /predict requests from ``n_clients`` keep-alive
+    clients to ``srv`` behind its HTTP front-end on port 0. Returns
+    (answers by job index, latencies in s, /healthz, wall s); fails on
+    any failed request."""
     httpd = make_http_server(srv, port=0)
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     http_thread.start()
@@ -863,28 +887,27 @@ def serve(model, dev, n_clients=8, per_client=8):
     finally:
         httpd.shutdown()
         httpd.server_close()
-        srv.close()
-    launches = {"edge_aggregate_fwd": fused_sel_aggregate_act.launches,
-                "gru_scan_fwd": gru_scan.launches}
     require(not failures, f"failed requests: {failures[:3]}")
     require(len(answers) == len(jobs), "missing answers")
-    lat = sorted(latencies)
-    print(f"serving: {len(jobs)} requests from {n_clients} keep-alive "
-          f"clients in {wall:.3f} s, {health['batches_served']} batches, "
-          f"latency p50 {1e3 * lat[len(lat) // 2]:.2f} ms p99 "
-          f"{1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.2f} ms, "
-          f"warmup_s {srv.warmup_s:.3f}; launches {launches}", flush=True)
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the path never launched: {launches}")
+    return answers, sorted(latencies), health, wall
 
-    # every answer against a direct forward of the same padded shape
+
+def p50_p99(lat):
+    """(p50, p99) in ms of sorted latencies in s."""
+    return (1e3 * lat[len(lat) // 2],
+            1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))])
+
+
+def direct_top1(model, ds, jobs, dev, b):
+    """Each job's answer from a direct forward of padded batches of b
+    rows, as the server pads them."""
     t, k, fdim = ds.max_qlen, ds.n_obj, ds.feat_dim
-    mismatches = 0
-    for s in range(0, len(jobs), SERVE_B):
-        chunk = jobs[s:s + SERVE_B]
-        q = np.zeros((SERVE_B, t), np.int64)
-        qlen = np.ones((SERVE_B,), np.int32)
-        image = np.zeros((SERVE_B, k, fdim), np.float32)
+    out = []
+    for s in range(0, len(jobs), b):
+        chunk = jobs[s:s + b]
+        q = np.zeros((b, t), np.int64)
+        qlen = np.ones((b,), np.int32)
+        image = np.zeros((b, k, fdim), np.float32)
         for i, (question, iid) in enumerate(chunk):
             words = tokenize(question)[:t]
             q[i, :len(words)] = [ds.q_wtoi.get(w, 0) for w in words]
@@ -898,9 +921,36 @@ def serve(model, dev, n_clients=8, per_client=8):
                                  torch.from_numpy(qlen).to(dev))
             logits[:, -1] = float("-inf")
             top1 = logits.argmax(-1).cpu().numpy()
-        for i in range(len(chunk)):
-            if answers[s + i] != ds.a_itow[int(top1[i])]:
-                mismatches += 1
+        out += [ds.a_itow[int(top1[i])] for i in range(len(chunk))]
+    return out
+
+
+def serve(model, dev, n_clients=8, per_client=8):
+    """Phase 5, the main path: HTTP -> InferenceServer -> forward."""
+    ds = ServingData(model.cfg, 64, SEED)
+    jobs = serving_jobs([f"w{i}" for i in range(1, model.cfg.vocab_size)],
+                        [str(100 + i) for i in range(64)],
+                        n_clients * per_client, SEED + 1)
+    reset_counts()
+    srv = InferenceServer(model, ds, device=dev, batch_size=SERVE_B,
+                          max_wait_ms=5.0)
+    try:
+        answers, lat, health, wall = http_serve(srv, jobs, n_clients)
+    finally:
+        srv.close()
+    launches = {"edge_aggregate_fwd": fused_sel_aggregate_act.launches,
+                "gru_scan_fwd": gru_scan.launches}
+    p50, p99 = p50_p99(lat)
+    print(f"serving: {len(jobs)} requests from {n_clients} keep-alive "
+          f"clients in {wall:.3f} s, {health['batches_served']} batches, "
+          f"latency p50 {p50:.2f} ms p99 {p99:.2f} ms, "
+          f"warmup_s {srv.warmup_s:.3f}; launches {launches}", flush=True)
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the path never launched: {launches}")
+
+    # every answer against a direct forward of the same padded shape
+    want = direct_top1(model, ds, jobs, dev, SERVE_B)
+    mismatches = sum(answers[i] != want[i] for i in range(len(jobs)))
     print(f"serving answers equal to a direct forward: "
           f"{len(jobs) - mismatches}/{len(jobs)}", flush=True)
     require(mismatches == 0, "served answers differ from the forward")
@@ -2667,34 +2717,40 @@ BLOCK_SHAPES = [("vqa", TRAIN_B, 36, 16, 8, None, None),
                 ("tile rule", 8, 36, 16, 4, 18, 9)]
 
 
-def projection_products(fn, n=3):
-    """The products that `n` calls of `fn` launched, read from a profile
-    (torch.profiler): a subset of {"wgmma" (wgmma_gemm.cuh's gemm_kernel,
-    every layout), "tile" (tile_gemm.cuh)}. A set, several calls and up
-    to three profiles, since a profile that follows others in one
-    process was seen to drop a kernel's event, and another to come back
-    empty."""
+def projection_products(fn, marker, n=3, tries=10, held=2):
+    """The products that `n` calls of `fn` launched, read from profiles
+    (torch.profiler): (a subset of {"wgmma" (wgmma_gemm.cuh's
+    gemm_kernel, every layout), "tile" (tile_gemm.cuh)}, the number of
+    profiles taken). A profile that follows others in one process was
+    seen to drop a kernel's event, and others to come back empty, three
+    in a row once; so a profile is read only where it holds `marker`,
+    a kernel that `fn` launches beside its products on every call, and
+    the products of up to `tries` fresh profiles are joined until `held`
+    of them were read. No profile read gives an empty set."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    kinds = set()
-    for _ in range(3):
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    kinds, read = set(), 0
+    for taken in range(1, tries + 1):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        for evt in prof.events():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if "wgmma_gemm::gemm_kernel" in evt.name:
-                kinds.add("wgmma")
-            elif ("wmma_gemm_kernel" in evt.name
-                  or "f32_gemm_kernel" in evt.name):
-                kinds.add("tile")
-        if kinds:
+        names = [evt.name for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA]
+        if any(marker in name for name in names):
+            read += 1
+            for name in names:
+                if "wgmma_gemm::gemm_kernel" in name:
+                    kinds.add("wgmma")
+                elif "wmma_gemm_kernel" in name or "f32_gemm_kernel" in name:
+                    kinds.add("tile")
+        if read == held:
             break
-    return kinds
+        time.sleep(0.05)
+    return kinds, taken
 
 
 def check_graph_block(dev, gen, errs):
@@ -2724,13 +2780,15 @@ def check_graph_block(dev, gen, errs):
                                     (torch.bfloat16, 1e-2, 1e-2)):
             x = padded_rows([feats], dtype)
             w1, w2 = w1cat.to(dtype), w2cat.to(dtype)
-            pick = projection_products(lambda: graph_block_fwd(
-                adj, pseudo, x, w1, w2, gp1, gp2, seeds, m, DROPOUT))
+            pick, taken = projection_products(lambda: graph_block_fwd(
+                adj, pseudo, x, w1, w2, gp1, gp2, seeds, m, DROPOUT),
+                "block_conv_kernel")
             want_pick = ({"tile"} if dtype == torch.float32
                          else {"wgmma", "tile"} if label == "tile rule"
                          else {"wgmma"})
             require(pick == want_pick,
-                    f"kernel H launched products {pick} at {label} {dtype}, "
+                    f"kernel H launched products {pick} at {label} {dtype} "
+                    f"({taken} profiles; an empty set: no profile held H), "
                     f"not {want_pick}")
             res = graph_block_fwd(adj, pseudo, x, w1, w2, gp1, gp2, seeds, m,
                                   DROPOUT)
@@ -2743,11 +2801,13 @@ def check_graph_block(dev, gen, errs):
             ref = graph_block_fwd_reference(adj, pseudo, x, w1, w2, gp1, gp2,
                                             seeds, m, DROPOUT)
             bargs = (g, res, pseudo, x, w1, w2, gp1, gp2, DROPOUT)
-            pick_i = projection_products(
-                lambda: graph_block_bwd(*bargs, need_dfeats=True))
+            pick_i, taken_i = projection_products(
+                lambda: graph_block_bwd(*bargs, need_dfeats=True),
+                "block_bwd_dot_kernel")
             require(pick_i == want_pick,
                     f"kernel I launched products {pick_i} at {label} "
-                    f"{dtype}, not {want_pick}")
+                    f"{dtype} ({taken_i} profiles; an empty set: no profile "
+                    f"held I), not {want_pick}")
             grads = graph_block_bwd(*bargs, need_dfeats=True)
             nan_g = BlockGrads(*(torch.full_like(t, float("nan"))
                                  for t in grads))
@@ -2775,12 +2835,13 @@ def check_graph_block(dev, gen, errs):
             print(f"kernel H {label} B={b} K={k} m={m} n={n} "
                   f"d1={w1.shape[1] // n} d2={w2.shape[1] // n} "
                   f"{str(dtype)[6:]} dropout {DROPOUT}, projections "
-                  f"{'/'.join(sorted(pick))}: normalized err "
+                  f"{'/'.join(sorted(pick))} ({taken} profiles): normalized "
+                  f"err "
                   + ", ".join(f"{f} {e:.2e}" for f, e in e_h.items())
                   + f" (<= {tol_h}); mask equal {same_mask}; contiguous "
                   f"feats equal bit for bit {same_dense}; NaN-filled rerun "
                   f"equal bit for bit {same_nan}; kernel I, products "
-                  f"{'/'.join(sorted(pick_i))}: "
+                  f"{'/'.join(sorted(pick_i))} ({taken_i} profiles): "
                   f"dadj/dpseudo/dfeats/dW1/dW2/dgp1/dgp2 "
                   + "/".join(f"{e:.2e}" for e in e_i)
                   + f" (<= {tol_i}); NaN-filled rerun equal bit for bit "
@@ -3133,6 +3194,79 @@ def time_merged_steps(dev, n=10, n_images=4096):
     return out
 
 
+# ---------------- a JAX-layout checkpoint, written without flax --------
+
+
+def jax_layout(sd) -> dict:
+    """The JAX package's ``{"params": ...}`` tree (numpy, float32) of a
+    mapping in the port's state_dict layout: the inverse of
+    ``models/weights.py::state_dict_from_jax_params``, each conv's n
+    Linears fused into one (in, n*d) kernel. Adam's moments, which
+    mirror the parameters, take the same layout."""
+    def a(name):
+        return sd[name].detach().float().cpu().numpy()
+
+    def weight_norm(prefix):
+        return {"b": a(f"{prefix}.bias"), "g": a(f"{prefix}.weight_g")[:, 0],
+                "v": np.ascontiguousarray(a(f"{prefix}.weight_v").T)}
+
+    p = {"wembed": a("wembed.weight"), "gru_w_ih": a("q_gru.weight_ih_l0"),
+         "gru_w_hh": a("q_gru.weight_hh_l0"),
+         "gru_b_ih": a("q_gru.bias_ih_l0"), "gru_b_hh": a("q_gru.bias_hh_l0"),
+         "adjacency_1": {name: weight_norm(f"adjacency_1.{name}")
+                         for name in ("edge_layer_1", "edge_layer_2")},
+         "out_1": weight_norm("out_1"), "out_2": weight_norm("out_2")}
+    for conv in ("graph_convolution_1", "graph_convolution_2"):
+        n = sd[f"{conv}.mean_rho"].shape[0]
+        leaf = {g: a(f"{conv}.{g}")[:, 0] for g in (
+            "mean_rho", "mean_theta", "precision_rho", "precision_theta")}
+        leaf["conv_kernels"] = np.ascontiguousarray(np.concatenate(
+            [a(f"{conv}.conv_weights.{i}.weight") for i in range(n)]).T)
+        p[conv] = leaf
+    return {"params": p}
+
+
+def _msgpack_array(x):
+    """flax's msgpack extension type 1 for a numpy array: a packed
+    (shape, dtype name, C-order bytes)."""
+    import msgpack
+
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"cannot pack {type(x)}")
+    return msgpack.ExtType(1, msgpack.packb(
+        (list(x.shape), x.dtype.name, x.tobytes("C")), use_bin_type=True))
+
+
+def write_jax_checkpoint(path, model, optimizer, *, step, epoch,
+                         extra=None) -> None:
+    """``model``'s weights and ``optimizer``'s Adam state as the JAX
+    package's ``save_checkpoint`` writes them, in flax's msgpack format:
+    ``{params, opt_state: {"0": {count, mu, nu}, "1": {count}}, step,
+    epoch, rng, extra}``, Adam's moments in float32 and its count as the
+    schedule's too."""
+    import msgpack
+
+    names = {id(p): k for k, p in model.named_parameters()}
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    count = 0
+    for param, state in optimizer.state.items():
+        for key, table in moments.items():
+            table[names[id(param)]] = state[key]
+        count = int(state["step"])
+    opt_count = np.asarray(count, np.int32)
+    payload = {
+        "params": jax_layout(model.state_dict()),
+        "opt_state": {"0": {"count": opt_count,
+                            "mu": jax_layout(moments["exp_avg"]),
+                            "nu": jax_layout(moments["exp_avg_sq"])},
+                      "1": {"count": opt_count}},
+        "step": int(step), "epoch": int(epoch),
+        "rng": np.zeros(4, np.uint32), "extra": dict(extra or {})}
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(payload, default=_msgpack_array,
+                              use_bin_type=True))
+
+
 # ---------------- the CLI from files ----------------
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3361,46 +3495,413 @@ def cli_trainval(dev, sdir):
 
 
 def cli_main_path(dev, smi, cache_step_ms):
-    """Phase 15, the main path: the CLI from files, in a temporary
-    working directory."""
+    """Phase 15, the main path: the CLI from files, in the working
+    directory (a temporary one, which phase 16 reuses)."""
     t_phase = time.perf_counter()
     check_blosc_fixtures()
-    old_cwd = os.getcwd()
-    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        os.chdir(work)
-        args, _, _ = cli.input_args(CLI_DATA)
-        t0 = time.perf_counter()
-        sdir = cli.synthetic_dir(args)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        FeatureStore.from_zarr(
-            os.path.join(sdir, "trainval.zarr"),
-            os.path.join(sdir, "trainval_boxes.zarr"),
-            os.path.join(sdir, "trainval_image_size.csv"), FULL["n_obj"])
-        pack_s = time.perf_counter() - t0
-        packed = _pack_mtimes(sdir)
-        size = os.path.getsize(next(p for p in packed if
-                                    p.endswith("_feat.npy")))
-        print(f"synthetic set written as zlib zarr in {write_s:.3f} s; "
-              f"pack of the {args.synthetic_images}-image store "
-              f"({size / 1e6:.1f} MB f32) {pack_s:.3f} s ({smi})",
-              flush=True)
-        med = cli_train(smi, cache_step_ms)
-        require(_pack_mtimes(sdir) == packed, "the CLI packed the store "
-                "again")
-        cli_resume()
-        cli_qps, eval_qps = cli_eval_test(dev, smi, sdir)
-        cli_trainval(dev, sdir)
-    finally:
-        os.chdir(old_cwd)
-        shutil.rmtree(work, ignore_errors=True)
+    args, _, _ = cli.input_args(CLI_DATA)
+    t0 = time.perf_counter()
+    sdir = cli.synthetic_dir(args)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    FeatureStore.from_zarr(
+        os.path.join(sdir, "trainval.zarr"),
+        os.path.join(sdir, "trainval_boxes.zarr"),
+        os.path.join(sdir, "trainval_image_size.csv"), FULL["n_obj"])
+    pack_s = time.perf_counter() - t0
+    packed = _pack_mtimes(sdir)
+    size = os.path.getsize(next(p for p in packed if
+                                p.endswith("_feat.npy")))
+    print(f"synthetic set written as zlib zarr in {write_s:.3f} s; "
+          f"pack of the {args.synthetic_images}-image store "
+          f"({size / 1e6:.1f} MB f32) {pack_s:.3f} s ({smi})", flush=True)
+    med = cli_train(smi, cache_step_ms)
+    require(_pack_mtimes(sdir) == packed, "the CLI packed the store again")
+    cli_resume()
+    cli_qps, eval_qps = cli_eval_test(dev, smi, sdir)
+    cli_trainval(dev, sdir)
     phase_s = time.perf_counter() - t_phase
     print(f"phase 15 in {phase_s:.1f} s ({smi}): " + json.dumps({
         "pack_s": pack_s, "fit_median_step_ms": med,
         "phase11_median_step_ms": cache_step_ms,
         "eval_cli_questions_per_s": cli_qps,
         "evaluate_questions_per_s": eval_qps}), flush=True)
+    return sdir
+
+
+# ---------------- the serving CLI from files ----------------
+
+SERVE_JOBS = 64
+# one served batch: kernel A in both convolutions, kernel B once
+SERVE_BATCH_LAUNCHES = {"edge_aggregate_fwd": 2, "gru_scan_fwd": 1}
+# the int8 products of one forward, in the order the forward runs them
+INT8_PRODUCTS = ("edge_layer_1 (nodes)", "edge_layer_1 (question)",
+                 "edge_layer_2", "graph_convolution_1",
+                 "graph_convolution_2", "out_1", "out_2")
+# top-1 agreement of int8 with bf16 serving: the JAX package's own bound
+# (tests/test_model.py's quantized-inference test)
+INT8_AGREEMENT = 0.9
+# int8 against bf16 logits, relative to the largest: the JAX package's
+# bound on int8 against f32 logits (the same test)
+INT8_LOGIT_TOL = 0.15
+
+
+def serve_from(label, path, b, jobs, smi, *extra):
+    """``cli.serve.build_server`` of the checkpoint ``path`` at batch b
+    with CLI_DATA's set and flags, ``jobs`` served over HTTP. The
+    launches per served batch must be A 2, B 1 and nothing else.
+    Returns (the server's model, the answers, p50 ms, p99 ms)."""
+    t0 = time.perf_counter()
+    srv = serve_cli.build_server(serve_cli.input_args(
+        [*CLI_DATA, "--bsize", str(b), "--model_path", path, *extra]))
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    try:
+        answers, lat, health, wall = http_serve(srv, jobs)
+    finally:
+        srv.close()
+    counts = read_counts()
+    n = health["batches_served"]
+    want = {k: 0 for k in counts}
+    want.update({k: n * v for k, v in SERVE_BATCH_LAUNCHES.items()})
+    p50, p99 = p50_p99(lat)
+    print(f"{label}: build_server {build_s:.3f} s (file, model, warm "
+          f"forward); {len(jobs)} requests from 8 keep-alive clients in "
+          f"{wall:.3f} s, {n} batches, latency p50 {p50:.2f} ms p99 "
+          f"{p99:.2f} ms ({smi}); launches {counts}", flush=True)
+    require(counts == want, f"{label}: launches {counts}, want {want} "
+            f"(A 2 and B 1 per served batch)")
+    return srv.model, [answers[i] for i in range(len(jobs))], p50, p99
+
+
+@contextlib.contextmanager
+def recording_int8(calls):
+    """Within: each int8 product the model runs appends {x, w_q, w_scale,
+    x_q, acc} (its float input, weights, codes and the int32 sums the
+    card computed) to ``calls``."""
+    real_mm, real_sums = quant.int8_matmul, quant.int8_sums
+
+    def mm(x, w_q, w_scale):
+        calls.append({"x": x, "w_q": w_q, "w_scale": w_scale})
+        return real_mm(x, w_q, w_scale)
+
+    def sums(x_q, w_q):
+        acc = real_sums(x_q, w_q)
+        calls[-1].update(x_q=x_q, acc=acc)
+        return acc
+
+    quant.int8_matmul, quant.int8_sums = mm, sums
+    try:
+        yield
+    finally:
+        quant.int8_matmul, quant.int8_sums = real_mm, real_sums
+
+
+def int_mm_profile(fn, n=3):
+    """(aten::_int_mm calls per call of fn, their device ms per call),
+    read from torch.profiler; up to three profiles, as a profile taken
+    after others has come back empty (PERF.md section 7)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.key == "aten::_int_mm"]
+        if rows and rows[0].device_time_total > 0:
+            return rows[0].count / n, rows[0].device_time_total / n / 1e3
+    return (rows[0].count / n if rows else 0.0), 0.0
+
+
+def int_mm_rules(dev):
+    """What torch._int_mm takes on this card, probed on small int8
+    operands: rows, depth and width against its rules of more than 16
+    rows and multiples of 8, and the four operand layouts. The layout
+    the port uses (a row-major, b column-major, 17+ rows, 8-multiples)
+    must work and give the plain sums."""
+    gen = torch.Generator().manual_seed(SEED)
+
+    def codes(r, c):
+        return torch.randint(-127, 128, (r, c), generator=gen,
+                             dtype=torch.int8)
+
+    def run(m, k, n, a_cols=False, b_cols=True):
+        a, b = codes(m, k), codes(k, n)
+        a_d = (a.t().contiguous().to(dev).t() if a_cols
+               else a.to(dev))
+        b_d = b.t().contiguous().to(dev).t() if b_cols else b.to(dev)
+        try:
+            got = torch._int_mm(a_d, b_d).cpu()
+        except RuntimeError as e:
+            return "refused: " + str(e).splitlines()[0][:90]
+        return ("ok" if torch.equal(got, torch.mm(a.int(), b.int()))
+                else "wrong sums")
+
+    rules = {"M=17, K=32, N=32 (a row-major, b column-major)":
+             run(17, 32, 32), "M=16": run(16, 32, 32), "M=1": run(1, 32, 32),
+             "K=36": run(32, 36, 32), "N=36": run(32, 32, 36),
+             "a row-major, b row-major": run(32, 32, 32, b_cols=False),
+             "a column-major, b column-major": run(32, 32, 32, a_cols=True),
+             "a column-major, b row-major": run(32, 32, 32, a_cols=True,
+                                                b_cols=False)}
+    print("torch._int_mm on this card: " + json.dumps(rules), flush=True)
+    require(rules["M=17, K=32, N=32 (a row-major, b column-major)"] == "ok",
+            "torch._int_mm refuses the port's layout")
+
+
+def check_int8_products(dev, smi, q8, bf16, gen):
+    """Phase 16: at B = 16 and 256, the seven int8 products of one
+    forward of the int8 server's model: the card's int32 sums equal the
+    CPU plain version's bit for bit; _int_mm launched 7 times per
+    forward (profile); timings of each product beside the bf16 product
+    of the same shape, of the activation quantization alone and of the
+    padded _int_mm alone, and of the whole forward in bf16 and int8."""
+    report = {}
+    for b in (SERVE_B, 256):
+        batch = [x.to(dev) for x in random_batch(b, q8.cfg, gen)]
+        calls = []
+        with recording_int8(calls), torch.inference_mode():
+            q8(*batch)
+        torch.cuda.synchronize()
+        require(len(calls) == len(INT8_PRODUCTS),
+                f"{len(calls)} int8 products per forward, want 7")
+        rows = {}
+        for name, c in zip(INT8_PRODUCTS, calls):
+            plain = quant.int8_sums(c["x_q"].cpu(), c["w_q"].cpu())
+            require(torch.equal(c["acc"].cpu(), plain),
+                    f"B={b} {name}: the card's int32 sums differ from the "
+                    f"CPU plain version's")
+            x, w_q, w_scale = c["x"], c["w_q"], c["w_scale"]
+            m, k = x.shape
+            n = w_scale.shape[0]
+            w16 = torch.randn(n, k, generator=gen).to(
+                dev, torch.bfloat16).t()
+            out = torch.bfloat16 if "convolution" in name else torch.float32
+            x_q = c["x_q"]
+            rows[name] = {
+                "shape": [m, k, n],
+                "int8_ms": time_device_ms(
+                    lambda: quant.int8_matmul(x, w_q, w_scale), 20, 5),
+                "bf16_matmul_ms": time_device_ms(
+                    lambda: matmul(x.to(torch.bfloat16), w16, out), 20, 5),
+                "activation_quant_ms": time_device_ms(
+                    lambda: quant.quantize_activation(x), 20, 5),
+                "padded_int_mm_ms": time_device_ms(
+                    lambda: quant.padded_int_mm(x_q, w_q), 20, 5)}
+
+        def fwd(model):
+            def run():
+                with torch.inference_mode():
+                    model(*batch)
+            return run
+
+        count, int_mm_ms = int_mm_profile(fwd(q8))
+        require(count == len(INT8_PRODUCTS),
+                f"the profile shows {count} aten::_int_mm per forward")
+        with torch.inference_mode():
+            l8, l16 = q8(*batch)[0].float(), bf16(*batch)[0].float()
+        rel = float((l8 - l16).abs().max() / l16.abs().max())
+        agree = float((l8.argmax(-1) == l16.argmax(-1)).float().mean())
+        print(f"B={b}, random batch: int8 logits within {rel:.3e} of the "
+              f"bf16 logits' largest magnitude (< {INT8_LOGIT_TOL}), top-1 "
+              f"agreement {agree:.4f}", flush=True)
+        require(rel < INT8_LOGIT_TOL, f"int8 logits {rel} off bf16's")
+        report[f"B={b}"] = {
+            "forward_bf16_ms": time_device_ms(fwd(bf16), 20, 5),
+            "forward_int8_ms": time_device_ms(fwd(q8), 20, 5),
+            "int_mm_per_forward": count,
+            "int_mm_device_ms_per_forward": int_mm_ms, "products": rows}
+        print(f"int8 products at B={b}: the card's int32 sums equal the CPU "
+              f"plain version's bit for bit at all seven "
+              f"({', '.join(INT8_PRODUCTS)}); torch.profiler reads {count:g} "
+              f"aten::_int_mm per forward, {int_mm_ms:.4f} device ms",
+              flush=True)
+    print(f"int8 serving timing ({smi}; device ms, launches queued behind a "
+          f"sleep kernel; bf16_matmul_ms = the bf16 product of the same "
+          f"shape as the float model runs it, random weights; "
+          f"activation_quant_ms = absmax, divide, round, clip and cast "
+          f"alone; padded_int_mm_ms = the padding of the codes and "
+          f"_int_mm alone): " + json.dumps(report), flush=True)
+
+
+def serve_main_process(smi, path, image_ids):
+    """``python -m vqa_project_tpu_torch.cli.serve --quantize --port 0``
+    from the msgpack in a process of its own: it prints its address and
+    answers /healthz and 16 requests; then it is stopped."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vqa_project_tpu_torch.cli.serve", *CLI_DATA,
+         "--bsize", str(SERVE_B), "--model_path", path, "--quantize",
+         "--port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on "):
+                break
+        require(lines and lines[-1].startswith("serving on "),
+                "cli.serve exited before serving: " + "".join(lines[-20:]))
+        start_s = time.perf_counter() - t0
+        host, port = lines[-1].split()[2][len("http://"):].split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        answers = []
+        for i in range(16):
+            conn.request("POST", "/predict", body=json.dumps(
+                {"question": "what color is the thing ?",
+                 "image_id": image_ids[i]}))
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            require(resp.status == 200, f"cli.serve answered {body}")
+            answers.append(body["answer"])
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        watchdog.cancel()
+        proc.kill()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+    require(health["requests_served"] == 16, f"/healthz {health}")
+    print(f"python -m vqa_project_tpu_torch.cli.serve --quantize --port 0 "
+          f"(its own process, {smi}): serving after {start_s:.1f} s, "
+          f"16 answers ({len(set(answers))} distinct), /healthz {health}; "
+          f"stopped", flush=True)
+
+
+def serving_from_files(dev, smi, sdir):
+    """Phase 16, the main path: the serving CLI from phase 15's files.
+
+    Phase 15's trained checkpoint (epoch 2) is written again as a JAX
+    msgpack with its Adam state (``write_jax_checkpoint``) and read back
+    bit for bit; ``cli.serve.build_server`` serves it over HTTP in bf16
+    and with ``--quantize`` at B = 16 and 256 (every bf16 answer equal
+    to a direct forward's top-1, int8 top-1 agreeing with bf16 on >= 90%,
+    A 2 and B 1 per served batch); the exported reference .pt and the
+    port's checkpoint serve the same; ``main`` serves in a process of its
+    own; the int8 products are held to the CPU plain version; the export
+    reloads bit for bit and ``cli.validate_parity`` prints evaluate()'s
+    accuracy."""
+    t_phase = time.perf_counter()
+    args, _, _ = cli.input_args(CLI_DATA)
+    mcfg, tcfg = cli.make_configs(args)
+    val = GraphVQADataset.vqa2(sdir, "val")
+    trained = os.path.join("run", "model_2.ckpt")
+    model = build_model(mcfg, val, device=dev)
+    optimizer, scheduler = make_optimizer(model, tcfg, cli_sizes()[0])
+    payload = load_checkpoint(trained, model, optimizer, scheduler)
+    msgpack_path = "jax.ckpt"
+    write_jax_checkpoint(msgpack_path, model, optimizer,
+                         step=payload["step"], epoch=payload["epoch"],
+                         extra=payload["extra"])
+    fresh = build_model(mcfg, val, device=dev)
+    opt2, sched2 = make_optimizer(fresh, tcfg, cli_sizes()[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = load_checkpoint(msgpack_path, fresh, opt2, sched2)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    names = dict(fresh.named_parameters())
+    require(all(torch.equal(v, fresh.state_dict()[k])
+                for k, v in model.state_dict().items())
+            and back["step"] == payload["step"]
+            and back["extra"] == payload["extra"]
+            and sched2.last_epoch == scheduler.last_epoch
+            and all(torch.equal(optimizer.state[p][m],
+                                opt2.state[names[k]][m])
+                    for k, p in model.named_parameters()
+                    for m in ("exp_avg", "exp_avg_sq")),
+            "the msgpack checkpoint does not read back to the trained "
+            "weights and Adam state")
+    size = os.path.getsize(msgpack_path)
+    print(f"phase 15's epoch-2 checkpoint written as a JAX msgpack "
+          f"({size / 1e6:.1f} MB: weights, Adam's moments, step "
+          f"{payload['step']}); load_checkpoint read it back (weights, "
+          f"moments, step, scheduler bit for bit) in {load_s:.3f} s "
+          f"({smi})", flush=True)
+
+    jobs = serving_jobs([w for w in val.q_wtoi if w], list(
+        val.store.id_to_row), SERVE_JOBS, SEED + 16)
+    latency = {}
+    answers = {}
+    for b in (SERVE_B, 256):
+        bf16, answers[("bf16", b)], *latency[("bf16", b)] = serve_from(
+            f"bf16 serving from the msgpack at B={b}", msgpack_path, b,
+            jobs, smi)
+        want = direct_top1(bf16, val, jobs, dev, b)
+        require(answers[("bf16", b)] == want, f"B={b}: served answers "
+                "differ from a direct forward's top-1")
+        q8, answers[("int8", b)], *latency[("int8", b)] = serve_from(
+            f"int8 serving (--quantize) from the msgpack at B={b}",
+            msgpack_path, b, jobs, smi, "--quantize")
+        agree = float(np.mean([g == w for g, w in zip(
+            answers[("int8", b)], answers[("bf16", b)])]))
+        print(f"B={b}: bf16 answers equal a direct forward's top-1 "
+              f"({len(jobs)}/{len(jobs)}); int8 top-1 agrees with bf16 on "
+              f"{agree:.4f} (>= {INT8_AGREEMENT})", flush=True)
+        require(agree >= INT8_AGREEMENT, f"int8 agreement {agree} at B={b}")
+
+    pt_path = "ref.pt"
+    export_cli.main([msgpack_path, pt_path])
+    exported = load_reference_checkpoint(pt_path)
+    require(all(torch.equal(v.cpu(), exported[k])
+                for k, v in model.state_dict().items())
+            and set(exported) == set(model.state_dict()),
+            "the exported .pt does not hold the written weights")
+    print("cli.export_torch of the msgpack: the .pt reads back through "
+          "load_reference_checkpoint to the written weights bit for bit",
+          flush=True)
+    for kind, path in (("reference .pt", pt_path),
+                       ("port checkpoint", trained)):
+        _, got, _, _ = serve_from(f"bf16 serving from the {kind} at "
+                                  f"B={SERVE_B}", path, SERVE_B, jobs, smi)
+        require(got == answers[("bf16", SERVE_B)],
+                f"the {kind} serves other answers than the msgpack")
+        q8_kind, _, _, _ = serve_from(
+            f"int8 serving from the {kind} at B={SERVE_B}", path, SERVE_B,
+            jobs, smi, "--quantize")
+        q8_sd = q8_kind.state_dict()
+        require(all(torch.equal(v, q8_sd[k])
+                    for k, v in q8.state_dict().items()),
+                f"the {kind}'s int8 weights differ from the msgpack's")
+        print(f"the {kind} serves the msgpack's bf16 answers and int8 "
+              f"weights bit for bit", flush=True)
+    serve_main_process(smi, msgpack_path, list(val.store.id_to_row))
+    int_mm_rules(dev)
+    check_int8_products(dev, smi, q8, bf16,
+                        torch.Generator().manual_seed(SEED + 16))
+
+    out = _Tee()
+    with contextlib.redirect_stdout(out):
+        parity_cli.main([
+            "--model_path", pt_path, "--data_dir", sdir, "--split", "val",
+            "--emb", str(args.emb), "--hid", str(args.hid), "--n_kernels",
+            str(args.n_kernels), "--neighbourhood_size",
+            str(args.neighbourhood_size), "--n_obj", str(args.n_obj),
+            "--device", str(dev)])
+    printed = json.loads(out.getvalue()[out.getvalue().index("{"):])
+    acc, _, _ = evaluate(model, val, TRAIN_B, result_path=None, device=dev)
+    require(printed["vqa_accuracy_pct"] == round(acc, 2)
+            and printed["n_questions"] == val.n_questions,
+            f"validate_parity printed {printed}, evaluate() gives {acc}")
+    print(f"cli.validate_parity on the .pt: accuracy "
+          f"{printed['vqa_accuracy_pct']} % equal to evaluate()'s "
+          f"{acc:.4f} on val", flush=True)
+    print(f"phase 16 in {time.perf_counter() - t_phase:.1f} s ({smi}): "
+          + json.dumps({
+              "msgpack_mb": size / 1e6, "msgpack_load_s": load_s,
+              "serving_ms_p50_p99": {f"{k[0]} B={k[1]}": v
+                                     for k, v in latency.items()}}),
+          flush=True)
 
 
 def main() -> int:
@@ -3469,8 +3970,17 @@ def main() -> int:
     phase("6 timing (merged block)")
     entries += time_graph_block(dev, gen, merged_counts, errs)
     time_merged_steps(dev)
-    phase("15 the CLI from files (main path)")
-    cli_main_path(dev, smi, cache_step_ms)
+    old_cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        os.chdir(work)
+        phase("15 the CLI from files (main path)")
+        sdir = cli_main_path(dev, smi, cache_step_ms)
+        phase("16 the serving CLI from files (main path)")
+        serving_from_files(dev, smi, sdir)
+    finally:
+        os.chdir(old_cwd)
+        shutil.rmtree(work, ignore_errors=True)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,6 +1,6 @@
 """The port's CLI (``vqa_project_tpu_torch.cli.run``) on the CPU: every
 mode with --synthetic at small widths writes its artifacts; left-out and
-unknown flags, a missing --model_path and a JAX msgpack checkpoint are
+unknown flags, a missing --model_path and a cut msgpack checkpoint are
 refused; the flags it keeps have the JAX CLI's names and defaults; both
 CLIs share one synthetic directory; and one reference-format .pt
 evaluated by the JAX CLI and by the port's gives the same accuracy and
@@ -124,13 +124,15 @@ def test_refusals(trained, tmp_path):
     with pytest.raises(SystemExit, match="Need to provide model path"):
         run.main(["--test", *SMALL, "--data_dir", data, "--model_path",
                   str(tmp_path / "nothing.pt")])
+    # the start of a msgpack map, as flax's, cut after its first key: JAX
+    # checkpoints are read now, and a cut one is refused as such
     msgpack = str(tmp_path / "model.ckpt")
     with open(msgpack, "wb") as f:
-        f.write(b"\x85\xa6params\x80")         # a msgpack map, as flax's
-    with pytest.raises(ValueError, match="item 3"):
+        f.write(b"\x85\xa6params\x80")
+    with pytest.raises(ValueError, match="not a complete flax msgpack"):
         run.main(["--eval", *SMALL, "--data_dir", data, "--model_path",
                   msgpack])
-    with pytest.raises(ValueError, match="item 3"):
+    with pytest.raises(ValueError, match="not a complete flax msgpack"):
         run.main(["--train", *SMALL, "--data_dir", data, "--model_path",
                   msgpack, "--save_dir", str(tmp_path / "s")])
 

@@ -36,6 +36,10 @@ def test_scan_covers_the_port():
     assert "vqa_project_tpu_torch/cli/run.py" in names
     assert "vqa_project_tpu_torch/data/zarr_store.py" in names
     assert "vqa_project_tpu_torch/data/native/__init__.py" in names
+    assert "vqa_project_tpu_torch/cli/serve.py" in names
+    assert "vqa_project_tpu_torch/cli/export_torch.py" in names
+    assert "vqa_project_tpu_torch/cli/validate_parity.py" in names
+    assert "vqa_project_tpu_torch/ops/quant.py" in names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -3,8 +3,8 @@ epoch boundary or mid-epoch repeats the uninterrupted run bit for bit
 (losses, learning rate, final weights); a reference full-dict ``.pt``
 resumes to the weights and Adam moments the JAX package's
 ``_resume_checkpoint`` gives on the same file (0 tolerance); per-step
-Adam counts that disagree are refused by both; a missing path and a JAX
-msgpack checkpoint raise."""
+Adam counts that disagree are refused by both; a missing path raises and
+a JAX msgpack checkpoint resumes."""
 
 import collections
 import json
@@ -116,8 +116,17 @@ def test_missing_and_msgpack_checkpoints_raise(ds, tmp_path):
         _sample(jcfg), seed=1)
     msgpack = str(tmp_path / "jax.ckpt")
     j_save(msgpack, state, epoch=1)
-    with pytest.raises(ValueError, match="item 3"):
-        _fit(ds, str(tmp_path), 1, resume_path=msgpack)
+    # the JAX-written file is read now: the run starts from its weights
+    # at its next epoch and its step (0), with its Adam state
+    model, recs = _fit(ds, str(tmp_path / "run"), 1, resume_path=msgpack)
+    assert sorted(recs) == list(range(1, 6))
+    assert {r["epoch"] for r in recs.values()} == {1}
+    fresh = build_model(ModelConfig(**MODEL), ds["train"], device="cpu")
+    optimizer, scheduler = make_optimizer(fresh, _cfg(str(tmp_path), 1), 5)
+    _resume_checkpoint(msgpack, fresh, optimizer, scheduler, None)
+    want = state_dict_from_jax_params(jax.device_get(state.params))
+    for k, v in fresh.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 def _sample(cfg):

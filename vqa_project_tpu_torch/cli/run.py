@@ -17,12 +17,13 @@ versions of the kernels).
 - ``--train``: fit on the train split with a mini-validation on val
   every ``--eval_interval`` steps, ``{save_dir}/{name}_{epoch}.ckpt``
   after each epoch and ``{save_dir}/metrics.jsonl``; ``--model_path``
-  resumes (a port checkpoint or a reference ``.pt``).
+  resumes (a port checkpoint, a reference ``.pt`` or a JAX-package
+  msgpack checkpoint).
 - ``--trainval``: fit on train + val and save
   ``{save_dir}/vqa_{n_obj}_{n_kernels}_{neighbourhood_size}_{acc:.2f}.pt``
   (a port checkpoint whose ``state_dict`` has the reference's names).
-- ``--eval`` / ``--test``: load ``--model_path`` (a port checkpoint or a
-  reference ``.pt``, bare or full dict), write the EvalAI
+- ``--eval`` / ``--test``: load ``--model_path`` (any of those three
+  kinds; a reference ``.pt`` bare or full dict), write the EvalAI
   ``result.json`` to the working directory, and for ``--eval`` print the
   val accuracy.
 """
@@ -222,22 +223,18 @@ def test(args):
 
 
 def _run_eval(args, split):
-    from vqa_project_tpu_torch.models.weights import load_reference_checkpoint
     from vqa_project_tpu_torch.train.loop import build_model, evaluate
-    from vqa_project_tpu_torch.train.state import require_torch_file
+    from vqa_project_tpu_torch.train.state import load_checkpoint
 
     if not (args.model_path and os.path.isfile(args.model_path)):
         raise SystemExit("Need to provide model path.")
-    require_torch_file(args.model_path)
     print("Resuming from checkpoint %s" % args.model_path, flush=True)
     mcfg, tcfg = make_configs(args)
     print("Loading data", flush=True)
     ds = _dataset(args, split)
     _print_params(ds, args)
     model = build_model(mcfg, ds, device=args.device, seed=args.seed)
-    # the port's checkpoint and the reference's .pt (bare or full dict)
-    # both hold the weights under the reference's names
-    model.load_state_dict(load_reference_checkpoint(args.model_path))
+    load_checkpoint(args.model_path, model)
     acc, _, _ = evaluate(model, ds, args.bsize, result_path="result.json",
                          train_cfg=tcfg, device=args.device)
     return acc

@@ -38,6 +38,10 @@ class ModelConfig:
     # kernels H and I); the counterpart of the JAX package's
     # VQAX_MERGED_BLOCK=1, off by default as there
     merged_block: bool = False
+    # serving only: int8 projections of both graph convolutions and of
+    # the weight-norm layers (ops/quant.py); build the model with this on
+    # and load quantize_state_dict_for_serving of a float state_dict
+    quantized_inference: bool = False
 
 
 @dataclasses.dataclass

@@ -17,7 +17,11 @@ recurrence and both graph-convolution tails run in the CUDA kernels of
 in training their backward kernels too. With ``ModelConfig.merged_block``
 the neighbourhood selection, both convolutions and their projections
 run instead as one merged block (``ops/graph_block.py``, kernels H and
-I), on the same parameters.
+I), on the same parameters. With ``ModelConfig.quantized_inference``
+(serving only) the projections of both convolutions and the weight-norm
+layers are int8 products (``ops/quant.py``), loaded from
+``quantize_state_dict_for_serving`` of a float state_dict; the
+aggregations still run in kernel A.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch import nn
 
 from vqa_project_tpu_torch.config import (ModelConfig, resolve_device,
                                           torch_dtype)
+from vqa_project_tpu_torch.ops import quant
 from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
                                        fused_sel_aggregate_act,
                                        gru_encode_kernel,
@@ -57,28 +62,65 @@ class WeightNormLinear(nn.Module):
     With ``shared`` (B, D2) the layer behaves as if
     concat([x, broadcast(shared)], -1) were passed for x (B, K, D1),
     but the shared half of the product runs once per image.
+
+    ``quantized=True`` (serving): ``weight_q`` int8 (out, in) and
+    ``weight_scale`` f32 (out,), with g / ||v|| folded into the scale,
+    replace ``weight_v`` and ``weight_g``. The product stays split: x's
+    columns 0..split-1 and shared's columns split.. are two int8
+    products, each with its own activation scale. The zero-padded
+    operands of the two halves are made once per weight load.
     """
 
     def __init__(self, in_features: int, out_features: int, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 out_dtype: Optional[torch.dtype] = None):
+                 out_dtype: Optional[torch.dtype] = None,
+                 quantized: bool = False, split: Optional[int] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.out_dtype = out_dtype or compute_dtype
-        self.weight_g = nn.Parameter(torch.empty(out_features, 1))
-        self.weight_v = nn.Parameter(torch.empty(out_features, in_features))
+        self.quantized = quantized
+        if quantized:
+            # the width of x when `shared` is passed: where codes split
+            self.split = in_features if split is None else int(split)
+            self.register_buffer("weight_q", torch.zeros(
+                out_features, in_features, dtype=torch.int8))
+            self.register_buffer("weight_scale", torch.ones(out_features))
+            self.register_buffer("_operand_x", None, persistent=False)
+            self.register_buffer("_operand_shared", None, persistent=False)
+            self._pad_operands()
+            self.register_load_state_dict_post_hook(_pad_after_load)
+        else:
+            self.weight_g = nn.Parameter(torch.empty(out_features, 1))
+            self.weight_v = nn.Parameter(torch.empty(out_features,
+                                                     in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
 
+    def _pad_operands(self) -> None:
+        q = self.weight_q
+        self._operand_x = quant.pad_int8_weight(q[:, :self.split])
+        self._operand_shared = (quant.pad_int8_weight(q[:, self.split:])
+                                if self.split < q.shape[1] else None)
+
     def reset_parameters(self, g: torch.Generator) -> None:
-        """torch Linear init for v and b; g = ||v|| so that w == v."""
-        bound = 1.0 / math.sqrt(self.weight_v.shape[1])
-        _uniform(self.weight_v, -bound, bound, g)
+        """torch Linear init for v and b; g = ||v|| so that w == v. A
+        quantized layer keeps zero codes and unit scales until a
+        quantized state_dict is loaded (its bias drawn as b's)."""
+        w = self.weight_q if self.quantized else self.weight_v
+        bound = 1.0 / math.sqrt(w.shape[1])
+        if not self.quantized:
+            _uniform(self.weight_v, -bound, bound, g)
         _uniform(self.bias, -bound, bound, g)
-        with torch.no_grad():
-            self.weight_g.copy_(self.weight_v.norm(dim=1, keepdim=True))
+        if not self.quantized:
+            with torch.no_grad():
+                self.weight_g.copy_(self.weight_v.norm(dim=1, keepdim=True))
 
     def forward(self, x: torch.Tensor,
                 shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if shared is not None and (x.dim() != 3 or shared.dim() != 2):
+            raise ValueError("shared= expects x (B, K, d1) and shared "
+                             "(B, d2)")
+        if self.quantized:
+            return self._forward_int8(x, shared)
         cdt = self.compute_dtype
         v = self.weight_v
         norm = torch.linalg.vector_norm(v.float(), dim=1)
@@ -87,12 +129,29 @@ class WeightNormLinear(nn.Module):
         d1 = x.shape[-1]
         y = matmul(x.to(cdt), v[:, :d1].to(cdt).t())
         if shared is not None:
-            if x.dim() != 3 or shared.dim() != 2:
-                raise ValueError("shared= expects x (B, K, d1) and shared "
-                                 "(B, d2)")
             y = y + matmul(shared.to(cdt), v[:, d1:].to(cdt).t())[:, None]
         y = (y * scale).to(self.out_dtype)
         return y + self.bias.to(self.out_dtype)
+
+    def _forward_int8(self, x, shared):
+        d1 = x.shape[-1]
+        if d1 != self.split or (shared is None) != (
+                self._operand_shared is None):
+            raise ValueError(f"the int8 layer splits its input at "
+                             f"{self.split}, got x of width {d1} and "
+                             f"shared {None if shared is None else 'given'}")
+        y = quant.int8_matmul(x.reshape(-1, d1), self._operand_x.t(),
+                              self.weight_scale).reshape(*x.shape[:-1], -1)
+        if shared is not None:
+            y = y + quant.int8_matmul(shared, self._operand_shared.t(),
+                                      self.weight_scale)[:, None]
+        y = y.to(self.out_dtype)
+        return y + self.bias.to(self.out_dtype)
+
+
+def _pad_after_load(module, incompatible_keys) -> None:
+    """A quantized layer's padded operands follow its loaded codes."""
+    module._pad_operands()
 
 
 class GraphLearner(nn.Module):
@@ -100,13 +159,16 @@ class GraphLearner(nn.Module):
     weight-normed Linear+ReLU layers."""
 
     def __init__(self, in_dim: int, combined_dim: int, *,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 quantized: bool = False, split: Optional[int] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.edge_layer_1 = WeightNormLinear(
-            in_dim, combined_dim, compute_dtype=compute_dtype)
+            in_dim, combined_dim, compute_dtype=compute_dtype,
+            quantized=quantized, split=split)
         self.edge_layer_2 = WeightNormLinear(
-            combined_dim, combined_dim, compute_dtype=compute_dtype)
+            combined_dim, combined_dim, compute_dtype=compute_dtype,
+            quantized=quantized)
 
     def forward(self, graph_nodes: torch.Tensor,
                 shared: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -123,26 +185,45 @@ class GaussianGraphConv(nn.Module):
     The n per-kernel projections (the reference's bias-free Linears,
     ``conv_weights.{i}``) run as one (in, n*d) matmul; the Gaussian
     weighting, aggregation and the relu that follows both convolutions
-    run in ``fused_sel_aggregate_act``.
+    run in ``fused_sel_aggregate_act``. ``quantized=True`` (serving):
+    the projection is one int8 product of ``conv_weights_q`` (n*d, in)
+    int8 and ``conv_weights_scale`` f32, its result cast to the compute
+    dtype for the aggregation.
     """
 
     def __init__(self, in_dim: int, out_dim: int, n_kernels: int, *,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 quantized: bool = False):
         super().__init__()
         if out_dim % n_kernels:
             raise ValueError(f"out_dim {out_dim} not divisible by "
                              f"n_kernels {n_kernels}")
         self.compute_dtype = compute_dtype
-        self.conv_weights = nn.ModuleList(
-            nn.Linear(in_dim, out_dim // n_kernels, bias=False)
-            for _ in range(n_kernels))
+        self.quantized = quantized
+        if quantized:
+            self.register_buffer("conv_weights_q", torch.zeros(
+                out_dim, in_dim, dtype=torch.int8))
+            self.register_buffer("conv_weights_scale", torch.ones(out_dim))
+            self.register_buffer("_operand", None, persistent=False)
+            self._pad_operands()
+            self.register_load_state_dict_post_hook(_pad_after_load)
+        else:
+            self.conv_weights = nn.ModuleList(
+                nn.Linear(in_dim, out_dim // n_kernels, bias=False)
+                for _ in range(n_kernels))
         self.mean_rho = nn.Parameter(torch.empty(n_kernels, 1))
         self.mean_theta = nn.Parameter(torch.empty(n_kernels, 1))
         self.precision_rho = nn.Parameter(torch.empty(n_kernels, 1))
         self.precision_theta = nn.Parameter(torch.empty(n_kernels, 1))
 
+    def _pad_operands(self) -> None:
+        self._operand = quant.pad_int8_weight(self.conv_weights_q)
+
     def reset_parameters(self, g: torch.Generator) -> None:
-        for lin in self.conv_weights:
+        """torch Linear init for the projections (a quantized conv keeps
+        zero codes until a quantized state_dict is loaded) and the
+        Gaussians' ranges."""
+        for lin in ([] if self.quantized else self.conv_weights):
             bound = 1.0 / math.sqrt(lin.weight.shape[1])
             _uniform(lin.weight, -bound, bound, g)
         _uniform(self.mean_rho, 0.0, 1.0, g)
@@ -160,8 +241,14 @@ class GaussianGraphConv(nn.Module):
                 pseudo: torch.Tensor, dropout_rate: float = 0.0,
                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         cdt = self.compute_dtype
-        w = torch.cat([lin.weight.to(cdt) for lin in self.conv_weights])
-        proj = matmul(features.to(cdt), w.t(), out_dtype=cdt)  # (B, K, nd)
+        if self.quantized:
+            b, k = features.shape[:2]
+            proj = quant.int8_matmul(
+                features.reshape(b * k, -1), self._operand.t(),
+                self.conv_weights_scale).to(cdt).reshape(b, k, -1)
+        else:
+            w = torch.cat([lin.weight.to(cdt) for lin in self.conv_weights])
+            proj = matmul(features.to(cdt), w.t(), out_dtype=cdt)
         return fused_sel_aggregate_act(
             selection.float().contiguous(), pseudo.float().contiguous(),
             proj.contiguous(), self.gparams(), relu=True,
@@ -197,12 +284,19 @@ class GraphVQAModel(nn.Module):
     returns
     (logits (B, out_dim) f32, adjacency (B, K, K) f32, h_max_indices
     (B, hid_dim) int64). Weights are made from ``seed`` with torch's
-    default initializers; ``load_state_dict`` replaces them.
+    default initializers; ``load_state_dict`` replaces them. A model with
+    ``quantized_inference`` loads ``quantize_state_dict_for_serving`` of
+    a float state_dict, serves only (its train-mode forward raises) and
+    refuses ``merged_block``, as the JAX package's does.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
+        q8 = cfg.quantized_inference
+        if q8 and cfg.merged_block:
+            raise ValueError("quantized_inference does not run the merged "
+                             "block (its kernels take float weights)")
         self.cfg = cfg
         cdt = torch_dtype(cfg.compute_dtype)
         self.compute_dtype = cdt
@@ -210,15 +304,18 @@ class GraphVQAModel(nn.Module):
         self.wembed = nn.Embedding(cfg.vocab_size, cfg.emb_dim)
         self.q_gru = GRUWeights(cfg.emb_dim, h)
         self.adjacency_1 = GraphLearner(cfg.feat_dim + h, cfg.combined_dim,
-                                        compute_dtype=cdt)
+                                        compute_dtype=cdt, quantized=q8,
+                                        split=cfg.feat_dim)
         self.graph_convolution_1 = GaussianGraphConv(
-            cfg.feat_dim, 2 * h, cfg.n_kernels, compute_dtype=cdt)
+            cfg.feat_dim, 2 * h, cfg.n_kernels, compute_dtype=cdt,
+            quantized=q8)
         self.graph_convolution_2 = GaussianGraphConv(
-            2 * h, h, cfg.n_kernels, compute_dtype=cdt)
-        self.out_1 = WeightNormLinear(h, cfg.out_dim, compute_dtype=cdt)
+            2 * h, h, cfg.n_kernels, compute_dtype=cdt, quantized=q8)
+        self.out_1 = WeightNormLinear(h, cfg.out_dim, compute_dtype=cdt,
+                                      quantized=q8)
         self.out_2 = WeightNormLinear(cfg.out_dim, cfg.out_dim,
                                       compute_dtype=cdt,
-                                      out_dtype=torch.float32)
+                                      out_dtype=torch.float32, quantized=q8)
         self.reset_parameters(seed)
         self.to(dev)
 
@@ -244,6 +341,9 @@ class GraphVQAModel(nn.Module):
         if not train:
             with torch.no_grad():
                 return self._forward(question, image, qlen, 0.0, None)
+        if self.cfg.quantized_inference:
+            raise ValueError("quantized_inference serves only: there is no "
+                             "int8 backward")
         return self._forward(question, image, qlen, self.cfg.dropout,
                              generator)
 

@@ -1,4 +1,4 @@
-"""Carry weights into the port's state_dict layout.
+"""Carry weights into and out of the port's state_dict layout.
 
 The port's parameter names and shapes are the reference's torch
 state_dict (see ``models/graph_vqa.py``). Two sources feed it:
@@ -10,6 +10,9 @@ state_dict (see ``models/graph_vqa.py``). Two sources feed it:
   bare state_dict or the full training dict ``{..., "state_dict"}``;
   both weight-norm namings (``weight_g``/``weight_v`` and
   ``parametrizations.weight.original0/1``) are accepted.
+
+``export_reference_state_dict`` goes the other way: the bare reference
+state_dict, as the JAX package's ``export_torch_state_dict`` writes it.
 """
 
 from __future__ import annotations
@@ -82,3 +85,45 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     state_dict the port's model loads directly."""
     return reference_state_dict(
         torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _reference_names(n_kernels: int):
+    """The reference state_dict's keys, in the order the JAX package's
+    export writes them."""
+    names = ["wembed.weight", "q_gru.weight_ih_l0", "q_gru.weight_hh_l0",
+             "q_gru.bias_ih_l0", "q_gru.bias_hh_l0"]
+    wn = ("weight_g", "weight_v", "bias")
+    for layer in ("edge_layer_1", "edge_layer_2"):
+        names += [f"adjacency_1.{layer}.{p}" for p in wn]
+    for conv in ("graph_convolution_1", "graph_convolution_2"):
+        names += [f"{conv}.conv_weights.{i}.weight" for i in range(n_kernels)]
+        names += [f"{conv}.{g}" for g in _GAUSSIANS]
+    for layer in ("out_1", "out_2"):
+        names += [f"{layer}.{p}" for p in wn]
+    return names
+
+
+def export_reference_state_dict(state_dict: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The bare reference state_dict of the port's weights (a model's
+    ``state_dict()`` or a checkpoint's), float32 on the CPU: weight-norm
+    layers as ``weight_g`` (out, 1), ``weight_v`` (out, in) and ``bias``,
+    each conv kernel as ``conv_weights.{i}.weight`` (d, in), the Gaussian
+    parameters (n, 1). The counterpart of the JAX package's
+    ``models/torch_import.py::export_torch_state_dict``. Raises
+    ValueError for other names (a quantized model's, say) or shapes."""
+    n_kernels = int(state_dict["graph_convolution_1.mean_rho"].shape[0])
+    names = _reference_names(n_kernels)
+    if set(state_dict) != set(names):
+        raise ValueError("not the reference's parameter names: "
+                         f"{sorted(set(state_dict) ^ set(names))}")
+    out = {k: state_dict[k].detach().to("cpu", torch.float32).contiguous()
+           for k in names}
+    for k, v in out.items():
+        prefix, leaf = k.rsplit(".", 1)
+        if leaf in _GAUSSIANS and tuple(v.shape) != (n_kernels, 1):
+            raise ValueError(f"{k} is {tuple(v.shape)}, want ({n_kernels}, 1)")
+        if (leaf == "weight_g" and tuple(v.shape)
+                != (out[prefix + ".weight_v"].shape[0], 1)):
+            raise ValueError(f"{k} is {tuple(v.shape)}, want (out, 1)")
+    return out

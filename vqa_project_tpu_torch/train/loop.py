@@ -12,7 +12,7 @@ Counterpart of ``vqa_project_tpu/train/loop.py`` on one card:
   device-to-host fetch per window), the epoch accuracy, every
   ``eval_interval`` steps a 10-batch mini-validation plus a checkpoint,
   optionally a checkpoint per epoch, and resuming from the port's own
-  checkpoint or from a reference ``.pt``;
+  checkpoint, a reference ``.pt`` or a JAX-package checkpoint;
 - ``evaluate`` (``--eval`` / ``--test``): the accuracy over a split and
   the EvalAI ``result.json`` ([{question_id, answer}]), through a
   resident epoch with a cache, else streaming.
@@ -34,16 +34,11 @@ from vqa_project_tpu_torch.config import (ModelConfig, TrainConfig,
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
 from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
 from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
-from vqa_project_tpu_torch.models.weights import reference_state_dict
 from vqa_project_tpu_torch.ops.quant import quantize_feature_table
 from vqa_project_tpu_torch.train.metrics import MetricLogger
-from vqa_project_tpu_torch.train.state import (is_port_checkpoint,
+from vqa_project_tpu_torch.train.state import (load_checkpoint,
                                                make_optimizer,
-                                               reference_adam_state,
-                                               require_torch_file,
-                                               restore_checkpoint,
-                                               save_checkpoint,
-                                               set_schedule_step)
+                                               save_checkpoint)
 from vqa_project_tpu_torch.train.steps import (QuantizedFeatureCache,
                                                eval_epoch, eval_step,
                                                make_image_fn,
@@ -178,37 +173,15 @@ def _same_store(a, b) -> bool:
 
 def _resume_checkpoint(path: str, model, optimizer, scheduler,
                        generator) -> Tuple[int, int, int]:
-    """Restore training state from ``path``; returns (next epoch, steps
-    already run in it, step).
-
-    The port's checkpoint restores the weights, Adam, the scheduler, the
-    step and the dropout generator; ``step_in_epoch > 0`` marks one
-    written mid-epoch at a mini-validation. A reference ``.pt`` (bare
-    state_dict, or the full dict with epoch and torch Adam state)
-    restores the weights and, from a full dict, the Adam moments and
-    their step, which also sets the scheduler; its optimizer state is
-    refused, and the optimizer starts fresh, when it is unusable (as the
-    JAX package does)."""
-    require_torch_file(path)
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if is_port_checkpoint(payload):
-        restore_checkpoint(payload, model, optimizer, scheduler, generator)
-        extra = payload.get("extra") or {}
-        return (int(payload["epoch"]), int(extra.get("step_in_epoch", 0)),
-                int(payload["step"]))
-    model.load_state_dict(reference_state_dict(payload))
-    epoch = step = 0
-    if isinstance(payload.get("state_dict"), dict):
-        epoch = int(payload.get("epoch", 0))
-        try:
-            opt_state, step = reference_adam_state(payload, model, optimizer)
-        except (KeyError, ValueError) as e:
-            print(f"torch checkpoint: optimizer state not imported ({e}); "
-                  "optimizer restarts fresh", flush=True)
-        else:
-            optimizer.load_state_dict(opt_state)
-    set_schedule_step(scheduler, step)
-    return epoch, 0, step
+    """Restore training state from ``path`` (any kind
+    ``load_checkpoint`` reads); returns (next epoch, steps already run
+    in it, step). ``step_in_epoch > 0`` marks a checkpoint written
+    mid-epoch at a mini-validation, by the port or by the JAX package; a
+    reference ``.pt`` resumes at an epoch boundary."""
+    payload = load_checkpoint(path, model, optimizer, scheduler, generator)
+    extra = payload.get("extra") or {}
+    return (int(payload["epoch"]), int(extra.get("step_in_epoch", 0)),
+            int(payload["step"]))
 
 
 def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
@@ -232,8 +205,9 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     ``save_every_epoch`` writes it after every epoch too; ``jsonl_path``
     receives one record per logged window.
 
-    ``resume_path`` (a port checkpoint or a reference ``.pt``; a missing
-    file raises FileNotFoundError) continues from it: the epochs run are
+    ``resume_path`` (a port checkpoint, a reference ``.pt`` or a JAX
+    msgpack checkpoint; a missing file raises FileNotFoundError)
+    continues from it: the epochs run are
     the checkpoint's next epoch and ``epochs - 1`` more, a mid-epoch
     checkpoint first finishing its epoch from the batch it stopped at,
     and the step count goes on from the checkpoint's. Resumed at either

@@ -4,9 +4,12 @@ Counterpart of ``vqa_project_tpu/train/state.py``: Adam (betas 0.9 /
 0.999, eps 1e-8, as torch's and optax's defaults) with the reference's
 MultiStepLR, and one checkpoint format, a full dict with the weights
 under the reference's state_dict names, written to a unique temporary
-name and renamed into place so a reader never sees half a file. The
-reference's own full-dict ``.pt`` (weights, torch Adam state keyed by
-parameter index, epoch) is read too (``reference_adam_state``).
+name and renamed into place so a reader never sees half a file.
+``load_checkpoint`` also reads the reference's ``.pt`` (a bare
+state_dict, or the full dict with torch Adam state keyed by parameter
+index: ``reference_adam_state``) and the JAX package's flax-msgpack
+checkpoint (``train/_msgpack.py``), telling the kinds apart by their
+first bytes as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from vqa_project_tpu_torch.config import TrainConfig
-from vqa_project_tpu_torch.models.weights import reference_name
+from vqa_project_tpu_torch.models.weights import (reference_name,
+                                                  reference_state_dict,
+                                                  state_dict_from_jax_params)
+from vqa_project_tpu_torch.train._msgpack import (migrate_conv_kernels,
+                                                  read_flax_msgpack)
 
 
 def make_optimizer(model: torch.nn.Module, cfg: TrainConfig,
@@ -83,19 +90,43 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
 def load_checkpoint(path: str, model: Optional[torch.nn.Module] = None,
                     optimizer=None, scheduler=None,
                     generator: Optional[torch.Generator] = None) -> dict:
-    """Read a checkpoint of ``save_checkpoint`` and restore whatever of
-    model, optimizer, scheduler and generator is given; returns the
-    payload (step, epoch, extra, configs)."""
+    """Read a checkpoint of any kind the port takes and restore whatever
+    of model, optimizer, scheduler and generator is given. Returns the
+    payload; for every kind it holds ``state_dict`` (float32, the
+    reference's names), ``step``, ``epoch`` (the next one to run) and
+    ``extra``.
+
+    - The port's own (``save_checkpoint``): all of it, the dropout
+      generator's state too.
+    - A reference ``.pt``, a bare state_dict or the full dict: the
+      weights; from a full dict also the epoch and the Adam moments with
+      their step (``reference_adam_state``; unusable optimizer state is
+      reported and the optimizer left fresh, as the JAX package does),
+      and the scheduler at that step.
+    - A JAX-package msgpack: the weights (a legacy ``(n, in, d)`` conv
+      kernel migrated), Adam's moments in float32 and its count, the
+      scheduler at the schedule's count, the step, the epoch and
+      ``extra`` (``step_in_epoch`` of a checkpoint written mid-epoch).
+      Its dropout key (an rbg key) has no torch counterpart, so the
+      generator is left as it is: ``fit`` seeds it from
+      ``TrainConfig.seed``. Dropout bits never matched JAX's anyway.
+    """
+    if not is_torch_file(path):
+        with open(path, "rb") as f:
+            tree = read_flax_msgpack(f.read())
+        return _restore_jax(tree, model, optimizer, scheduler)
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    restore_checkpoint(payload, model, optimizer, scheduler, generator)
-    return payload
+    if is_port_checkpoint(payload):
+        _restore_port(payload, model, optimizer, scheduler, generator)
+        return payload
+    return _restore_reference(payload, model, optimizer, scheduler)
 
 
-def restore_checkpoint(payload: dict, model=None, optimizer=None,
-                       scheduler=None, generator=None) -> None:
-    """``load_checkpoint`` on a payload already read. A checkpoint
-    without scheduler state (``--trainval``'s named file) puts the
-    scheduler at the checkpoint's step."""
+def _restore_port(payload: dict, model=None, optimizer=None,
+                  scheduler=None, generator=None) -> None:
+    """``load_checkpoint`` for the port's own payload already read. A
+    checkpoint without scheduler state (``--trainval``'s named file)
+    puts the scheduler at the checkpoint's step."""
     if model is not None:
         model.load_state_dict(payload["state_dict"])
     if optimizer is not None and payload.get("optimizer") is not None:
@@ -121,18 +152,6 @@ def is_torch_file(path: str) -> bool:
         head = f.read(2)
     return head[:2] == b"PK" or (len(head) == 2 and head[0] == 0x80
                                  and head[1] < 0x08)
-
-
-def require_torch_file(path: str) -> None:
-    """Raise ValueError unless ``path`` is a torch checkpoint: the port
-    reads its own checkpoints and the reference's ``.pt`` files, not yet
-    the JAX package's msgpack ones."""
-    if not is_torch_file(path):
-        raise ValueError(
-            f"{path} is not a torch checkpoint. A JAX-package (msgpack) "
-            "checkpoint is not read by the port yet (ROADMAP.md, section "
-            "1 item 3: checkpoint interchange); convert it to a reference "
-            ".pt with `python -m vqa_project_tpu.cli.export_torch` first")
 
 
 def is_port_checkpoint(payload) -> bool:
@@ -182,19 +201,31 @@ def reference_adam_state(ckpt: dict, model: torch.nn.Module,
         raise ValueError(f"per-param Adam steps disagree: {sorted(counts)}")
     count = counts.pop()
     order = [reference_name(k) for k in ckpt["state_dict"]]
-    named = dict(model.named_parameters())
-    index = {id(p): i for i, p in enumerate(
-        p for g in optimizer.param_groups for p in g["params"])}
-    new_state = {}
+    moments = {}
     for i, s in state.items():
         if not 0 <= int(i) < len(order):
             raise ValueError(f"optimizer state for parameter index {i} of "
                              f"{len(order)}")
-        name = order[int(i)]
+        moments[order[int(i)]] = (s["exp_avg"], s["exp_avg_sq"])
+    return adam_state_by_name(model, optimizer, moments, count), count
+
+
+def adam_state_by_name(model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer,
+                       moments: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                       count: int) -> Dict:
+    """``optimizer``'s state_dict with Adam's (first, second) moments given
+    per parameter name, in float32, all at step ``count``. Raises
+    ValueError for an unknown name, a shape that is not the parameter's,
+    or a parameter left without moments."""
+    named = dict(model.named_parameters())
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    new_state = {}
+    for name, (m, v) in moments.items():
         param = named.get(name)
         if param is None or id(param) not in index:
             raise ValueError(f"optimizer state for unknown parameter {name}")
-        m, v = s["exp_avg"], s["exp_avg_sq"]
         if m.shape != param.shape or v.shape != param.shape:
             raise ValueError(f"Adam moments of {name} have shape "
                              f"{tuple(m.shape)}, the parameter "
@@ -207,4 +238,68 @@ def reference_adam_state(ckpt: dict, model: torch.nn.Module,
         raise ValueError(f"optimizer state lacks {len(missing)} parameters")
     out = optimizer.state_dict()
     out["state"] = new_state
-    return out, count
+    return out
+
+
+def _restore_reference(ckpt: dict, model, optimizer, scheduler) -> dict:
+    """``load_checkpoint`` for a reference ``.pt`` already read."""
+    sd = reference_state_dict(ckpt)
+    full = isinstance(ckpt.get("state_dict"), dict)
+    step = 0
+    if model is not None:
+        model.load_state_dict(sd)
+        if full and optimizer is not None:
+            try:
+                opt_state, step = reference_adam_state(ckpt, model,
+                                                       optimizer)
+            except (KeyError, ValueError) as e:
+                print(f"torch checkpoint: optimizer state not imported "
+                      f"({e}); optimizer restarts fresh", flush=True)
+            else:
+                optimizer.load_state_dict(opt_state)
+    if scheduler is not None:
+        set_schedule_step(scheduler, step)
+    return {"state_dict": sd, "step": step,
+            "epoch": int(ckpt.get("epoch", 0)) if full else 0, "extra": {}}
+
+
+def _float32(tree):
+    """The tree with its tensors as float32 numpy arrays (bfloat16 Adam
+    moments widened exactly)."""
+    if isinstance(tree, dict):
+        return {k: _float32(v) for k, v in tree.items()}
+    return tree.float().numpy() if torch.is_tensor(tree) else tree
+
+
+def _restore_jax(tree, model, optimizer, scheduler) -> dict:
+    """``load_checkpoint`` for a JAX-package msgpack tree already read:
+    ``{params, opt_state, step, epoch, rng, extra}``, with ``opt_state``
+    optax's (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))
+    stored as {"0": {...}, "1": {...}}."""
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError("not a JAX-package checkpoint: no params at the top "
+                         "level")
+    if optimizer is not None and model is None:
+        raise ValueError("restoring the optimizer needs the model")
+    migrate_conv_kernels(tree)
+    sd = state_dict_from_jax_params(_float32(tree["params"]))
+    if model is not None:
+        model.load_state_dict(sd)
+    opt = tree.get("opt_state")
+    if optimizer is not None or scheduler is not None:
+        if not (isinstance(opt, dict) and {"count", "mu", "nu"}
+                <= set(opt.get("0", {})) and "count" in opt.get("1", {})):
+            raise ValueError("the checkpoint's optimizer state is not "
+                             "(Adam, schedule)")
+    if optimizer is not None:
+        adam = opt["0"]
+        mu = state_dict_from_jax_params(_float32(adam["mu"]))
+        nu = state_dict_from_jax_params(_float32(adam["nu"]))
+        optimizer.load_state_dict(adam_state_by_name(
+            model, optimizer, {k: (mu[k], nu[k]) for k in mu},
+            int(adam["count"])))
+    if scheduler is not None:
+        set_schedule_step(scheduler, int(opt["1"]["count"]))
+    return {"state_dict": sd, "step": int(tree.get("step", 0)),
+            "epoch": int(tree.get("epoch", 0)),
+            "extra": dict(tree.get("extra") or {})}
