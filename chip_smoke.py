@@ -132,6 +132,24 @@ Phases, in order; the first failure exits non-zero:
     activation quantization and the forwards timed beside bf16;
     cli.export_torch's .pt reloaded bit for bit and cli.validate_parity
     printing evaluate()'s accuracy;
+17. the medical grid search from files, the main path (in a temporary
+    working directory): A, C and D at the grid's corners (B=8, K=51,
+    n = 4 and 32 by m = 16 and 36, conv1's and conv2's widths) against
+    their plain versions as phases 3 and 7 hold them (conv1's dropout
+    at the medical 0.4), then timed beside their bounds;
+    cli.run_imageclef.main over those four cells at full width (256
+    images of 51 x 2048 written by --synthetic, 2048 questions, 3000
+    answers, hid 1024, bf16, batch 8, one epoch): four grid lines, four
+    checkpoints that load back and answer val as their cells did, the
+    best cell's CSV of every question, one cache build, per train step
+    the image gather 1, C 2, D 2, B 1, E 1 + 1, A 0 and per eval batch
+    the image gather 1, A 2, B 1, finite losses, the allocated bytes at
+    each cell's start within one model of the first's, and a profile of
+    a step at n = 4 and 32; cli.run_mimic.main's preset cell under
+    --fast_math with its own val store (two cache builds, every Adam
+    moment bfloat16), an async_save_checkpoint equal to a synchronous
+    save, and a profiling.trace of two annotated steps; per cell the
+    StepTimer's p50 and QA pairs/s and evaluate's questions/s printed;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -170,9 +188,11 @@ import contextlib
 import dataclasses
 import http.client
 import io
+import itertools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -185,11 +205,14 @@ import numpy as np
 import torch
 
 from vqa_project_tpu_torch.cli import export_torch as export_cli
+from vqa_project_tpu_torch.cli import medical as medical_cli
 from vqa_project_tpu_torch.cli import run as cli
+from vqa_project_tpu_torch.cli import run_imageclef, run_mimic
 from vqa_project_tpu_torch.cli import serve as serve_cli
 from vqa_project_tpu_torch.cli import validate_parity as parity_cli
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
-from vqa_project_tpu_torch.data import (FeatureStore, GraphVQADataset,
+from vqa_project_tpu_torch.data import (Batcher, FeatureStore,
+                                        GraphVQADataset,
                                         generate_synthetic_vqa, native,
                                         pack_index_batch, tokenize)
 from vqa_project_tpu_torch.data.store import pack_paths
@@ -224,10 +247,15 @@ from vqa_project_tpu_torch.ops.gru_scan import (gru_scan, gru_scan_bwd,
                                                 gru_wgrad, scan_kernel,
                                                 sweep_kernel, wgrad_kernel)
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
+from vqa_project_tpu_torch.train import loop as train_loop
+from vqa_project_tpu_torch.train import profiling
 from vqa_project_tpu_torch.train import (QuantizedFeatureCache, build_model,
                                          evaluate, fit, load_checkpoint,
                                          make_feature_cache, make_image_fn,
-                                         make_optimizer, train_step)
+                                         make_optimizer, save_checkpoint,
+                                         train_step)
+from vqa_project_tpu_torch.train.state import (async_save_checkpoint,
+                                               wait_for_async_saves)
 
 SEED = 20261016
 # VQA v2 widths (hid 1024, 8 kernels, 16 neighbours, K=36, 3001 answers,
@@ -657,45 +685,50 @@ def check_edge_forward(dev, gen, errs):
     shapes the rule sends to the SIMT body; the rule's pick asserted; the
     bf16 body run again into NaN-filled outputs must give the same bits;
     and for the mma body the hi/lo split's rounding share."""
-    for (b, k, m, n, d, use_alpha, label), control in edge_check_shapes(
-            SERVE_B):
-        sel, pseudo, proj, gp = edge_inputs(b, k, m, n, d, use_alpha, gen,
-                                            dev)
-        want = "mma" if k <= 64 and d % 8 == 0 else "simt"
-        require(aggregate_kernel(torch.bfloat16, k, n, d) == want
-                and aggregate_kernel(torch.float32, k, n, d) == "simt",
-                f"the aggregation rule at K={k} d={d}")
-        out = fused_sel_aggregate_act(sel, pseudo, proj, gp, relu=True)
-        ref = sel_aggregate_act_reference(sel, pseudo, proj, gp, relu=True)
-        torch.cuda.synchronize()
-        e32 = norm_err(out, ref)
-        proj16 = proj.to(torch.bfloat16)
-        out16 = fused_sel_aggregate_act(sel, pseudo, proj16, gp, relu=True)
-        ref16 = sel_aggregate_act_reference(
-            sel, pseudo, proj16.float(), gp, relu=True).to(torch.bfloat16)
-        again = edge_fwd_into_nan(sel, pseudo, proj16, gp, True)
-        torch.cuda.synchronize()
-        e16 = norm_err(out16, ref16)
-        same = torch.equal(out16, again)
-        print(f"kernel A {label} B={b} K={k} n={n} d={d}: normalized err f32 "
-              f"{e32:.3e} (<= 1e-5), bf16 {want} {e16:.3e} (<= 1e-2); "
-              f"NaN-filled rerun equal bit for bit {same}", flush=True)
-        require(out16.dtype == torch.bfloat16 and out.shape == ref.shape,
-                "kernel A output dtype/shape")
-        require(e32 <= 1e-5 and e16 <= 1e-2 and same,
-                f"kernel A {label} disagrees")
-        if want == "mma":
-            controls = {}
-            if control:
-                ghat = sel_aggregate_act_residuals_reference(
-                    sel, pseudo, proj16, gp)[1]
-                controls["out"] = rounding_share(
-                    one_pass_out(sel, ghat, proj16), ref16)
-            split_check(f"kernel A {label}",
-                        {"out": rounding_share(out16, ref16)}, controls)
-        if label == "vqa conv1":
-            errs["edge_aggregate_fwd"] = float(
-                (out16.float() - ref16.float()).abs().max())
+    for shape, control in edge_check_shapes(SERVE_B):
+        check_edge_forward_shape(shape, control, gen, dev, errs)
+
+
+def check_edge_forward_shape(shape, control, gen, dev, errs):
+    """check_edge_forward at one (B, K, m, n, d, conv1, label) shape; the
+    one-pass control runs where ``control``."""
+    b, k, m, n, d, use_alpha, label = shape
+    sel, pseudo, proj, gp = edge_inputs(b, k, m, n, d, use_alpha, gen, dev)
+    want = "mma" if k <= 64 and d % 8 == 0 else "simt"
+    require(aggregate_kernel(torch.bfloat16, k, n, d) == want
+            and aggregate_kernel(torch.float32, k, n, d) == "simt",
+            f"the aggregation rule at K={k} d={d}")
+    out = fused_sel_aggregate_act(sel, pseudo, proj, gp, relu=True)
+    ref = sel_aggregate_act_reference(sel, pseudo, proj, gp, relu=True)
+    torch.cuda.synchronize()
+    e32 = norm_err(out, ref)
+    proj16 = proj.to(torch.bfloat16)
+    out16 = fused_sel_aggregate_act(sel, pseudo, proj16, gp, relu=True)
+    ref16 = sel_aggregate_act_reference(
+        sel, pseudo, proj16.float(), gp, relu=True).to(torch.bfloat16)
+    again = edge_fwd_into_nan(sel, pseudo, proj16, gp, True)
+    torch.cuda.synchronize()
+    e16 = norm_err(out16, ref16)
+    same = torch.equal(out16, again)
+    print(f"kernel A {label} B={b} K={k} n={n} d={d}: normalized err f32 "
+          f"{e32:.3e} (<= 1e-5), bf16 {want} {e16:.3e} (<= 1e-2); "
+          f"NaN-filled rerun equal bit for bit {same}", flush=True)
+    require(out16.dtype == torch.bfloat16 and out.shape == ref.shape,
+            "kernel A output dtype/shape")
+    require(e32 <= 1e-5 and e16 <= 1e-2 and same,
+            f"kernel A {label} disagrees")
+    if want == "mma":
+        controls = {}
+        if control:
+            ghat = sel_aggregate_act_residuals_reference(
+                sel, pseudo, proj16, gp)[1]
+            controls["out"] = rounding_share(
+                one_pass_out(sel, ghat, proj16), ref16)
+        split_check(f"kernel A {label}",
+                    {"out": rounding_share(out16, ref16)}, controls)
+    if label == "vqa conv1":
+        errs["edge_aggregate_fwd"] = float(
+            (out16.float() - ref16.float()).abs().max())
 
 
 def check_kernels(dev, gen):
@@ -973,113 +1006,121 @@ def check_edge_training(dev, gen, errs):
     the hi/lo split's rounding share of out and dproj; and the dropout
     epilogue's bits, rate, repeatability and per-image seeds in both
     dtypes."""
-    for (b, k, m, n, d, use_alpha, label), control in edge_check_shapes(
-            TRAIN_B):
-        sel, pseudo, proj, gp = edge_inputs(b, k, m, n, d, use_alpha, gen,
-                                            dev)
-        # conv1 runs relu + dropout in training, conv2 relu only
-        rate = DROPOUT if use_alpha else 0.0
-        seeds = random_seeds(b, gen, dev) if rate else None
-        g = torch.randn(proj.shape, generator=gen).to(dev)
-        with_d = k <= 64
-        for dtype, tol_c, tol_d in ((torch.float32, 1e-5, 1e-4),
-                                    (torch.bfloat16, 1e-2, 1e-2)):
-            p = proj.to(dtype)
-            body = edge_body(p, gp)
-            res = sel_aggregate_act_residuals(sel, pseudo, p, gp, True, rate,
-                                              seeds)
-            ref = sel_aggregate_act_residuals_reference(sel, pseudo, p, gp,
-                                                        True, rate, seeds)
-            grads = ref_g = ()
-            if with_d:
-                grads = sel_aggregate_act_vjp(g.to(dtype), sel, res[1],
-                                              res[2], pseudo, p, gp, res[0],
-                                              rate)
-                ref_g = sel_aggregate_act_vjp_reference(
-                    g.to(dtype), sel, res[1], res[2], pseudo, p, gp, res[0],
-                    rate)
-            same = True
-            if dtype == torch.bfloat16:
-                res2 = edge_fwd_into_nan(sel, pseudo, p, gp, True, rate,
-                                         seeds, train=True)
-                grads2 = (edge_bwd_into_nan(g.to(dtype), sel, res[1], res[2],
-                                            pseudo, p, gp, res[0], rate)
-                          if with_d else ())
-                torch.cuda.synchronize()
-                same = (all(torch.equal(x, y) for x, y in zip(res, res2))
-                        and all(torch.equal(x, y)
-                                for x, y in zip(grads, grads2)))
+    for shape, control in edge_check_shapes(TRAIN_B):
+        check_edge_training_shape(shape, control, gen, dev, errs)
+
+
+def check_edge_training_shape(shape, control, gen, dev, errs,
+                              dropout=DROPOUT):
+    """check_edge_training at one (B, K, m, n, d, conv1, label) shape,
+    conv1 at the rate ``dropout``; the one-pass controls run where
+    ``control``."""
+    b, k, m, n, d, use_alpha, label = shape
+    sel, pseudo, proj, gp = edge_inputs(b, k, m, n, d, use_alpha, gen, dev)
+    # conv1 runs relu + dropout in training, conv2 relu only
+    rate = dropout if use_alpha else 0.0
+    seeds = random_seeds(b, gen, dev) if rate else None
+    g = torch.randn(proj.shape, generator=gen).to(dev)
+    with_d = k <= 64
+    for dtype, tol_c, tol_d in ((torch.float32, 1e-5, 1e-4),
+                                (torch.bfloat16, 1e-2, 1e-2)):
+        p = proj.to(dtype)
+        body = edge_body(p, gp)
+        res = sel_aggregate_act_residuals(sel, pseudo, p, gp, True, rate,
+                                          seeds)
+        ref = sel_aggregate_act_residuals_reference(sel, pseudo, p, gp,
+                                                    True, rate, seeds)
+        grads = ref_g = ()
+        if with_d:
+            grads = sel_aggregate_act_vjp(g.to(dtype), sel, res[1],
+                                          res[2], pseudo, p, gp, res[0],
+                                          rate)
+            ref_g = sel_aggregate_act_vjp_reference(
+                g.to(dtype), sel, res[1], res[2], pseudo, p, gp, res[0],
+                rate)
+        same = True
+        if dtype == torch.bfloat16:
+            res2 = edge_fwd_into_nan(sel, pseudo, p, gp, True, rate,
+                                     seeds, train=True)
+            grads2 = (edge_bwd_into_nan(g.to(dtype), sel, res[1], res[2],
+                                        pseudo, p, gp, res[0], rate)
+                      if with_d else ())
             torch.cuda.synchronize()
-            e_c = [norm_err(x, y) for x, y in zip(res, ref)]
-            e_d = [norm_err(x, y) for x, y in zip(grads, ref_g)]
-            print(f"kernel C {label} B={b} K={k} n={n} d={d} "
-                  f"{str(dtype)[6:]} {body} dropout {rate}: normalized err "
-                  f"out/ghat/denom {e_c[0]:.2e}/{e_c[1]:.2e}/{e_c[2]:.2e} "
-                  f"(<= {tol_c}); kernel D dsel/dpseudo/dproj/dgparams "
-                  + ("/".join(f"{e:.2e}" for e in e_d) + f" (<= {tol_d})"
-                     if with_d else "not run (K > 64)")
-                  + f"; NaN-filled reruns equal bit for bit {same}",
-                  flush=True)
-            require(max(e_c) <= tol_c, f"kernel C {label} disagrees")
-            require(max(e_d, default=0.0) <= tol_d,
-                    f"kernel D {label} disagrees")
-            require(same, f"kernels C/D {label}: a rerun changed bits")
-            if body == "mma":
-                g16 = g.to(dtype)
-                controls = {}
-                if control:
-                    controls = {
-                        "out": rounding_share(one_pass_out(
-                            sel, ref[1], p, rate, seeds), ref[0]),
-                        "dproj": rounding_share(one_pass_dproj(
-                            g16, sel, res[1], res[0], rate), ref_g[2])}
-                split_check(f"kernels C/D {label}",
-                            {"out": rounding_share(res[0], ref[0]),
-                             "dproj": rounding_share(grads[2], ref_g[2])},
-                            controls)
-            if label == "vqa conv1" and dtype == torch.bfloat16:
-                errs["edge_aggregate_fwd_res"] = max(
-                    float((x.float() - y.float()).abs().max())
-                    for x, y in zip(res, ref))
-                errs["edge_aggregate_bwd"] = max(
-                    float((x.float() - y.float()).abs().max())
-                    for x, y in zip(grads, ref_g))
-            if rate and b > 1:
-                check_dropout(sel, pseudo, p, gp, seeds, res[0],
-                              f"{label} {str(dtype)[6:]}")
+            same = (all(torch.equal(x, y) for x, y in zip(res, res2))
+                    and all(torch.equal(x, y)
+                            for x, y in zip(grads, grads2)))
+        torch.cuda.synchronize()
+        e_c = [norm_err(x, y) for x, y in zip(res, ref)]
+        e_d = [norm_err(x, y) for x, y in zip(grads, ref_g)]
+        print(f"kernel C {label} B={b} K={k} n={n} d={d} "
+              f"{str(dtype)[6:]} {body} dropout {rate}: normalized err "
+              f"out/ghat/denom {e_c[0]:.2e}/{e_c[1]:.2e}/{e_c[2]:.2e} "
+              f"(<= {tol_c}); kernel D dsel/dpseudo/dproj/dgparams "
+              + ("/".join(f"{e:.2e}" for e in e_d) + f" (<= {tol_d})"
+                 if with_d else "not run (K > 64)")
+              + f"; NaN-filled reruns equal bit for bit {same}",
+              flush=True)
+        require(max(e_c) <= tol_c, f"kernel C {label} disagrees")
+        require(max(e_d, default=0.0) <= tol_d,
+                f"kernel D {label} disagrees")
+        require(same, f"kernels C/D {label}: a rerun changed bits")
+        if body == "mma":
+            g16 = g.to(dtype)
+            controls = {}
+            if control:
+                controls = {
+                    "out": rounding_share(one_pass_out(
+                        sel, ref[1], p, rate, seeds), ref[0]),
+                    "dproj": rounding_share(one_pass_dproj(
+                        g16, sel, res[1], res[0], rate), ref_g[2])}
+            split_check(f"kernels C/D {label}",
+                        {"out": rounding_share(res[0], ref[0]),
+                         "dproj": rounding_share(grads[2], ref_g[2])},
+                        controls)
+        if label == "vqa conv1" and dtype == torch.bfloat16:
+            errs["edge_aggregate_fwd_res"] = max(
+                float((x.float() - y.float()).abs().max())
+                for x, y in zip(res, ref))
+            errs["edge_aggregate_bwd"] = max(
+                float((x.float() - y.float()).abs().max())
+                for x, y in zip(grads, ref_g))
+        if rate and b > 1:
+            check_dropout(sel, pseudo, p, gp, seeds, res[0],
+                          f"{label} {str(dtype)[6:]}", rate)
 
 
-def check_dropout(sel, pseudo, proj, gp, seeds, out, label):
+def check_dropout(sel, pseudo, proj, gp, seeds, out, label, rate=DROPOUT):
     """Kernel C's dropout mask: bit for bit the plain Philox keep mask
-    wherever the relu output is clear of 0, half of the positive units
-    kept, the same seeds giving the same output, and a changed seed
+    wherever the relu output is clear of 0, 1 - rate of the positive
+    units kept, the same seeds giving the same output, and a changed seed
     changing its own image only. Clear of 0: above 1e-6 of the largest
     output in f32; above 1e-3 in bf16, where the product's operands are
     rounded to bf16 (hi + lo) and a unit within that of 0 may take the
     other side of the relu."""
     plain = sel_aggregate_act_residuals_reference(sel, pseudo, proj, gp,
                                                   True)[0]
-    keep = philox_keep(seeds, proj.shape[1:], DROPOUT)
+    keep = philox_keep(seeds, proj.shape[1:], rate)
     margin = 1e-6 if proj.dtype == torch.float32 else 1e-3
     clear = plain > margin * float(plain.max())
     mismatched = int(((out != 0) != keep)[clear].sum())
     kept = float((out > 0).sum()) / float((plain > 0).sum())
     again = sel_aggregate_act_residuals(sel, pseudo, proj, gp, True,
-                                        DROPOUT, seeds)[0]
+                                        rate, seeds)[0]
     seeds2 = seeds.clone()
     seeds2[1] ^= 1
     other = sel_aggregate_act_residuals(sel, pseudo, proj, gp, True,
-                                        DROPOUT, seeds2)[0]
+                                        rate, seeds2)[0]
     changed = [i for i in range(out.shape[0])
                if not torch.equal(other[i], out[i])]
     torch.cuda.synchronize()
     print(f"kernel C {label} dropout: mask mismatches vs plain Philox "
           f"{mismatched} of {int(clear.sum())} (want 0); kept fraction of "
-          f"positive units {kept:.5f} (0.5 +- 0.005); repeat identical "
+          f"positive units {kept:.5f} ({1 - rate} +- 0.005); repeat identical "
           f"{torch.equal(again, out)}; seed of image 1 changed -> images "
           f"changed {changed}", flush=True)
     require(mismatched == 0, "dropout mask differs from the plain Philox")
-    require(abs(kept - 0.5) <= 0.005, "kept fraction off 0.5")
+    require(abs(kept - (1 - rate)) <= 0.005,
+            f"kept fraction off {1 - rate}")
     require(torch.equal(again, out), "same seeds, different output")
     require(changed == [1], "a seed change leaked across images")
 
@@ -3904,6 +3945,387 @@ def serving_from_files(dev, smi, sdir):
           flush=True)
 
 
+# ---------------- the medical grid search from files ----------------
+
+MED_B = 8            # the medical harness's --bsize
+MED_K = 51           # its --n_obj
+MED_DROPOUT = 0.4    # its --dropout
+# the grid's corner cells (n_kernels, neighbourhood) of cli/medical.py's
+# lists n in {4, 8, 16, 32} and m in {16, ..., 36}, and the two
+# convolutions' widths n * d at hid 1024: conv1 (alpha, dropout in
+# training) 2048, conv2 (the 0/1 mask) 1024. n = 4 gives conv1 d = 512,
+# past kernels A and C's 256-column tile; n = 32 gives conv2 d = 32,
+# half of kernel D's 64-column chunk
+MED_CORNERS = [(n, m) for n in (4, 32) for m in (16, 36)]
+MED_WIDTHS = ((2048, True), (1024, False))
+# `--synthetic` at full medical width: 256 images of 51 x 2048 f32 (one
+# json, train = val: 2048 questions, 256 steps and 256 eval batches of 8
+# a cell), 3000 answers, 12k question words; hid 1024, emb 300, bf16
+MED_COMMON = ["--data_dir", "data", "--synthetic", "--synthetic_feat_dim",
+              "2048", "--synthetic_answers", "3000", "--synthetic_vocab",
+              "12000", "--hid", "1024", "--emb", "300", "--bsize",
+              str(MED_B), "--dropout", str(MED_DROPOUT), "--lr", "1e-3",
+              "--compute_dtype", "bfloat16", "--ep", "1"]
+CLEF_ARGS = [*MED_COMMON, "--synthetic_images", "256",
+             "--synthetic_questions", "2048", "--neighbors_list", "16", "36",
+             "--kernels_list", "4", "32"]
+# MIMIC's preset cell under --fast_math; 1020 questions a split, so that
+# the last eval batch holds 4 questions and 4 padding rows
+MIMIC_ARGS = [*MED_COMMON, "--synthetic_images", "128",
+              "--synthetic_questions", "1020", "--neighbors_list", "19",
+              "--kernels_list", "8", "--fast_math"]
+
+
+def medical_corner_shapes():
+    return [(MED_B, MED_K, m, n, nd // n, use_alpha,
+             f"medical n={n} m={m} conv{1 if use_alpha else 2}")
+            for n, m in MED_CORNERS for nd, use_alpha in MED_WIDTHS]
+
+
+def check_medical_corners(dev, gen, errs):
+    """Phase 17 (a): kernels A, C and D at the grid's corner shapes
+    against their plain versions, as phases 3 and 7 hold them (f32 and
+    bf16, NaN-filled reruns bit for bit, the hi/lo rounding share with
+    its one-pass control, conv1's dropout mask at the medical rate); then
+    their bf16 device times beside their bounds. Returns the timings."""
+    for shape in medical_corner_shapes():
+        check_edge_forward_shape(shape, True, gen, dev, errs)
+        check_edge_training_shape(shape, True, gen, dev, errs,
+                                  dropout=MED_DROPOUT)
+    timings = []
+    for n, m in MED_CORNERS:
+        convs = []
+        for nd, use_alpha in MED_WIDTHS:
+            sel, pseudo, proj, gp = edge_inputs(MED_B, MED_K, m, n, nd // n,
+                                                use_alpha, gen, dev)
+            proj = proj.to(torch.bfloat16)
+            rate = MED_DROPOUT if use_alpha else 0.0
+            seeds = random_seeds(MED_B, gen, dev) if rate else None
+            out, ghat, denom = sel_aggregate_act_residuals(
+                sel, pseudo, proj, gp, True, rate, seeds)
+            g = torch.randn(proj.shape, generator=gen).to(dev, torch.bfloat16)
+            convs.append((sel, pseudo, proj, gp, rate, seeds, out, ghat,
+                          denom, g))
+        row = {"n": n, "m": m}
+        calls = {
+            "A": (lambda: [fused_sel_aggregate_act(*c[:4], relu=True)
+                           for c in convs],
+                  [edge_bound(*c[:4]) for c in convs]),
+            "C": (lambda: [sel_aggregate_act_residuals(*c[:4], True, c[4],
+                                                       c[5]) for c in convs],
+                  [residual_bound(*c[:5])[:2] for c in convs]),
+            "D": (lambda: [sel_aggregate_act_vjp(c[9], c[0], c[7], c[8],
+                                                 c[1], c[2], c[3], c[6],
+                                                 c[4]) for c in convs],
+                  [vjp_bound(*c[:4], True) for c in convs])}
+        for name, (fn, bounds) in calls.items():
+            ms = time_device_ms(fn, samples=30)
+            b_ms, by = bound(sum(x[0] for x in bounds),
+                             sum(x[1] for x in bounds))
+            row[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": by}
+        timings.append(row)
+    print("medical corners, bf16, B=8, K=51, conv1 + conv2 per call (device "
+          "ms; launches queued behind a sleep kernel) beside the bound: "
+          + json.dumps(timings), flush=True)
+    return timings
+
+
+class GridProbe:
+    """Within: loop.fit, loop.evaluate and loop.make_feature_cache (what
+    cli.medical calls) wrapped to read the launch counts before and after
+    each call, the card's allocated bytes at each fit's start, the cache
+    builds, and the last fit's model, optimizer and cache. The wrapped
+    functions run unchanged. Only with ``keep_last`` does the probe hold a
+    model past its cell."""
+
+    def __init__(self, keep_last=False):
+        self.fits, self.evals, self.builds = [], [], 0
+        self.keep_last, self.last = keep_last, None
+
+    def __enter__(self):
+        self._real = (train_loop.fit, train_loop.evaluate,
+                      train_loop.make_feature_cache)
+        real_fit, real_eval, real_cache = self._real
+
+        def fit_(*a, **k):
+            start = read_counts()
+            mem = torch.cuda.memory_allocated()
+            model, optimizer, acc = real_fit(*a, **k)
+            torch.cuda.synchronize()
+            self.fits.append({"counts": _minus(read_counts(), start),
+                              "mem_at_start": mem,
+                              "model_bytes": 4 * sum(
+                                  p.numel() * 4 for p in model.parameters())})
+            if self.keep_last:
+                self.last = (model, optimizer, k.get("cache"))
+            return model, optimizer, acc
+
+        def eval_(model, ds, batch_size, **k):
+            start = read_counts()
+            out = real_eval(model, ds, batch_size, **k)
+            self.evals.append({"counts": _minus(read_counts(), start),
+                               "batches": -(-ds.n_questions // batch_size)})
+            return out
+
+        def cache_(*a, **k):
+            self.builds += 1
+            return real_cache(*a, **k)
+
+        train_loop.fit, train_loop.evaluate = fit_, eval_
+        train_loop.make_feature_cache = cache_
+        return self
+
+    def __exit__(self, *exc):
+        (train_loop.fit, train_loop.evaluate,
+         train_loop.make_feature_cache) = self._real
+        return False
+
+
+def _minus(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def medical_main(main_fn, argv, probe):
+    """``main_fn(argv)`` (run_imageclef.main or run_mimic.main) in this
+    process under ``probe``: (its cells, stdout, wall seconds). The
+    counts are set to 0 just before and read by the probe."""
+    out = _Tee()
+    reset_counts()
+    t0 = time.perf_counter()
+    with probe, contextlib.redirect_stdout(out):
+        cells = main_fn(argv)
+    torch.cuda.synchronize()
+    return cells, out.getvalue(), time.perf_counter() - t0
+
+
+def check_cell_launches(label, probe, steps):
+    """Per training step the image gather 1, C 2, D 2, B 1, E 1 + 1, A 0
+    (phase 11's); per eval batch the image gather 1, A 2, B 1."""
+    for i, (f, e) in enumerate(zip(probe.fits, probe.evals)):
+        per_step = {k: v / steps for k, v in f["counts"].items()}
+        per_batch = {k: v / e["batches"] for k, v in e["counts"].items()}
+        want_batch = {k: 0 for k in per_batch}
+        want_batch.update(EVAL_BATCH_LAUNCHES)
+        require(per_step == CACHE_STEP_LAUNCHES,
+                f"{label} cell {i}: launches per train step {per_step}, "
+                f"want {CACHE_STEP_LAUNCHES}")
+        require(per_batch == want_batch,
+                f"{label} cell {i}: launches per eval batch {per_batch}, "
+                f"want {want_batch}")
+    return per_step, per_batch
+
+
+def _finite_losses(out):
+    losses = [float(x) for x in re.findall(r"ave loss: (\S+),", out)]
+    require(losses and all(map(math.isfinite, losses)),
+            f"the logged losses {losses}")
+    return losses
+
+
+def profile_medical_steps(dev, ds, cache):
+    """Phase 17 (d): a training step of the grid's corner cells at the
+    smallest and largest n (the largest m) profiled: the card's busy
+    share and the device items per step, each step fed by the image
+    gather from ``cache``."""
+    image_fn = make_image_fn(cache, "bfloat16", False)
+    batches = list(itertools.islice(Batcher(ds, MED_B, shuffle=True,
+                                            materialize=False), 12))
+    m = max(m for _, m in MED_CORNERS)
+    for n in sorted({n for n, _ in MED_CORNERS}):
+        args, _, _ = medical_cli.medical_input_args(
+            [*CLEF_ARGS, "--n_kernels", str(n), "--neighbourhood_size",
+             str(m)])
+        mcfg, tcfg = medical_cli.make_configs(args)
+        model = build_model(mcfg, ds, device=dev)
+        optimizer, scheduler = make_optimizer(model, tcfg, len(batches))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        feed = itertools.cycle(batches)
+        profile(lambda: train_step(model, optimizer, scheduler, next(feed),
+                                   gen, image_fn),
+                f"a medical training step, B={MED_B}, K={MED_K}, n={n}, "
+                f"m={m}, bf16, dropout {MED_DROPOUT}")
+
+
+def imageclef_grid(dev, smi):
+    """Phase 17 (b): cli.run_imageclef.main over the 2 x 2 grid corners at
+    full medical width: four grid lines, four checkpoints that load back
+    through load_checkpoint and answer val as their cell did, the best
+    cell's CSV of every val question, one cache build, the launches per
+    step and per
+    eval batch, finite losses, and the card's allocated memory at each
+    cell's start within one model (its weights, gradients and moments)
+    of the first cell's."""
+    probe = GridProbe()
+    cells, out, wall = medical_main(run_imageclef.main, CLEF_ARGS, probe)
+    n_q = 2048
+    steps = n_q // MED_B
+    require(len(cells) == 4 and len(probe.fits) == len(probe.evals) == 4,
+            f"{len(cells)} cells")
+    per_step, per_batch = check_cell_launches("imageclef", probe, steps)
+    losses = _finite_losses(out)
+    with open(f"grid_search_nodes_{MED_K}.txt") as f:
+        lines = f.read().splitlines()
+    require(lines == [f"neighbors: {c.neighbors}, kernels: {c.kernels}, "
+                      f"Validation acc: {c.acc:.3f} %" for c in cells],
+            f"grid lines {lines}")
+    # a CSV at each cell that beats the best so far (the JAX harness's
+    # rule), the last the best cell's
+    best = 0.0
+    want_csvs = []
+    for c in cells:
+        if c.acc > best:
+            best = c.acc
+            want_csvs.append(f"clef_{MED_K}_{c.acc:.2f}.csv")
+    csvs = sorted(os.listdir("figures"))
+    require(want_csvs and csvs == sorted(set(want_csvs)),
+            f"CSVs {csvs}, want {want_csvs}")
+    with open(os.path.join("figures", want_csvs[-1])) as f:
+        rows = f.read().splitlines()
+    require(rows[0] == "image_id,question,prediction,answer"
+            and len(rows) == 1 + n_q, f"the CSV holds {len(rows)} lines")
+    require(probe.builds == 1, f"make_feature_cache ran {probe.builds} times")
+    mems = [f["mem_at_start"] for f in probe.fits]
+    model_bytes = max(f["model_bytes"] for f in probe.fits)
+    require(max(mems) - mems[0] <= model_bytes,
+            f"allocated bytes at the cells' starts {mems} grew past one "
+            f"model's {model_bytes}")
+    # every checkpoint, loaded back, answers val as its cell's model did
+    flags, _, _ = medical_cli.medical_input_args(CLEF_ARGS)
+    val = GraphVQADataset.imageclef(os.path.join("data",
+                                                 "synthetic_imageclef"),
+                                    "train", flags.emb, flags.n_obj)
+    cache = make_feature_cache(val, TrainConfig(), "bfloat16", dev)
+    for cell in cells:
+        args, _, _ = medical_cli.medical_input_args(
+            [*CLEF_ARGS, "--n_kernels", str(cell.kernels),
+             "--neighbourhood_size", str(cell.neighbors)])
+        mcfg, _ = medical_cli.make_configs(args)
+        model = build_model(mcfg, val, device=dev)
+        payload = load_checkpoint(cell.path, model)
+        acc, result, _ = evaluate(model, val, MED_B, result_path=None,
+                                  cache=cache, device=dev)
+        require(payload["step"] == steps and acc == cell.acc
+                and result == cell.result,
+                f"{cell.path} answers otherwise than its cell")
+        del model
+    profile_medical_steps(dev, val, cache)
+    del cache
+    report = [{"neighbors": c.neighbors, "kernels": c.kernels,
+               "val_acc": c.acc, "step_p50_ms": c.step_times["p50_ms"],
+               "qa_pairs_per_sec_per_chip":
+                   c.step_times["qa_pairs_per_sec_per_chip"],
+               "eval_questions_per_s": c.eval_questions_per_s}
+              for c in cells]
+    print(f"imageclef grid ({smi}): 4 cells in {wall:.3f} s, {steps} steps "
+          f"and {n_q // MED_B} eval batches each, losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f} all finite; launches per "
+          f"train step {per_step}, per eval batch {per_batch}; one cache "
+          f"build; allocated bytes at each cell's start {mems} (one model "
+          f"{model_bytes}); the four checkpoints answer val as their cells "
+          f"did; cells (StepTimer over steps 4-{steps}, each ending in a "
+          f"sync; evaluate on the host clock): " + json.dumps(report),
+          flush=True)
+    return report, per_step, per_batch
+
+
+def mimic_fast_math(dev, smi):
+    """Phase 17 (c): cli.run_mimic.main, the preset cell under
+    --fast_math with its own train and val stores: two cache builds,
+    the launches, finite losses, every stored Adam moment bfloat16; the
+    trained model and optimizer saved by async_save_checkpoint read back
+    equal to a synchronous save; and (d) a profiling.trace of two
+    training steps holding their annotate names."""
+    probe = GridProbe(keep_last=True)
+    cells, out, wall = medical_main(run_mimic.main, MIMIC_ARGS, probe)
+    (cell,) = cells
+    steps = 1020 // MED_B
+    per_step, per_batch = check_cell_launches("mimic", probe, steps)
+    losses = _finite_losses(out)
+    require(probe.builds == 2, f"make_feature_cache ran {probe.builds} times "
+            "(want train's and val's)")
+    model, optimizer, cache = probe.last
+    stored = torch.load(cell.path, map_location="cpu", weights_only=True)
+    moments = [v for st in stored["optimizer"]["state"].values()
+               for k, v in st.items() if k.startswith("exp_avg")]
+    live = [v for st in optimizer.state.values()
+            for k, v in st.items() if k.startswith("exp_avg")]
+    require(moments and len(moments) == len(live)
+            and all(m.dtype == torch.bfloat16 for m in moments + live),
+            "an Adam moment is not bfloat16 under --fast_math")
+    t0 = time.perf_counter()
+    async_save_checkpoint("async.pt", model, optimizer, step=steps, epoch=1)
+    enqueue_s = time.perf_counter() - t0
+    save_checkpoint("sync.pt", model, optimizer, step=steps, epoch=1)
+    wait_for_async_saves()
+    a = torch.load("async.pt", map_location="cpu", weights_only=True)
+    b = torch.load("sync.pt", map_location="cpu", weights_only=True)
+    same = (a.keys() == b.keys()
+            and all(torch.equal(v, b["state_dict"][k])
+                    for k, v in a["state_dict"].items())
+            and all(torch.equal(v, stored["state_dict"][k])
+                    for k, v in a["state_dict"].items())
+            and all(a["optimizer"]["state"][i][k].dtype
+                    == b["optimizer"]["state"][i][k].dtype
+                    and torch.equal(a["optimizer"]["state"][i][k],
+                                    b["optimizer"]["state"][i][k])
+                    for i in b["optimizer"]["state"]
+                    for k in b["optimizer"]["state"][i]))
+    require(same, "the asynchronous save differs from the synchronous one")
+    # (d) two traced training steps, annotated
+    flags, _, _ = medical_cli.medical_input_args(MIMIC_ARGS)
+    train_ds = GraphVQADataset.mimic(os.path.join("data", "synthetic_mimic"),
+                                     "train", flags.emb, flags.n_obj)
+    batches = iter(Batcher(train_ds, MED_B, materialize=False))
+    image_fn = make_image_fn(cache, "bfloat16", False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    names = [f"medical_train_step_{i}" for i in range(2)]
+    with profiling.trace("trace") as prof:
+        for name in names:
+            with profiling.annotate(name):
+                m = train_step(model, optimizer, None, next(batches), gen,
+                               image_fn)
+                profiling.force_sync(m["loss"])
+    events = prof.key_averages()
+    seen = {e.key for e in events}
+    kernels = sum(1 for e in events
+                  if getattr(e, "device_time_total", 0) > 0)
+    files = [f for f in os.listdir("trace") if f.endswith(".pt.trace.json")]
+    require(set(names) <= seen and len(files) == 1,
+            f"the trace's names {sorted(seen)[:20]}..., files {files}")
+    print(f"mimic --fast_math ({smi}): the preset cell (m=19, n=8) in "
+          f"{wall:.3f} s, {steps} steps, {-(-1020 // MED_B)} eval batches (the "
+          f"last 4 questions and 4 padding rows), losses {losses[0]:.5f} .. "
+          f"{losses[-1]:.5f} all finite; launches per train step "
+          f"{per_step}, per eval batch {per_batch}; two cache builds; "
+          f"{len(moments)} Adam moments, all bfloat16; async_save_checkpoint "
+          f"returned in {enqueue_s:.3f} s and reads back equal to "
+          f"save_checkpoint; cell: " + json.dumps({
+              "val_acc": cell.acc, "step_p50_ms": cell.step_times["p50_ms"],
+              "qa_pairs_per_sec_per_chip":
+                  cell.step_times["qa_pairs_per_sec_per_chip"],
+              "eval_questions_per_s": cell.eval_questions_per_s}), flush=True)
+    print(f"profiling.trace of two training steps: {files[0]} "
+          f"({os.path.getsize(os.path.join('trace', files[0]))} bytes) holds "
+          f"{names}; {kernels} events with device time", flush=True)
+    return cell
+
+
+def medical_grid_search(dev, gen, smi, errs):
+    """Phase 17, the main path: the medical grid search from files, in
+    the working directory (a temporary one)."""
+    t_phase = time.perf_counter()
+    timings = check_medical_corners(dev, gen, errs)
+    report, per_step, per_batch = imageclef_grid(dev, smi)
+    mimic = mimic_fast_math(dev, smi)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 17 in {phase_s:.1f} s ({smi}): " + json.dumps({
+        "imageclef_cells": report, "mimic_step_p50_ms":
+        mimic.step_times["p50_ms"], "mimic_eval_questions_per_s":
+        mimic.eval_questions_per_s, "launches_per_train_step": per_step,
+        "launches_per_eval_batch": per_batch, "corners": timings}),
+        flush=True)
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -3978,6 +4400,10 @@ def main() -> int:
         sdir = cli_main_path(dev, smi, cache_step_ms)
         phase("16 the serving CLI from files (main path)")
         serving_from_files(dev, smi, sdir)
+        os.makedirs("medical")
+        os.chdir("medical")
+        phase("17 the medical grid search from files (main path)")
+        medical_grid_search(dev, gen, smi, errs)
     finally:
         os.chdir(old_cwd)
         shutil.rmtree(work, ignore_errors=True)

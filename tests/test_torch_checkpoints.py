@@ -264,9 +264,9 @@ def test_adam_step_after_resume_matches_jax(tmp_path, mu_dtype):
     file's (bfloat16 ones widened to f32 bit for bit), the step count and
     the learning rate follow it, and the parameters after the step agree
     within 1e-5 of each tensor's scale with JAX's step from that file in
-    float32 moments. The port keeps Adam's moments in float32, as JAX
-    does when its template asks for float32: JAX's bfloat16 Adam rounds
-    b1 * mu to bfloat16 inside its update, which the port does not."""
+    float32 moments: a port Adam configured for float32 moments widens
+    the file's, as JAX does when its template asks for float32 (the next
+    test resumes into bfloat16 moments)."""
     path = str(tmp_path / "jax.ckpt")
     _jax_checkpoint(path, mu_dtype)
     batch = _batch(np.random.default_rng(11))
@@ -289,6 +289,97 @@ def test_adam_step_after_resume_matches_jax(tmp_path, mu_dtype):
     for name, p in model.named_parameters():
         err = _norm_err(p.detach().numpy(), want[name].numpy())
         assert err <= 1e-5, (name, err)
+
+
+def test_adam_step_after_resume_into_bf16_moments_matches_jax(tmp_path):
+    """A JAX file with bfloat16 first moments resumed into a port Adam
+    configured for bfloat16 moments: the moments restored are the file's
+    bit for bit and stay bfloat16, and one step lands within 1e-5 of each
+    tensor's scale of JAX's step (bfloat16 products rounded) from that
+    file into a bfloat16 template."""
+    path = str(tmp_path / "jax.ckpt")
+    _jax_checkpoint(path, "bfloat16")
+    batch = _batch(np.random.default_rng(12))
+    template = create_train_state(JMODEL, JCFG, _tx("bfloat16"), batch,
+                                  seed=0)
+    _, state = j_load(path, template)
+    grads = jax.jit(jax.grad(lambda p: _jax_loss(JMODEL, p, batch)))(
+        state.params)
+    # optax's update with every bfloat16 product rounded, as its
+    # functions are written: by default XLA:CPU keeps b1 * mu in f32
+    # (tests/test_torch_adam_dtypes.py)
+    update = jax.jit(
+        lambda g, st, p: optax.apply_updates(
+            p, _tx("bfloat16").update(g, st, p)[0]),
+        compiler_options={"xla_allow_excess_precision": False})
+    new_params = update(grads, state.opt_state, state.params)
+    model = GraphVQAModel(_port_cfg(), device="cpu")
+    optimizer, scheduler = make_optimizer(
+        model, TrainConfig(lr=LR, adam_mu_dtype="bfloat16"), SPE)
+    load_checkpoint(path, model, optimizer, scheduler)
+    adam = read_flax_msgpack(open(path, "rb").read())["opt_state"]["0"]
+    assert all(x.dtype == torch.bfloat16
+               for x in jax.tree.leaves(adam["mu"]))
+    mu = state_dict_from_jax_params(jax.tree.map(
+        lambda x: x.float().numpy(), adam["mu"]))
+    names = {id(p): k for k, p in model.named_parameters()}
+    for p, st in optimizer.state.items():
+        assert st["exp_avg"].dtype == torch.bfloat16
+        assert torch.equal(st["exp_avg"].float(), mu[names[id(p)]])
+        assert st["exp_avg_sq"].dtype == torch.float32
+    train_step(model, optimizer, scheduler, batch)
+    want = state_dict_from_jax_params(new_params)
+    for name, p in model.named_parameters():
+        err = _norm_err(p.detach().numpy(), want[name].numpy())
+        assert err <= 1e-5, (name, err)
+        assert optimizer.state[p]["exp_avg"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("mu,nu", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("bfloat16", "float32")])
+def test_grid_checkpoint_named_pt_loads_as_a_port_checkpoint(
+        tmp_path, monkeypatch, mu, nu):
+    """The medical grid's checkpoint, ``{prefix}_{n_obj}_{kernels}_{neigh}_
+    {acc}.pt``, is told by its content, not its suffix: load_checkpoint
+    reads it as a port checkpoint (never as a reference .pt), with its
+    weights, step, epoch and extra, the scheduler at its step (the grid
+    saves none) and the Adam moments bit for bit in the configured
+    dtypes."""
+    tcfg = TrainConfig(lr=LR, lr_milestones=(1,), adam_mu_dtype=mu,
+                       adam_nu_dtype=nu)
+    model = GraphVQAModel(_port_cfg(), device="cpu", seed=1)
+    optimizer, scheduler = make_optimizer(model, tcfg, SPE)
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        train_step(model, optimizer, scheduler, _batch(rng))
+    path = str(tmp_path / "clef_51_8_19_12.50.pt")
+    save_checkpoint(path, model, optimizer, step=4, epoch=2,
+                    model_cfg=model.cfg, train_cfg=tcfg,
+                    extra={"accuracy": 12.5})
+    from vqa_project_tpu_torch.train import state as state_mod
+
+    def refuse(*a, **k):
+        raise AssertionError("read as a reference .pt")
+
+    monkeypatch.setattr(state_mod, "_restore_reference", refuse)
+    fresh = GraphVQAModel(_port_cfg(), device="cpu", seed=2)
+    opt2, sched2 = make_optimizer(fresh, tcfg, SPE)
+    payload = load_checkpoint(path, fresh, opt2, sched2)
+    assert state_mod.is_port_checkpoint(payload)
+    assert (payload["step"], payload["epoch"]) == (4, 2)
+    assert payload["extra"] == {"accuracy": 12.5}
+    assert payload["train_config"]["adam_mu_dtype"] == mu
+    assert sched2.last_epoch == 4 and sched2.get_last_lr() == [LR * 0.5]
+    assert opt2.param_groups[0]["lr"] == LR * 0.5
+    trained = dict(model.named_parameters())
+    for name, p in fresh.named_parameters():
+        assert torch.equal(p, trained[name]), name
+        st, want = opt2.state[p], optimizer.state[trained[name]]
+        assert st["exp_avg"].dtype == getattr(torch, mu)
+        assert st["exp_avg_sq"].dtype == getattr(torch, nu)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(st[key], want[key]), (name, key)
 
 
 # the in-memory synthetic task of tests/test_torch_resume.py, dropout 0

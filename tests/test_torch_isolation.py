@@ -40,6 +40,10 @@ def test_scan_covers_the_port():
     assert "vqa_project_tpu_torch/cli/export_torch.py" in names
     assert "vqa_project_tpu_torch/cli/validate_parity.py" in names
     assert "vqa_project_tpu_torch/ops/quant.py" in names
+    for module in ("cli/medical.py", "cli/run_imageclef.py",
+                   "cli/run_mimic.py", "data/synthetic_medical.py",
+                   "data/preprocess/medical.py", "train/profiling.py"):
+        assert f"vqa_project_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -6,11 +6,13 @@
 Counterpart of ``vqa_project_tpu/cli/run.py`` with its flag names and
 defaults, reading the same artifacts (``GraphVQADataset.vqa2``) or, with
 ``--synthetic``, generating them under ``<data_dir>/synthetic`` (again
-when a ``--synthetic_*`` knob changes). Left out: ``--num_devices``,
-``--tp`` and ``--grad_reduce_dtype`` (one card), ``--adam_mu_dtype``,
-``--adam_nu_dtype`` and ``--fast_math`` (Adam keeps float32 moments),
-and the TPU-only ``--pallas``, ``--no_pallas`` and ``--pallas_gather``:
-passing any of them, or any other unknown argument, raises SystemExit.
+when a ``--synthetic_*`` knob changes). ``--adam_mu_dtype``,
+``--adam_nu_dtype`` and ``--fast_math`` resolve as in JAX
+(``resolve_dtype_knobs``). Left out: ``--num_devices``, ``--tp`` and
+``--grad_reduce_dtype`` (one card: no gradient all-reduce, so
+``--fast_math`` sets the two Adam knobs only), and the TPU-only
+``--pallas``, ``--no_pallas`` and ``--pallas_gather``: passing any of
+them, or any other unknown argument, raises SystemExit.
 Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels).
 
@@ -81,6 +83,7 @@ def input_args(argv=None):
                         help="trained model path.")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
+    add_adam_dtype_args(parser)
     parser.add_argument("--feature_cache_dtype", type=str, default="auto",
                         choices=["auto", "bfloat16", "float32", "int8"],
                         help="dtype of the feature table on the card: "
@@ -93,6 +96,35 @@ def input_args(argv=None):
     parser.add_argument("--seed", type=int, default=1000)
     args, unparsed = parser.parse_known_args(argv)
     return args, parser, unparsed
+
+
+def add_adam_dtype_args(parser) -> None:
+    """--adam_mu_dtype, --adam_nu_dtype and --fast_math (the JAX CLI's
+    flags less --grad_reduce_dtype)."""
+    parser.add_argument("--adam_mu_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="storage dtype of Adam's first moment "
+                             "(bfloat16 halves its memory traffic; "
+                             "float32 = exact Adam; default float32, or "
+                             "bfloat16 under --fast_math)")
+    parser.add_argument("--adam_nu_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="storage dtype of Adam's second moment "
+                             "(update math stays f32; default float32, or "
+                             "bfloat16 under --fast_math)")
+    parser.add_argument("--fast_math", action="store_true",
+                        help="preset: every Adam moment dtype left unset "
+                             "becomes bfloat16; an explicit "
+                             "--adam_*_dtype wins over it")
+
+
+def resolve_dtype_knobs(args):
+    """(adam_mu_dtype, adam_nu_dtype): the explicit flag, else bfloat16
+    under --fast_math, else float32 (the JAX CLI's rule for these two)."""
+    fast = getattr(args, "fast_math", False)
+    mu = args.adam_mu_dtype or ("bfloat16" if fast else "float32")
+    nu = args.adam_nu_dtype or ("bfloat16" if fast else "float32")
+    return mu, nu
 
 
 def add_synthetic_args(parser) -> None:
@@ -118,6 +150,7 @@ def add_synthetic_args(parser) -> None:
 
 
 def make_configs(args):
+    mu_dtype, nu_dtype = resolve_dtype_knobs(args)
     mcfg = ModelConfig(
         emb_dim=args.emb, hid_dim=args.hid, n_kernels=args.n_kernels,
         neighbourhood_size=args.neighbourhood_size, n_obj=args.n_obj,
@@ -125,7 +158,9 @@ def make_configs(args):
     tcfg = TrainConfig(
         lr=args.lr, epochs=args.ep, batch_size=args.bsize,
         log_interval=args.log_interval, eval_interval=args.eval_interval,
-        save_dir=args.save_dir, name=args.name, seed=args.seed, feature_cache_dtype=args.feature_cache_dtype)
+        save_dir=args.save_dir, name=args.name, seed=args.seed,
+        feature_cache_dtype=args.feature_cache_dtype,
+        adam_mu_dtype=mu_dtype, adam_nu_dtype=nu_dtype)
     return mcfg, tcfg
 
 
@@ -142,6 +177,15 @@ def synthetic_dir(args) -> str:
                  n_answers=args.synthetic_answers,
                  n_classes=args.synthetic_classes,
                  class_encoding=args.synthetic_encoding)
+    ensure_synthetic(sdir, knobs, lambda: write_synthetic_vqa(
+        sdir, with_test=True, **knobs))
+    return sdir
+
+
+def ensure_synthetic(sdir: str, knobs: dict, generate) -> None:
+    """Run ``generate()`` to (re)write the synthetic set in ``sdir``
+    unless its ``fingerprint.json`` holds exactly ``knobs``: the knobs
+    are the dataset, so a changed one never trains on a stale set."""
     fp_path = os.path.join(sdir, "fingerprint.json")
     on_disk = None
     if os.path.exists(fp_path):
@@ -153,12 +197,11 @@ def synthetic_dir(args) -> str:
             print(f"Synthetic knobs changed vs {fp_path}: regenerating the "
                   "dataset", flush=True)
             shutil.rmtree(sdir)
-        write_synthetic_vqa(sdir, with_test=True, **knobs)
+        generate()
         tmp = fp_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(knobs, f)
         os.replace(tmp, fp_path)   # a crash leaves no half fingerprint
-    return sdir
 
 
 def _dataset(args, split):
@@ -185,7 +228,7 @@ def trainval(args):
     """Train on train + val and save the named checkpoint; returns
     (model, its path, epoch accuracy)."""
     from vqa_project_tpu_torch.train.loop import fit
-    from vqa_project_tpu_torch.train.state import save_checkpoint
+    from vqa_project_tpu_torch.train.state import adam_step, save_checkpoint
 
     mcfg, tcfg = make_configs(args)
     print("Loading data", flush=True)
@@ -198,10 +241,8 @@ def trainval(args):
     name = (f"vqa_{args.n_obj}_{args.n_kernels}_"
             f"{args.neighbourhood_size}_{acc:.2f}.pt")
     path = os.path.join(args.save_dir, name)
-    step = max((int(s["step"]) for s in optimizer.state.values()),
-               default=0)
-    save_checkpoint(path, model, optimizer, step=step, epoch=tcfg.epochs,
-                    model_cfg=model.cfg, train_cfg=tcfg,
+    save_checkpoint(path, model, optimizer, step=adam_step(optimizer),
+                    epoch=tcfg.epochs, model_cfg=model.cfg, train_cfg=tcfg,
                     extra={"accuracy": acc, "config": vars(args)})
     print(f"Saved {name}", flush=True)
     return model, path, acc

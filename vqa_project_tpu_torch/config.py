@@ -69,6 +69,14 @@ class TrainConfig:
     # dtype (exactly the model's inputs); "int8" quantizes each box row
     # (ops/quant.py) and dequantizes in the gather kernel
     feature_cache_dtype: str = "auto"  # auto | float32 | bfloat16 | int8
+    # storage dtypes of Adam's first and second moments
+    # (train/state.py::Adam): "float32" is the exact optax / torch Adam;
+    # "bfloat16" halves a moment's memory and traffic. The update math
+    # stays f32: mu rounds b1 * mu to bf16 inside its update, as optax's
+    # mu_dtype does, and nu is widened exactly, stepped in f32 and
+    # rounded back for storage, as the JAX package's nu_dtype does
+    adam_mu_dtype: str = "float32"  # float32 | bfloat16
+    adam_nu_dtype: str = "float32"  # float32 | bfloat16
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -14,10 +14,12 @@ from vqa_project_tpu_torch.data.store import FeatureStore, write_sizes_csv
 from vqa_project_tpu_torch.data.synthetic import (generate_synthetic_vqa,
                                                   write_synthetic_vqa)
 from vqa_project_tpu_torch.data.text import tokenize
-from vqa_project_tpu_torch.data.vocab import load_vocab, save_vocab
+from vqa_project_tpu_torch.data.vocab import (build_answer_vocab,
+                                              build_question_vocab,
+                                              load_vocab, save_vocab)
 
 __all__ = ["FeatureStore", "write_sizes_csv", "tokenize", "QuestionTable",
            "GraphVQADataset", "random_embeddings", "load_glove_embeddings",
            "Batcher", "pack_index_batch", "prefetch_to_device",
            "generate_synthetic_vqa", "write_synthetic_vqa", "load_vocab",
-           "save_vocab"]
+           "save_vocab", "build_question_vocab", "build_answer_vocab"]

@@ -21,6 +21,8 @@ import numpy as np
 from vqa_project_tpu_torch.data.glove import (load_glove_embeddings,
                                               random_embeddings)
 from vqa_project_tpu_torch.data.store import FeatureStore
+# the sizes writer, where the JAX package keeps it (data/datasets.py)
+from vqa_project_tpu_torch.data.store import write_sizes_csv  # noqa: F401
 from vqa_project_tpu_torch.data.vocab import load_vocab
 
 # capacity for per-question sparse answer entries (VQA has <= 10 raters)

@@ -20,6 +20,7 @@ Counterpart of ``vqa_project_tpu/train/loop.py`` on one card:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -36,6 +37,7 @@ from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
 from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
 from vqa_project_tpu_torch.ops.quant import quantize_feature_table
 from vqa_project_tpu_torch.train.metrics import MetricLogger
+from vqa_project_tpu_torch.train.profiling import StepTimer, force_sync
 from vqa_project_tpu_torch.train.state import (load_checkpoint,
                                                make_optimizer,
                                                save_checkpoint)
@@ -188,14 +190,16 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         train_ds: GraphVQADataset,
         val_ds: Optional[GraphVQADataset] = None, *, device="cuda",
         resume_path: Optional[str] = None, save_every_epoch: bool = False,
-        jsonl_path: Optional[str] = None, cache=_UNSET
+        jsonl_path: Optional[str] = None, cache=_UNSET, val_cache=_UNSET,
+        step_timer: Optional[StepTimer] = None
         ) -> Tuple[GraphVQAModel, torch.optim.Optimizer, float]:
     """Train for ``train_cfg.epochs`` epochs; returns (model, optimizer,
     accuracy % of the last epoch).
 
-    ``cache`` is a prebuilt device feature cache, None for host mode, or
-    (by default) built by ``make_feature_cache``; val shares the train
-    cache when both read one store, else builds its own. Batches are
+    ``cache`` and ``val_cache`` are prebuilt device feature caches, None
+    for host mode, or (by default) built by ``make_feature_cache``, val's
+    shared with train's when both read one store; a grid of fits passes
+    them so that the table goes to the card once. Batches are
     shuffled per epoch from ``train_cfg.seed`` and the last partial batch
     is dropped: index batches with a cache, dense ones without,
     prefetched ``train_cfg.prefetch`` deep. Dropout draws from one
@@ -203,7 +207,8 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     ``eval_interval`` steps of an epoch runs a mini-validation (resident
     with a cache) and writes ``{save_dir}/{name}_{epoch+1}.ckpt``;
     ``save_every_epoch`` writes it after every epoch too; ``jsonl_path``
-    receives one record per logged window.
+    receives one record per logged window; ``step_timer`` times each
+    step to its completion (a ``force_sync`` of its loss ends it).
 
     ``resume_path`` (a port checkpoint, a reference ``.pt`` or a JAX
     msgpack checkpoint; a missing file raises FileNotFoundError)
@@ -243,9 +248,11 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         loader.set_epoch(start_epoch, skip=resume_skip)
     val_fn = None
     if val_ds is not None:
-        val_cache = (cache if _same_store(val_ds.store, train_ds.store)
-                     else make_feature_cache(val_ds, train_cfg,
-                                             model_cfg.compute_dtype, dev))
+        if val_cache is _UNSET:
+            val_cache = (cache if _same_store(val_ds.store, train_ds.store)
+                         else make_feature_cache(val_ds, train_cfg,
+                                                 model_cfg.compute_dtype,
+                                                 dev))
         val_iter = _batches_forever(Batcher(
             val_ds, bs, shuffle=True, seed=train_cfg.seed + 1,
             materialize=val_cache is None))
@@ -289,8 +296,11 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
 
         for _, batch in prefetch_to_device(iter(loader), dev,
                                            train_cfg.prefetch):
-            window.append(train_step(model, optimizer, scheduler, batch,
-                                     generator, image_fn))
+            with step_timer or contextlib.nullcontext():
+                window.append(train_step(model, optimizer, scheduler, batch,
+                                         generator, image_fn))
+                if step_timer is not None:
+                    force_sync(window[-1]["loss"])
             step += 1
             n_steps += 1
             trained += 1
