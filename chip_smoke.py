@@ -150,6 +150,23 @@ Phases, in order; the first failure exits non-zero:
     moment bfloat16), an async_save_checkpoint equal to a synchronous
     save, and a profiling.trace of two annotated steps; per cell the
     StepTimer's p50 and QA pairs/s and evaluate's questions/s printed;
+18. the interpretability plots from files, the main path (phase 15's
+    directory, set and trained epoch-2 checkpoint; after phase 17):
+    viz.collect_graphs (cli.plot's sweep: 4 batches of 32, bf16) from
+    each of phase 16's checkpoint kinds (the port's .ckpt, the exported
+    reference .pt, the JAX msgpack; written again where gone), per batch
+    the image gather 1, A 2, B 1, the CSV rows evaluate()'s answers, the
+    npz 128 (36, 36) f32 adjacencies equal bit for bit across the kinds;
+    the same sweep in f32 on the card and on the CPU (adjacency within
+    1e-4 x max|A|, top-1 agreeing on >= 99%, top-7 node sets equal on
+    >= 95%); viz.given_question_graph at B = 1 from the host store for 8
+    questions (A 2, B 1, no gather each; bf16 answers equal the sweep's
+    on >= 7, f32 adjacencies against the CPU as the sweep's); where
+    matplotlib is installed cli.plot.main renders 128 figures, else a
+    line says they were not rendered; phase 15's stores written as a
+    base64 TSV and read back by features_to_zarr equal; the sweep's
+    questions/s, collect_graphs' seconds, the B = 1 forward's wall p50
+    and device ms and the phase's time printed;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -184,9 +201,12 @@ fails before printing any result.
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import csv
 import dataclasses
 import http.client
+import importlib.util
 import io
 import itertools
 import json
@@ -205,7 +225,9 @@ import numpy as np
 import torch
 
 from vqa_project_tpu_torch.cli import export_torch as export_cli
+from vqa_project_tpu_torch import viz
 from vqa_project_tpu_torch.cli import medical as medical_cli
+from vqa_project_tpu_torch.cli import plot as plot_cli
 from vqa_project_tpu_torch.cli import run as cli
 from vqa_project_tpu_torch.cli import run_imageclef, run_mimic
 from vqa_project_tpu_torch.cli import serve as serve_cli
@@ -215,7 +237,9 @@ from vqa_project_tpu_torch.data import (Batcher, FeatureStore,
                                         GraphVQADataset,
                                         generate_synthetic_vqa, native,
                                         pack_index_batch, tokenize)
-from vqa_project_tpu_torch.data.store import pack_paths
+from vqa_project_tpu_torch.data import zarr_store
+from vqa_project_tpu_torch.data.preprocess import image_features
+from vqa_project_tpu_torch.data.store import _read_sizes_csv, pack_paths
 from vqa_project_tpu_torch.models import (GraphVQAModel,
                                           load_reference_checkpoint)
 from vqa_project_tpu_torch.models.graph_vqa import GaussianGraphConv
@@ -3819,6 +3843,26 @@ def serve_main_process(smi, path, image_ids):
           f"stopped", flush=True)
 
 
+# phase 15's trained checkpoint (epoch 2) and phase 16's copies of it
+TRAINED_CKPT = os.path.join("run", "model_2.ckpt")
+MSGPACK_CKPT = "jax.ckpt"
+EXPORTED_PT = "ref.pt"
+
+
+def write_trained_msgpack(dev, val):
+    """Phase 15's trained checkpoint with its Adam state written again as
+    a JAX msgpack (MSGPACK_CKPT); returns (model, optimizer, scheduler,
+    payload) as loaded from the trained checkpoint."""
+    mcfg, tcfg = cli.make_configs(cli.input_args(CLI_DATA)[0])
+    model = build_model(mcfg, val, device=dev)
+    optimizer, scheduler = make_optimizer(model, tcfg, cli_sizes()[0])
+    payload = load_checkpoint(TRAINED_CKPT, model, optimizer, scheduler)
+    write_jax_checkpoint(MSGPACK_CKPT, model, optimizer,
+                         step=payload["step"], epoch=payload["epoch"],
+                         extra=payload["extra"])
+    return model, optimizer, scheduler, payload
+
+
 def serving_from_files(dev, smi, sdir):
     """Phase 16, the main path: the serving CLI from phase 15's files.
 
@@ -3836,14 +3880,9 @@ def serving_from_files(dev, smi, sdir):
     args, _, _ = cli.input_args(CLI_DATA)
     mcfg, tcfg = cli.make_configs(args)
     val = GraphVQADataset.vqa2(sdir, "val")
-    trained = os.path.join("run", "model_2.ckpt")
-    model = build_model(mcfg, val, device=dev)
-    optimizer, scheduler = make_optimizer(model, tcfg, cli_sizes()[0])
-    payload = load_checkpoint(trained, model, optimizer, scheduler)
-    msgpack_path = "jax.ckpt"
-    write_jax_checkpoint(msgpack_path, model, optimizer,
-                         step=payload["step"], epoch=payload["epoch"],
-                         extra=payload["extra"])
+    trained = TRAINED_CKPT
+    msgpack_path = MSGPACK_CKPT
+    model, optimizer, scheduler, payload = write_trained_msgpack(dev, val)
     fresh = build_model(mcfg, val, device=dev)
     opt2, sched2 = make_optimizer(fresh, tcfg, cli_sizes()[0])
     torch.cuda.synchronize()
@@ -3891,7 +3930,7 @@ def serving_from_files(dev, smi, sdir):
               f"{agree:.4f} (>= {INT8_AGREEMENT})", flush=True)
         require(agree >= INT8_AGREEMENT, f"int8 agreement {agree} at B={b}")
 
-    pt_path = "ref.pt"
+    pt_path = EXPORTED_PT
     export_cli.main([msgpack_path, pt_path])
     exported = load_reference_checkpoint(pt_path)
     require(all(torch.equal(v.cpu(), exported[k])
@@ -4326,6 +4365,376 @@ def medical_grid_search(dev, gen, smi, errs):
         flush=True)
 
 
+# ---------------- the interpretability plots from files ----------------
+
+PLOT_B, PLOT_BATCHES = 32, 4     # cli.plot's --bsize and --n_batches
+PLOT_QUESTIONS = 8               # given_question_graph at B = 1
+PLOT_TOP = 7                     # cli.plot's --top_nodes
+# one sweep batch: the image gather, A in both convolutions, B (as
+# --eval's); one given question at B = 1 from the host store: A 2, B 1
+# and no gather
+QUESTION_LAUNCHES = SERVE_BATCH_LAUNCHES
+# the card's f32 sweep against the CPU's: adjacency within 1e-4 x max|A|,
+# top-1 agreeing on >= 99% of rows, the top-7 node sets equal on >= 95%
+PLOT_ADJ_TOL, PLOT_TOP1, PLOT_TOP_NODES = 1e-4, 0.99, 0.95
+# the bf16 given-question forward's answer equal to the sweep's on >= 7
+PLOT_QUESTION_AGREE = 7
+
+
+def plot_model_flags():
+    """CLI_DATA's model flags as cli.plot takes them (its defaults at
+    full width)."""
+    args = cli.input_args(CLI_DATA)[0]
+    return ["--emb", str(args.emb), "--hid", str(args.hid), "--n_kernels",
+            str(args.n_kernels), "--neighbourhood_size",
+            str(args.neighbourhood_size), "--n_obj", str(args.n_obj)]
+
+
+def plot_model(dev, val, path, compute_dtype):
+    """The model cli.plot builds for CLI_DATA's flags on ``dev`` in
+    ``compute_dtype``, holding the checkpoint at ``path`` (any kind
+    load_checkpoint reads)."""
+    args = plot_cli.input_args(["--model_path", path, *plot_model_flags(),
+                                "--compute_dtype", compute_dtype])
+    mcfg = ModelConfig(
+        emb_dim=args.emb, hid_dim=args.hid, n_kernels=args.n_kernels,
+        neighbourhood_size=args.neighbourhood_size, n_obj=args.n_obj,
+        dropout=args.dropout, compute_dtype=args.compute_dtype)
+    model = build_model(mcfg, val, device=dev)
+    load_checkpoint(path, model)
+    return model
+
+
+def plot_checkpoints(dev, val):
+    """{kind: path} of the three checkpoints of phase 15's trained model
+    that phase 16 wrote, written again where they are gone."""
+    if not os.path.exists(MSGPACK_CKPT):
+        write_trained_msgpack(dev, val)
+    if not os.path.exists(EXPORTED_PT):
+        export_cli.main([MSGPACK_CKPT, EXPORTED_PT])
+    return {"port .ckpt": TRAINED_CKPT, "reference .pt": EXPORTED_PT,
+            "JAX msgpack": MSGPACK_CKPT}
+
+
+def top_nodes(adjacency):
+    """Each row's top-7 node set, as the renderer ranks nodes."""
+    return [frozenset(np.argsort(w)[::-1][:PLOT_TOP].tolist()) for w in
+            viz.node_weights_from_adjacency(adjacency)]
+
+
+def sweep(model, val, out):
+    """collect_graphs at cli.plot's batch and batch count: (graphs,
+    launch counts, wall s); the counts are set to 0 just before and
+    read just after."""
+    dev = next(model.parameters()).device
+    reset_counts()
+    t0 = time.perf_counter()
+    graphs = viz.collect_graphs(model, val, out, batch_size=PLOT_B,
+                                n_batches=PLOT_BATCHES)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return graphs, read_counts(), time.perf_counter() - t0
+
+
+def check_sweep_files(out, graphs, val, result):
+    """The sweep's files: the CSV rows are evaluate()'s answers for the
+    same questions, the npz 128 (36, 36) f32 adjacencies and the index,
+    summary.json JAX's keys."""
+    answers = {r["question_id"]: r["answer"] for r in result}
+    want = [{"image_id": str(val.vqa[i]["image_id"]),
+             "question": val.vqa[i]["question"],
+             "prediction": answers[int(val.vqa[i]["question_id"])],
+             "answer": val.vqa[i].get("answer", "")} for i in graphs.index]
+    with open(os.path.join(out, "infer_predictions.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    n = PLOT_B * PLOT_BATCHES
+    require(rows == want and graphs.rows == want and len(rows) == n,
+            "the sweep's predictions differ from evaluate()'s result rows")
+    npz = viz.read_adj(os.path.join(out, "adjacencies.npz"))
+    require(sorted(npz) == ["adjacency", "index"]
+            and npz["adjacency"].shape == (n, FULL["n_obj"], FULL["n_obj"])
+            and npz["adjacency"].dtype == np.float32
+            and np.array_equal(npz["index"], np.arange(n))
+            and np.array_equal(npz["adjacency"], graphs.adjacency)
+            and np.isfinite(npz["adjacency"]).all(),
+            "adjacencies.npz holds "
+            + str({k: (v.shape, v.dtype) for k, v in npz.items()}))
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    require(sorted(summary) == ["accuracy", "eval_batches", "figures"]
+            and summary["figures"] == n
+            and summary["eval_batches"] == PLOT_BATCHES,
+            f"summary.json {summary}")
+
+
+def plot_sweeps(dev, smi, val, kinds):
+    """Phase 18, the sweep: collect_graphs on the card in bf16 from each
+    checkpoint kind (launches per batch the image gather 1, A 2, B 1;
+    the files as evaluate() answers; the adjacencies of the three equal
+    bit for bit). Returns (the bf16 graphs, the first sweep's wall s,
+    the device half's questions/s)."""
+    want = {k: 0 for k in WRAPPERS}
+    want.update({k: PLOT_BATCHES * v for k, v in EVAL_BATCH_LAUNCHES.items()})
+    graphs, walls, result = {}, {}, None
+    for kind, path in kinds.items():
+        model = plot_model(dev, val, path, "bfloat16")
+        out = os.path.join("figures", kind.replace(" ", "_"))
+        graphs[kind], counts, walls[kind] = sweep(model, val, out)
+        require(counts == want, f"the sweep from the {kind} launched "
+                f"{counts}, want {want}")
+        if result is None:     # the kinds' rows are held equal below
+            _, result, _ = evaluate(model, val, PLOT_B, result_path=None,
+                                    max_batches=PLOT_BATCHES, device=dev)
+        check_sweep_files(out, graphs[kind], val, result)
+    first = graphs["port .ckpt"]
+    require(all(np.array_equal(g.adjacency, first.adjacency)
+                and g.rows == first.rows for g in graphs.values()),
+            "the three checkpoint kinds' sweeps differ")
+    # the device half alone: the cache built, evaluate with the
+    # adjacencies collected, after a warm-up
+    cache = make_feature_cache(val, TrainConfig(batch_size=PLOT_B),
+                               model.cfg.compute_dtype, dev)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(model, val, PLOT_B, result_path=None,
+                 collect_adjacency=True, max_batches=PLOT_BATCHES,
+                 cache=cache, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    qps = PLOT_B * PLOT_BATCHES / statistics.median(times[1:])
+    print(f"collect_graphs in bf16 from the {', '.join(kinds)} ({smi}): "
+          f"{PLOT_BATCHES} batches of {PLOT_B}, per batch the image gather "
+          f"1, A 2, B 1 ({counts}); predictions equal to evaluate()'s "
+          f"rows, the three adjacencies equal bit for bit; end to end "
+          f"(cache build included) {walls['port .ckpt']:.3f} s, "
+          f"{walls['reference .pt']:.3f} s, {walls['JAX msgpack']:.3f} s; "
+          f"the device half (evaluate with the adjacencies, cache built) "
+          f"{qps:.1f} questions/s, median of 3 after a warm-up (host "
+          f"clock)", flush=True)
+    return first, walls["port .ckpt"], qps
+
+
+def card_against_cpu(dev, smi, val):
+    """Phase 18, card against CPU: the same sweep in f32 on the card and
+    on the CPU with the same weights. Returns the two models."""
+    card = plot_model(dev, val, TRAINED_CKPT, "float32")
+    t0 = time.perf_counter()
+    cpu = plot_model("cpu", val, TRAINED_CKPT, "float32")
+    build_s = time.perf_counter() - t0
+    got, _, card_s = sweep(card, val, os.path.join("figures", "f32_card"))
+    want, _, cpu_s = sweep(cpu, val, os.path.join("figures", "f32_cpu"))
+    require(np.array_equal(got.index, want.index), "the sweeps' rows")
+    err = norm_err(torch.from_numpy(got.adjacency),
+                   torch.from_numpy(want.adjacency))
+    top1 = float(np.mean([a["prediction"] == b["prediction"]
+                          for a, b in zip(got.rows, want.rows)]))
+    nodes = float(np.mean([a == b for a, b in zip(
+        top_nodes(got.adjacency), top_nodes(want.adjacency))]))
+    print(f"f32 sweep, card against CPU ({smi}): adjacency max abs "
+          f"difference {err:.3e} x max|A| (<= {PLOT_ADJ_TOL}); top-1 "
+          f"agreement {top1:.4f} (>= {PLOT_TOP1}); top-{PLOT_TOP} node sets "
+          f"equal on {nodes:.4f} of rows (>= {PLOT_TOP_NODES}); the sweep "
+          f"{card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU (its model "
+          f"built and loaded in {build_s:.3f} s)", flush=True)
+    require(err <= PLOT_ADJ_TOL and top1 >= PLOT_TOP1
+            and nodes >= PLOT_TOP_NODES, "the card's f32 sweep differs from "
+            "the CPU's")
+    return card, cpu
+
+
+def given_questions(dev, smi, val, bf16_graphs, card32, cpu32):
+    """Phase 18, given_question_graph at B = 1 from the host store for
+    the set's first 8 val questions: in bf16 A 2, B 1 and no gather per
+    question, the answer equal to the sweep's on >= 7; in f32 the
+    adjacency held against the CPU as the sweep's. Returns (wall p50 ms,
+    device ms) of the bf16 forward."""
+    model = plot_model(dev, val, TRAINED_CKPT, "bfloat16")
+    sweep_pred = {int(i): r["prediction"]
+                  for i, r in zip(bf16_graphs.index, bf16_graphs.rows)}
+    rows = [val.vqa[i] for i in range(PLOT_QUESTIONS)]
+    viz.given_question_graph(model, val, rows[0]["question"],
+                             rows[0]["image_id"])            # warm-up
+    torch.cuda.synchronize()
+    wall, agree = [], 0
+    reset_counts()
+    for row in rows:
+        t0 = time.perf_counter()
+        g = viz.given_question_graph(model, val, row["question"],
+                                     row["image_id"])
+        wall.append((time.perf_counter() - t0) * 1e3)
+        agree += g.prediction == sweep_pred[g.index]
+    counts = read_counts()
+    first_index = viz.find_question(val.vqa, rows[0]["question"],
+                                    rows[0]["image_id"])
+    want = {k: 0 for k in WRAPPERS}
+    want.update({k: PLOT_QUESTIONS * v
+                 for k, v in QUESTION_LAUNCHES.items()})
+    require(counts == want, f"{PLOT_QUESTIONS} given questions launched "
+            f"{counts}, want {want}")
+    require(agree >= PLOT_QUESTION_AGREE, f"the B = 1 answers equal the "
+            f"sweep's for {agree} of {PLOT_QUESTIONS}")
+    errs = []
+    for row in rows:
+        got = viz.given_question_graph(card32, val, row["question"],
+                                       row["image_id"])
+        want_g = viz.given_question_graph(cpu32, val, row["question"],
+                                          row["image_id"])
+        errs.append(norm_err(torch.from_numpy(got.adjacency),
+                             torch.from_numpy(want_g.adjacency)))
+        require(np.isfinite(got.adjacency).all()
+                and got.adjacency.shape == (FULL["n_obj"], FULL["n_obj"]),
+                "a given question's adjacency")
+    require(max(errs) <= PLOT_ADJ_TOL, f"B = 1 f32 adjacency, card "
+            f"against CPU: {max(errs):.3e} x max|A|")
+    idx = first_index
+    t = val.table
+    inputs = (torch.from_numpy(t.tokens[idx:idx + 1]).to(dev),
+              torch.from_numpy(val.store.batch(t.image_row[idx:idx + 1]))
+              .to(dev),
+              torch.from_numpy(t.qlen[idx:idx + 1]).to(dev))
+    device_ms, items, syncs = busy_and_syncs(lambda: model(*inputs))
+    events_ms = time_ms(lambda: model(*inputs), samples=20, reps=5)
+    p50 = statistics.median(wall)
+    print(f"given_question_graph at B = 1 from the host store ({smi}): "
+          f"per question A 2, B 1, no gather ({counts} for "
+          f"{PLOT_QUESTIONS}); bf16 answers equal the sweep's for {agree} "
+          f"of {PLOT_QUESTIONS}; f32 adjacency card against CPU max "
+          f"{max(errs):.3e} x max|A|; bf16 wall p50 {p50:.3f} ms (host "
+          f"clock: the lookup, the host rows' copy, the forward, the "
+          f"fetch); the forward alone: device busy {device_ms:.4f} ms and "
+          f"{items:g} device items a call (torch.profiler), "
+          f"{events_ms:.4f} ms a call back to back (CUDA events: the "
+          f"larger of the host's enqueue and the device), host "
+          f"synchronizations a call {json.dumps(syncs)}", flush=True)
+    return p50, device_ms
+
+
+def busy_and_syncs(fn, n=10):
+    """(device busy ms, device items, {host synchronization: count}) per
+    call of ``fn`` (torch.profiler: kernels, copies and fills; the CUDA
+    runtime's synchronize calls and aten's scalar reads on the host, the
+    window's own closing synchronize included as 1 / n)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile after others may come back empty
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        busy = sum(e.self_device_time_total for e in device) / n / 1e3
+        if busy > 0:
+            break
+    syncs = {e.key: e.count / n for e in events
+             if "Synchronize" in e.key or e.key in (
+                 "aten::_local_scalar_dense", "aten::item")}
+    return busy, sum(e.count for e in device) / n, syncs
+
+
+def render_figures(smi):
+    """Phase 18, rendering, where matplotlib is installed: cli.plot.main
+    in this process from the trained checkpoint, 128 figures. Returns
+    seconds per figure, or None where matplotlib is absent."""
+    if importlib.util.find_spec("matplotlib") is None:
+        print("figures not rendered: matplotlib is not installed on this "
+              "machine (rendering is host work; tests/test_torch_viz.py "
+              "holds the figures to the JAX package's on the CPU)",
+              flush=True)
+        return None
+    out = os.path.join("figures", "cli")
+    t0 = time.perf_counter()
+    plot_cli.main(["--model_path", TRAINED_CKPT, *plot_model_flags(),
+                   "--synthetic", "--data_dir", "data", "--plot_dir", out])
+    wall = time.perf_counter() - t0
+    n = sum(name.endswith(".jpg") for name in os.listdir(out))
+    require(n == PLOT_B * PLOT_BATCHES, f"cli.plot rendered {n} figures")
+    print(f"cli.plot.main rendered {n} figures in {wall:.3f} s "
+          f"({wall / n:.4f} s a figure, the JPEG backfill and the sweep "
+          f"included; {smi})", flush=True)
+    return wall / n
+
+
+def tsv_round_trip(smi, sdir):
+    """Phase 18, features_to_zarr: phase 15's trainval stores written
+    out as a bottom-up-attention TSV (base64 float32) and read back: the
+    arrays and the size CSV come back equal. Returns seconds."""
+    t0 = time.perf_counter()
+    feats = zarr_store.open_group(os.path.join(sdir, "trainval.zarr"))
+    boxes = zarr_store.open_group(os.path.join(sdir, "trainval_boxes.zarr"))
+    csv_path = os.path.join(sdir, "trainval_image_size.csv")
+    sizes = _read_sizes_csv(csv_path)
+    tsv = os.path.join("roundtrip", "trainval.tsv")
+    os.makedirs("roundtrip")
+    with open(tsv, "w") as f:
+        for iid, (w, h) in sizes.items():
+            b, x = np.asarray(boxes[iid]), np.asarray(feats[iid])
+            enc = [base64.b64encode(a.tobytes()).decode("ascii")
+                   for a in (b, x)]
+            f.write("\t".join([iid, str(int(w)), str(int(h)),
+                               str(len(b)), *enc]) + "\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        image_features.features_to_zarr("trainval", [tsv], "roundtrip")
+    back_f = zarr_store.open_group(os.path.join("roundtrip",
+                                                "trainval.zarr"))
+    back_b = zarr_store.open_group(os.path.join("roundtrip",
+                                                "trainval_boxes.zarr"))
+    require(sorted(back_f.keys()) == sorted(feats.keys())
+            and all(np.array_equal(np.asarray(back_f[k]),
+                                   np.asarray(feats[k]))
+                    and np.array_equal(np.asarray(back_b[k]),
+                                       np.asarray(boxes[k]))
+                    for k in feats.keys()),
+            "features_to_zarr did not give the stores back")
+    with open(csv_path, "rb") as a, open(os.path.join(
+            "roundtrip", "trainval_image_size.csv"), "rb") as b:
+        require(a.read() == b.read(), "the size CSV came back otherwise")
+    seconds = time.perf_counter() - t0
+    print(f"features_to_zarr round trip of phase 15's {len(sizes)}-image "
+          f"store ({os.path.getsize(tsv) / 1e6:.1f} MB of TSV): arrays and "
+          f"size CSV equal, {seconds:.3f} s ({smi})", flush=True)
+    shutil.rmtree("roundtrip")
+    return seconds
+
+
+def plots_from_files(dev, smi, sdir):
+    """Phase 18, the main path: the interpretability plots from phase
+    15's files and trained checkpoint, in phase 15's working directory."""
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    val = step("dataset", GraphVQADataset.vqa2, sdir, "val")
+    kinds = step("checkpoints", plot_checkpoints, dev, val)
+    bf16_graphs, collect_s, qps = step("sweeps", plot_sweeps, dev, smi, val,
+                                       kinds)
+    card32, cpu32 = step("card_against_cpu", card_against_cpu, dev, smi,
+                         val)
+    p50, device_ms = step("given_questions", given_questions, dev, smi, val,
+                          bf16_graphs, card32, cpu32)
+    per_figure = step("render", render_figures, smi)
+    tsv_s = step("tsv_round_trip", tsv_round_trip, smi, sdir)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 18 in {phase_s:.1f} s ({smi}): " + json.dumps({
+        "sweep_device_questions_per_s": qps, "collect_graphs_s": collect_s,
+        "given_question_wall_p50_ms": p50,
+        "given_question_forward_busy_ms": device_ms,
+        "s_per_figure": per_figure, "tsv_round_trip_s": tsv_s,
+        "steps_s": steps}), flush=True)
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -4404,6 +4813,9 @@ def main() -> int:
         os.chdir("medical")
         phase("17 the medical grid search from files (main path)")
         medical_grid_search(dev, gen, smi, errs)
+        os.chdir(work)
+        phase("18 the interpretability plots from files (main path)")
+        plots_from_files(dev, smi, sdir)
     finally:
         os.chdir(old_cwd)
         shutil.rmtree(work, ignore_errors=True)

@@ -42,7 +42,11 @@ def test_scan_covers_the_port():
     assert "vqa_project_tpu_torch/ops/quant.py" in names
     for module in ("cli/medical.py", "cli/run_imageclef.py",
                    "cli/run_mimic.py", "data/synthetic_medical.py",
-                   "data/preprocess/medical.py", "train/profiling.py"):
+                   "data/preprocess/medical.py", "train/profiling.py",
+                   "viz/plots.py", "viz/cv2_plots.py", "cli/plot.py",
+                   "utils/__init__.py", "data/preprocess/text.py",
+                   "data/preprocess/image_features.py",
+                   "data/yolo/loaders.py"):
         assert f"vqa_project_tpu_torch/{module}" in names
 
 

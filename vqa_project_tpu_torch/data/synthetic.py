@@ -9,7 +9,11 @@ the same seed, so the same images, boxes, classes and questions.
   ``*_image_size.csv``, ``train_q_dict.p`` / ``train_a_dict.p``,
   ``vqa_{train,val}_final_3000.json`` and, with ``with_test``, the test
   store and ``vqa_test_toked.json``), file for file what the JAX
-  generator writes (its raw JPEGs, ``with_images``, are not written);
+  generator writes, with ``with_images`` its raw JPEGs too (one small
+  random raster per image, drawn from the same generator after the
+  image's boxes, so they change every later draw as in JAX);
+- ``ensure_synthetic_images(data_dir)`` backfills those JPEGs for a set
+  written without them, from a generator of its own;
 - ``generate_synthetic_vqa(...)`` returns the splits as
   ``GraphVQADataset`` objects with no file written: image rows in the
   order the loader gives them (ids sorted as strings), boxes normalized
@@ -30,15 +34,17 @@ from typing import Dict
 import numpy as np
 
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
-from vqa_project_tpu_torch.data.store import FeatureStore, write_sizes_csv
+from vqa_project_tpu_torch.data.store import (FeatureStore, _read_sizes_csv,
+                                              write_sizes_csv)
 from vqa_project_tpu_torch.data.vocab import save_vocab
 from vqa_project_tpu_torch.data.zarr_store import ZarrWriter
 
 
 def _draw(n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers,
-          seed, n_classes, class_encoding, with_test):
+          seed, n_classes, class_encoding, with_test, with_images=False):
     """Every draw of the JAX generator, in its order: per image its size,
-    features (the class written in), class and pixel boxes; then the QA
+    features (the class written in), class, pixel boxes and, with_images,
+    a (h // 8, w // 8, 3) uint8 raster (else None); then the QA
     rows of train, val and, with_test, test (unannotated, over the first
     max(2, n_images // 4) images)."""
     n_classes = n_classes or n_answers // 2
@@ -70,7 +76,8 @@ def _draw(n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers,
         b = np.concatenate([xy1, xy1 + wh], axis=-1).astype(np.float32)
         b[:, [0, 2]] *= w           # pixel boxes, as written to disk
         b[:, [1, 3]] *= h
-        images[iid] = (f, b, (w, h))
+        raster = _raster(rng, w, h) if with_images else None
+        images[iid] = (f, b, (w, h), raster)
     ids = list(images)
 
     q_words = [f"word{i}" for i in range(q_vocab)]
@@ -110,6 +117,36 @@ def _draw(n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers,
     return images, q_words, a_words, splits, test_ids
 
 
+def _raster(rng: np.random.Generator, w: int, h: int) -> np.ndarray:
+    """The raster JAX draws for a (w, h) image: (h // 8, w // 8, 3) uint8."""
+    return rng.integers(0, 255, size=(h // 8, w // 8, 3), dtype=np.uint8)
+
+
+def _imsave(path: str, raster: np.ndarray) -> None:
+    """Write a JPEG as the JAX generator does (``plt.imsave`` is this
+    function); matplotlib is imported only here."""
+    from matplotlib.image import imsave
+
+    imsave(path, raster)
+
+
+def ensure_synthetic_images(data_dir: str, seed: int = 7) -> str:
+    """Backfill raw JPEGs for an already-written synthetic set (one per
+    id in the trainval size CSV, from ``default_rng(seed)``; existing
+    files are kept), returning the images directory."""
+    image_dir = os.path.join(data_dir, "images")
+    os.makedirs(image_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    sizes = _read_sizes_csv(os.path.join(data_dir,
+                                         "trainval_image_size.csv"))
+    for iid, wh in sizes.items():
+        path = os.path.join(image_dir, f"{iid}.jpg")
+        if os.path.exists(path):
+            continue
+        _imsave(path, _raster(rng, int(wh[0]), int(wh[1])))
+    return image_dir
+
+
 def _vocabs(q_words, a_words):
     q_itow = {i + 1: w for i, w in enumerate(q_words)}
     q_wtoi = {w: i + 1 for i, w in enumerate(q_words)}
@@ -123,16 +160,24 @@ def write_synthetic_vqa(data_dir: str, n_images: int = 24,
                         feat_dim: int = 64, q_vocab: int = 40,
                         n_answers: int = 12, seed: int = 1000,
                         with_test: bool = False, n_classes: int = 0,
-                        class_encoding: str = "scalar") -> str:
+                        class_encoding: str = "scalar",
+                        with_images: bool = False) -> str:
     """Write the synthetic set as the reference's VQA v2 artifacts under
     ``data_dir`` (the arguments and files of the JAX generator); returns
     ``data_dir``. The questions split 75% train, 25% val; with_test adds
     n_questions // 4 unannotated test questions over a test store of the
-    first max(2, n_images // 4) images."""
+    first max(2, n_images // 4) images; with_images writes
+    ``images/{id}.jpg`` for the interpretability plots (needs
+    matplotlib)."""
     images, q_words, a_words, splits, test_ids = _draw(
         n_images, n_questions, n_obj, feat_dim, q_vocab, n_answers, seed,
-        n_classes, class_encoding, with_test)
+        n_classes, class_encoding, with_test, with_images)
     os.makedirs(data_dir, exist_ok=True)
+    if with_images:
+        image_dir = os.path.join(data_dir, "images")
+        os.makedirs(image_dir, exist_ok=True)
+        for iid, (_, _, _, raster) in images.items():
+            _imsave(os.path.join(image_dir, f"{iid}.jpg"), raster)
 
     def write_store(prefix, ids):
         feats = ZarrWriter(os.path.join(data_dir, f"{prefix}.zarr"))
