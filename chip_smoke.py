@@ -167,6 +167,31 @@ Phases, in order; the first failure exits non-zero:
     base64 TSV and read back by features_to_zarr equal; the sweep's
     questions/s, collect_graphs' seconds, the B = 1 forward's wall p50
     and device ms and the phase's time printed;
+19. data parallelism, the main path over several ranks (after phase 18;
+    ``python3 chip_smoke.py --phase 19`` runs phases 1, 2 and 19 alone,
+    ``--phase 19c`` only its legs that need several cards, (c) and (d)):
+    phase 11's fit (dropout 0, every step logged) in one process, then
+    (a) two ranks on card 0 over gloo, fresh interpreters under a hard
+    timeout, global batch 64: the replicated cache with the f32 reduce
+    (per-step losses within 2e-3 of the one-process fit's, per-step
+    accuracies equal), the sharded cache forced by a budget of 3/4 of
+    the table (against one process stepping the same locality batches),
+    the bf16 reduce (within 2e-3 of the f32 reduce's losses, and
+    learning), on each rank per step the image gather 1, C 2, D 2, B 1,
+    E 1 + 1 and the ranks' weights equal; evaluate over the two ranks
+    writing rank 0's result.json equal to one process's on the same
+    weights (rank 1 none), its answers on >= 95% of val those of the
+    one-process model, and the gloo all-reduce of the full gradient
+    timed in f32 and bf16; (b) NCCL at world 1: the data-parallel fit's
+    losses and weights equal to the single-card fit's bit for bit; (c)
+    NCCL over every visible card up to 4 (else a line saying it did not
+    run): the replicated and bf16 fits as in (a) against one card, the
+    step's median ms and device busy share, the NCCL all-reduce of the
+    gradient in f32 and bf16, and from 3 cards the VQA v2-size bf16 table
+    (123,287 images) sharded under the default 8 GiB budget with each
+    rank's bytes and a locality step's ms; (d) InferenceServer over
+    [cuda:0, cuda:0] (and every card where there are more), the unmerged
+    and the merged model: top-1 equal to one device's on 64 requests;
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -270,6 +295,7 @@ from vqa_project_tpu_torch.ops.gru import (gru_scan_reference,
 from vqa_project_tpu_torch.ops.gru_scan import (gru_scan, gru_scan_bwd,
                                                 gru_wgrad, scan_kernel,
                                                 sweep_kernel, wgrad_kernel)
+from vqa_project_tpu_torch.parallel import make_mesh, multihost, shard_batch
 from vqa_project_tpu_torch.serve import InferenceServer, make_http_server
 from vqa_project_tpu_torch.train import loop as train_loop
 from vqa_project_tpu_torch.train import profiling
@@ -3344,7 +3370,7 @@ CLI_DATA = ["--synthetic", "--data_dir", "data", "--synthetic_feat_dim",
             "2048", "--synthetic_answers", "3000", "--synthetic_classes",
             "1500", "--synthetic_encoding", "binary", "--synthetic_vocab",
             "12000", "--synthetic_images", "512", "--synthetic_questions",
-            "2560", "--bsize", str(TRAIN_B)]
+            "2560", "--bsize", str(TRAIN_B), "--num_devices", "1"]
 # one resident evaluation batch: the image gather, A in both
 # convolutions, B
 EVAL_BATCH_LAUNCHES = {"gather_image_rows": 1, "edge_aggregate_fwd": 2,
@@ -4004,7 +4030,8 @@ MED_COMMON = ["--data_dir", "data", "--synthetic", "--synthetic_feat_dim",
               "2048", "--synthetic_answers", "3000", "--synthetic_vocab",
               "12000", "--hid", "1024", "--emb", "300", "--bsize",
               str(MED_B), "--dropout", str(MED_DROPOUT), "--lr", "1e-3",
-              "--compute_dtype", "bfloat16", "--ep", "1"]
+              "--compute_dtype", "bfloat16", "--ep", "1", "--num_devices",
+              "1"]
 CLEF_ARGS = [*MED_COMMON, "--synthetic_images", "256",
              "--synthetic_questions", "2048", "--neighbors_list", "16", "36",
              "--kernels_list", "4", "32"]
@@ -4735,7 +4762,535 @@ def plots_from_files(dev, smi, sdir):
         "steps_s": steps}), flush=True)
 
 
-def main() -> int:
+# ---------------- data parallelism (phase 19) ----------------
+
+# a launch of ranks' hard limit: a hung collective fails the phase, it
+# does not hold the script
+DP_RANK_TIMEOUT = 240
+# (a)'s fits over two ranks on one card
+DP_LEGS_A = ("replicated", "sharded", "bf16")
+
+
+class LazyTable:
+    """A (N, K, F) float32 table whose rows are made when sliced, from
+    their index (no host copy of the whole): the VQA v2-size feature
+    table that ``ShardedFeatureCache.build`` uploads one chunk at a
+    time."""
+
+    def __init__(self, n, k, f):
+        self.shape = (n, k, f)
+        self.size = n * k * f
+        self.dtype = np.dtype(np.float32)
+
+    def __getitem__(self, rows):
+        idx = np.arange(*rows.indices(self.shape[0]), dtype=np.float32)
+        col = np.arange(self.shape[2], dtype=np.float32)
+        base = np.sin(idx[:, None, None] * 0.37 + col[None, None, :] * 0.011)
+        return np.broadcast_to(base, (len(idx),) + self.shape[1:])
+
+
+def params_sha(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_cfg(**kw):
+    """Phase 19's fits: phase 11's, dropout 0, every step logged."""
+    return TrainConfig(lr=1e-4, epochs=1, batch_size=TRAIN_B, log_interval=1,
+                       eval_interval=0, seed=SEED, **kw)
+
+
+def dp_model_cfg():
+    return ModelConfig(**{**FULL, "dropout": 0.0})   # bf16
+
+
+def shard_budget(ds):
+    """A per-card budget between half the bf16 table and the whole: the
+    sharded cache over two ranks."""
+    store = ds["train"].store
+    return int(0.75 * (store.features.size * 2 + store.boxes.nbytes))
+
+
+def shard_partitions(ds, world):
+    """The locality partitions of ds["train"]'s questions for a table
+    split over ``world`` ranks (``ShardedFeatureCache.partitions``)."""
+    n = ds["train"].store.features.shape[0]
+    owner = np.arange(n) // -(-n // world)
+    return owner[ds["train"].table.image_row].astype(np.int32)
+
+
+def dp_fit(ds, dev, mesh, train=None, cache=None):
+    """fit() of phase 19 on this process (a rank of ``mesh``, or alone
+    with mesh None and a prebuilt cache): per-step losses and accuracies
+    (on rank 0 or alone), launches per step, median step ms, weights'
+    hash. Returns (model, report)."""
+    tcfg = dp_train_cfg(**(train or {}))
+    world = 1 if mesh is None else mesh.world
+    sharded = "device_cache_bytes" in (train or {})
+    n_steps = len(Batcher(ds["train"], TRAIN_B, drop_last=True, **(
+        {"partitions": shard_partitions(ds, world), "n_partitions": world}
+        if sharded else {})))
+    kw = {} if cache is None else {"cache": cache}
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        reset_counts()
+        t0 = time.perf_counter()
+        model, _, _ = fit(tcfg, dp_model_cfg(), ds["train"], device=dev,
+                          jsonl_path=jsonl, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        recs = _records(jsonl) if os.path.exists(jsonl) else []
+    require(not recs or len(recs) == n_steps, "fit logged other steps")
+    return model, {
+        "losses": [r["loss"] for r in recs],
+        "accs": [r["vqa_acc"] for r in recs],
+        "step_ms": (statistics.median(1e3 / r["steps_per_sec"]
+                                      for r in recs[2:]) if recs else None),
+        "per_step": {k: v / n_steps for k, v in counts.items()},
+        "sha": params_sha(model), "wall_s": wall}
+
+
+def time_all_reduce(numel, dtype, n=20):
+    """Median ms of one all_reduce of a flat ``numel`` buffer (CUDA
+    events, each launch after a barrier)."""
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, dtype=dtype, device="cuda")
+    for _ in range(3):
+        dist.all_reduce(buf)
+    times = []
+    for _ in range(n):
+        dist.barrier()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        dist.all_reduce(buf)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def busy_share(fn, n=5):
+    """(wall ms, device busy ms) per call of fn, from a profile."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / n / 1e3
+    return wall, busy
+
+
+def real_table_steps(dev, mesh, n=10):
+    """The VQA v2-size table (123,287 images, bf16) through
+    make_feature_cache under the default 8 GiB budget: sharded over the
+    ranks; this rank's bytes on the card, and n data-parallel steps on
+    locality index batches (each rank's rows from its own shard)."""
+    from types import SimpleNamespace
+
+    from vqa_project_tpu_torch.parallel import ShardedFeatureCache
+
+    store = SimpleNamespace(
+        features=LazyTable(VQA_IMAGES, 36, FULL["feat_dim"] - 4),
+        boxes=np.tile(np.array([0.1, 0.1, 0.6, 0.7], np.float32),
+                      (VQA_IMAGES, 36, 1)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cache = make_feature_cache(SimpleNamespace(store=store), TrainConfig(),
+                               "bfloat16", dev, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(isinstance(cache, ShardedFeatureCache),
+            f"the VQA v2 table over {mesh.world} cards is not sharded")
+    shard_gb = (cache.features.numel() * 2 + cache.boxes.numel() * 4) / 1e9
+    cfg = dp_model_cfg()
+    model = GraphVQAModel(cfg, device=dev, seed=SEED)
+    optimizer, _ = make_optimizer(model, TrainConfig(), 100)
+    image_fn = make_image_fn(cache, cfg.compute_dtype)
+    rng = np.random.default_rng(SEED + 19)
+    per = TRAIN_B // mesh.world
+    lo = mesh.rank * cache.shard_size
+    hi = min(lo + cache.shard_size, VQA_IMAGES)
+
+    def step():
+        # the same global batch on every rank; rank r's rows in its shard
+        batch = random_index_batch(TRAIN_B, cfg, VQA_IMAGES, rng)
+        for r in range(mesh.world):
+            a = r * cache.shard_size
+            b = min(a + cache.shard_size, VQA_IMAGES)
+            batch["image_row"][r * per:(r + 1) * per] = rng.integers(a, b,
+                                                                     per)
+        local = {k: v[mesh.rank * per:(mesh.rank + 1) * per]
+                 for k, v in batch.items()}
+        local["image_row"] = cache.local_rows(local["image_row"])
+        float(train_step(model, optimizer, None, local, None, image_fn,
+                         mesh=mesh, n_valid=float(batch["mask"].sum()))
+              ["loss"])
+
+    ms = median_step_ms(step, n)
+    out = {"build_s": build_s, "shard_rows": [lo, hi],
+           "shard_gb": shard_gb,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "step_ms": ms}
+    del cache, model, optimizer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(argv):
+    """One rank of phase 19 (``chip_smoke.py --dp-rank <rank> <spec>``):
+    joins the spec's process group, runs its legs and writes its report
+    beside the spec."""
+    rank, spec_path = int(argv[0]), argv[1]
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(spec["port"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0 if spec["shared"] else rank)
+    multihost.maybe_initialize_distributed(dev, spec["backend"])
+    mesh = make_mesh(None, dev)
+    ds = train_dataset()
+    out = {"rank": rank, "world": mesh.world, "backend": mesh.backend}
+    for leg in spec["legs"]:
+        if leg == "replicated":
+            model, out[leg] = dp_fit(ds, dev, mesh)
+            if rank == 0:
+                torch.save(model.state_dict(), spec["weights"])
+        elif leg == "sharded":
+            _, out[leg] = dp_fit(ds, dev, mesh, {
+                "device_cache_bytes": shard_budget(ds)})
+        elif leg == "bf16":
+            _, out[leg] = dp_fit(ds, dev, mesh,
+                                 {"grad_reduce_dtype": "bfloat16"})
+        elif leg == "evaluate":
+            model = build_model(dp_model_cfg(), ds["val"], device=dev)
+            model.load_state_dict(torch.load(spec["weights"],
+                                             weights_only=True))
+            path = os.path.join(os.path.dirname(spec_path),
+                                f"result_rank{rank}.json")
+            reset_counts()
+            acc, result, _ = evaluate(model, ds["val"], TRAIN_B,
+                                      result_path=path, device=dev,
+                                      mesh=mesh)
+            out[leg] = {"acc": acc, "n": len(result),
+                        "launches": read_counts()}
+        elif leg == "all_reduce":
+            numel = sum(p.numel() for p in GraphVQAModel(
+                dp_model_cfg(), device=dev, seed=SEED).parameters())
+            out[leg] = {"numel": numel,
+                        "f32_ms": time_all_reduce(numel, torch.float32),
+                        "bf16_ms": time_all_reduce(numel, torch.bfloat16)}
+        elif leg == "busy":
+            cfg = dp_model_cfg()
+            model = GraphVQAModel(cfg, device=dev, seed=SEED)
+            optimizer, _ = make_optimizer(model, TrainConfig(), 100)
+            cache = make_feature_cache(ds["train"], TrainConfig(),
+                                       cfg.compute_dtype, dev, mesh)
+            image_fn = make_image_fn(cache, cfg.compute_dtype)
+            batch = next(iter(Batcher(ds["train"], TRAIN_B, shuffle=True,
+                                      seed=SEED, materialize=False)))
+            local = pack_index_batch(shard_batch(batch, mesh))
+
+            def step():
+                float(train_step(model, optimizer, None, local, None,
+                                 image_fn, mesh=mesh,
+                                 n_valid=float(batch["mask"].sum()))["loss"])
+
+            wall, busy = busy_share(step)
+            out[leg] = {"wall_ms": wall, "busy_ms": busy}
+        elif leg == "real_table":
+            out[leg] = real_table_steps(dev, mesh)
+    multihost.shutdown()
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def launch_ranks(world, backend, shared, legs, work):
+    """Phase 19's ranks as fresh interpreters (spawned, not forked), each
+    under DP_RANK_TIMEOUT; returns their reports in rank order."""
+    os.makedirs(work, exist_ok=True)
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"world": world, "backend": backend, "shared": shared,
+                   "legs": list(legs), "port": multihost.free_port(),
+                   "weights": os.path.join(work, "weights.pt")}, f)
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, "--dp-rank", str(r),
+                               spec_path], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            remaining = DP_RANK_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(remaining, 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(text[-6000:], flush=True)
+        require(p.returncode == 0, f"rank {r} of {world} ({backend}) "
+                f"exited {p.returncode}")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    print(f"{world} ranks ({backend}{', one card' if shared else ''}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return reports
+
+
+def locality_reference(dev, ds, world):
+    """A one-process run of phase 19's sharded leg's batches: the
+    Batcher's locality batches for ``world`` shards of the table, each
+    stepped whole with the replicated cache. Per-step (losses, accs)."""
+    cfg = dp_model_cfg()
+    model = build_model(cfg, ds["train"], device=dev, seed=SEED)
+    loader = Batcher(ds["train"], TRAIN_B, shuffle=True, seed=SEED,
+                     drop_last=True, materialize=False,
+                     partitions=shard_partitions(ds, world),
+                     n_partitions=world)
+    optimizer, scheduler = make_optimizer(model, dp_train_cfg(), len(loader))
+    cache = make_feature_cache(ds["train"], TrainConfig(), cfg.compute_dtype,
+                               dev)
+    image_fn = make_image_fn(cache, cfg.compute_dtype)
+    losses, accs = [], []
+    for batch in loader:
+        m = train_step(model, optimizer, scheduler, batch, None, image_fn)
+        losses.append(float(m["loss"]))
+        accs.append(100.0 * float(m["score"]) / max(float(m["valid"]), 1.0))
+    return losses, accs
+
+
+def compare_runs(label, got, want_losses, want_accs, tol=2e-3):
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want_losses)]
+    print(f"{label}: per-step relative loss difference "
+          + json.dumps(rel) + f"; accuracies {got['accs']} vs "
+          f"{want_accs}", flush=True)
+    require(len(got["losses"]) == len(want_losses) and max(rel) <= tol,
+            f"{label}: losses beyond {tol} of the one-process run")
+    require(got["accs"] == want_accs,
+            f"{label}: a step's argmax scored otherwise")
+
+
+def check_rank_reports(label, reports, legs):
+    for leg in legs:
+        shas = {r[leg]["sha"] for r in reports}
+        require(len(shas) == 1, f"{label} {leg}: ranks' weights differ")
+        for r in reports:
+            require(r[leg]["per_step"] == CACHE_STEP_LAUNCHES,
+                    f"{label} {leg}: rank {r['rank']} launches per step "
+                    f"{r[leg]['per_step']}, want {CACHE_STEP_LAUNCHES}")
+
+
+def dp_two_ranks_one_card(dev, smi, ds, ref, ref_model, work):
+    """Phase 19 (a): two ranks on card 0 over gloo, against the
+    one-process fit ``ref``."""
+    reports = launch_ranks(2, "gloo", True,
+                           DP_LEGS_A + ("evaluate", "all_reduce"), work)
+    r0 = reports[0]
+    check_rank_reports("(a)", reports, DP_LEGS_A)
+    compare_runs("(a) replicated, 2 ranks vs 1 process", r0["replicated"],
+                 ref["losses"], ref["accs"])
+    loc_losses, loc_accs = locality_reference(dev, ds, 2)
+    compare_runs("(a) sharded, 2 ranks vs 1 process on its locality "
+                 "batches", r0["sharded"], loc_losses, loc_accs)
+    bf = r0["bf16"]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(bf["losses"], r0["replicated"]["losses"]))
+    print(f"(a) bf16 reduce: losses {bf['losses'][0]:.5f} -> "
+          f"{bf['losses'][-1]:.5f}, max relative difference from the "
+          f"f32 reduce {rel:.3g}", flush=True)
+    require(rel <= 2e-3, "the bf16 reduce's losses left the f32 one's")
+    require(statistics.mean(bf["losses"][-5:])
+            < statistics.mean(bf["losses"][:5]),
+            "the bf16 reduce does not learn")
+    # evaluate over two ranks: rank 0's result.json, equal to one
+    # process's on the same weights
+    model = build_model(dp_model_cfg(), ds["val"], device=dev)
+    model.load_state_dict(torch.load(os.path.join(work, "weights.pt"),
+                                     weights_only=True))
+    one_path = os.path.join(work, "result_one.json")
+    acc, _, _ = evaluate(model, ds["val"], TRAIN_B, result_path=one_path,
+                         device=dev)
+    with open(one_path) as f, open(os.path.join(
+            work, "result_rank0.json")) as g:
+        one, two = json.load(f), json.load(g)
+    require(one == two and r0["evaluate"]["acc"] == acc,
+            "evaluate over two ranks differs from one process")
+    require(not os.path.exists(os.path.join(work, "result_rank1.json")),
+            "rank 1 wrote a result.json")
+    # the two trainings' models answer alike: the argmax over 3001
+    # answers after 20 steps whose gradients were summed in two orders
+    _, alone, _ = evaluate(ref_model, ds["val"], TRAIN_B, result_path=None,
+                           device=dev)
+    agree = sum(a == b for a, b in zip(one, alone)) / len(one)
+    numbers = {
+        "step_ms": {k: r0[k]["step_ms"] for k in DP_LEGS_A},
+        "gloo_all_reduce_ms": r0["all_reduce"],
+        "launches_per_rank_step": r0["replicated"]["per_step"],
+        "evaluate_launches_rank0": r0["evaluate"]["launches"],
+        "answers_equal_to_one_process_training": agree}
+    print(f"(a) 2 ranks on one card (gloo): result.json of {len(two)} "
+          f"answers equal to one process's, accuracy {acc:.3f}; "
+          + json.dumps(numbers) + f" ({smi})", flush=True)
+    require(agree >= 0.95, "the 2-rank model answers otherwise than the "
+            "one-process model on more than 5% of val")
+    return numbers
+
+
+def dp_nccl_world_one(dev, ds, ref):
+    """Phase 19 (b): NCCL at world 1 on this card, the data-parallel
+    path, equal to the single-card fit bit for bit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{multihost.free_port()}", world_size=1,
+                            rank=0)
+    try:
+        _, b = dp_fit(ds, dev, make_mesh(None, dev))
+    finally:
+        dist.destroy_process_group()
+    require(b["losses"] == ref["losses"] and b["sha"] == ref["sha"],
+            "the NCCL world-1 fit differs from the plain fit")
+    print("(b) NCCL at world 1: losses and weights equal to the "
+          "single-card fit bit for bit", flush=True)
+
+
+def dp_nccl_cards(smi, ref, work):
+    """Phase 19 (c): NCCL over every visible card (up to 4) against the
+    one-card fit ``ref``, or a line saying why it did not run."""
+    cards = min(torch.cuda.device_count(), 4)
+    if cards < 2:
+        print(f"(c) NCCL over several cards did not run: "
+              f"{torch.cuda.device_count()} card visible", flush=True)
+        return None
+    # the VQA v2 bf16 table shards under the default budget from 3 cards
+    # up (18.25 GB / 2 exceeds 8 GiB)
+    table = VQA_IMAGES * 36 * (FULL["feat_dim"] - 4) * 2
+    real = table / cards <= TrainConfig().device_cache_bytes
+    if not real:
+        print(f"(c) the VQA v2 table ({table / 1e9:.2f} GB bf16) does not "
+              f"shard into {cards} cards under the 8 GiB budget: its leg "
+              "did not run", flush=True)
+    reports = launch_ranks(cards, "nccl", False, (
+        "replicated", "bf16", "all_reduce", "busy")
+        + (("real_table",) if real else ()), work)
+    r0 = reports[0]
+    check_rank_reports("(c)", reports, ("replicated", "bf16"))
+    compare_runs(f"(c) replicated, {cards} cards vs 1 card",
+                 r0["replicated"], ref["losses"], ref["accs"])
+    numbers = {
+        "cards": cards,
+        "step_ms": {k: r0[k]["step_ms"] for k in ("replicated", "bf16")},
+        "busy": r0["busy"], "nccl_all_reduce_ms": r0["all_reduce"],
+        "real_table": [r.get("real_table") for r in reports]}
+    print(f"(c) {cards} cards (NCCL): " + json.dumps(numbers) + f" ({smi})",
+          flush=True)
+    return numbers
+
+
+def dp_serving(dev, one_card):
+    """Phase 19 (d): InferenceServer split over [dev, dev] (with
+    ``one_card``) and over every card where there are several, the
+    unmerged and the merged bf16 model; top-1 equal to one device's on
+    64 requests."""
+    device_sets = [[dev, dev]] if one_card else []
+    if torch.cuda.device_count() > 1:
+        device_sets.append([torch.device("cuda", i) for i in
+                            range(torch.cuda.device_count())])
+    for merged in (False, True):
+        model16 = GraphVQAModel(ModelConfig(**FULL, merged_block=merged),
+                                device=dev, seed=SEED)
+        sds = ServingData(model16.cfg, 64, SEED)
+        jobs = serving_jobs(
+            [f"w{i}" for i in range(1, model16.cfg.vocab_size)],
+            [str(100 + i) for i in range(64)], 64, SEED + 19)
+        want = direct_top1(model16, sds, jobs, dev, SERVE_B)
+        for devices in device_sets:
+            n = len(devices)
+            srv = InferenceServer(model16, sds, devices=devices,
+                                  batch_size=SERVE_B if SERVE_B % n == 0
+                                  else SERVE_B * n)
+            try:
+                futures = [srv.submit(q, image_id=iid) for q, iid in jobs]
+                got = [f.result(120)["answer"] for f in futures]
+            finally:
+                srv.close()
+            same = sum(a == b for a, b in zip(got, want))
+            print(f"(d) serving the {'merged' if merged else 'unmerged'} "
+                  f"model over {[str(d) for d in devices]}: top-1 equal to "
+                  f"one device on {same}/{len(jobs)} requests", flush=True)
+            require(same == len(jobs), "split serving answered otherwise")
+
+
+def data_parallel(dev, smi, legs="abcd"):
+    """Phase 19, the main path over several ranks: (a) two ranks on card
+    0 over gloo; (b) NCCL at world 1; (c) NCCL over every visible card
+    (up to 4), or a line saying why not; (d) serving split over
+    devices. ``legs`` "cd" runs only what needs several cards, with the
+    one-card fit they are held against."""
+    t_phase = time.perf_counter()
+    ds = train_dataset()
+    numbers = {}
+    # the one-process run every data-parallel run is held against
+    ref_model, ref = dp_fit(ds, dev, None, cache=make_feature_cache(
+        ds["train"], TrainConfig(), "bfloat16", dev))
+    require(ref["per_step"] == CACHE_STEP_LAUNCHES,
+            f"one-process launches per step {ref['per_step']}")
+    numbers["one_card_step_ms"] = ref["step_ms"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        if "a" in legs:
+            numbers["a"] = dp_two_ranks_one_card(dev, smi, ds, ref,
+                                                 ref_model,
+                                                 os.path.join(work, "a"))
+        if "b" in legs:
+            dp_nccl_world_one(dev, ds, ref)
+        if "c" in legs:
+            numbers["c"] = dp_nccl_cards(smi, ref, os.path.join(work, "c"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if "d" in legs:
+        dp_serving(dev, one_card="a" in legs)
+    print(f"phase 19 ({legs}) in {time.perf_counter() - t_phase:.1f} s "
+          f"({smi}): " + json.dumps(numbers), flush=True)
+    return numbers
+
+def main(argv) -> int:
+    if argv[:1] == ["--dp-rank"]:
+        return dp_rank(argv[1:])
+    only_dp = {("--phase", "19"): "abcd", ("--phase", "19c"): "cd"}.get(
+        tuple(argv))
+    if argv and not only_dp:
+        print("usage: chip_smoke.py [--phase 19 | --phase 19c]",
+              file=sys.stderr)
+        return 2
     phase("1 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4758,6 +5313,14 @@ def main() -> int:
         print(f"{name}.cu ptxas:\n{_build.resource_report(name)}", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
+    if only_dp:
+        phase("19 data parallelism (main path)")
+        data_parallel(dev, smi, only_dp)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     phase("3 kernels against their plain versions")
     errs = check_kernels(dev, gen)
     phase("4 full-width forward")
@@ -4819,6 +5382,8 @@ def main() -> int:
     finally:
         os.chdir(old_cwd)
         shutil.rmtree(work, ignore_errors=True)
+    phase("19 data parallelism (main path)")
+    data_parallel(dev, smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -4829,4 +5394,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

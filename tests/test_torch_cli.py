@@ -27,10 +27,9 @@ from vqa_project_tpu_torch.train import build_model
 
 SMALL = ["--synthetic", "--hid", "64", "--n_kernels", "4",
          "--neighbourhood_size", "5", "--bsize", "32", "--device", "cpu"]
-# the JAX CLI's flags the port leaves out: one card (no gradient
-# all-reduce) and the TPU-only kernel switches
-LEFT_OUT = {"num_devices", "tp", "grad_reduce_dtype", "pallas", "no_pallas",
-            "pallas_gather"}
+# the JAX CLI's flags the port leaves out: tensor parallelism (not
+# ported yet) and the TPU-only kernel switches
+LEFT_OUT = {"tp", "pallas", "no_pallas", "pallas_gather"}
 
 
 @pytest.fixture(scope="module")
@@ -106,9 +105,8 @@ def test_eval_and_test_write_result_json(trained, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--tp", "2"], ["--num_devices", "1"], ["--pallas"], ["--no_pallas"],
-    ["--pallas_gather", "on"],
-    ["--grad_reduce_dtype", "bfloat16"], ["--device_cache_bytes", "1"],
+    ["--tp", "2"], ["--pallas"], ["--no_pallas"],
+    ["--pallas_gather", "on"], ["--device_cache_bytes", "1"],
     ["--bogus"]], ids=lambda a: a[0])
 def test_left_out_and_unknown_flags_exit(extra):
     with pytest.raises(SystemExit, match="Unknown argument"):

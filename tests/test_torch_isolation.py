@@ -46,7 +46,9 @@ def test_scan_covers_the_port():
                    "viz/plots.py", "viz/cv2_plots.py", "cli/plot.py",
                    "utils/__init__.py", "data/preprocess/text.py",
                    "data/preprocess/image_features.py",
-                   "data/yolo/loaders.py"):
+                   "data/yolo/loaders.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/multihost.py",
+                   "parallel/sharded_cache.py"):
         assert f"vqa_project_tpu_torch/{module}" in names
 
 

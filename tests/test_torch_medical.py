@@ -72,16 +72,15 @@ def test_flags_and_defaults_are_the_jax_harness():
     added = {"device", "adam_mu_dtype", "adam_nu_dtype", "fast_math",
              "synthetic_images", "synthetic_questions", "synthetic_feat_dim",
              "synthetic_vocab", "synthetic_answers"}
-    assert set(mine) == (set(theirs) - {"num_devices"}) | added
-    assert {k: mine[k] for k in theirs if k in mine} == \
-        {k: v for k, v in theirs.items() if k != "num_devices"}
+    assert set(mine) == set(theirs) | added
+    assert {k: mine[k] for k in theirs} == theirs
     assert mine["device"] == "cuda"
     assert medical.make_configs(medical.medical_input_args([])[0])[0] \
         .n_obj == 51
-    _, _, unparsed = medical.medical_input_args(["--num_devices", "2"])
-    assert unparsed == ["--num_devices", "2"]
+    args, _, unparsed = medical.medical_input_args(["--num_devices", "2"])
+    assert not unparsed and args.num_devices == 2
     with pytest.raises(SystemExit, match="Unknown argument"):
-        run_imageclef.main(["--num_devices", "2"])
+        run_imageclef.main(["--tp", "2"])
 
 
 @pytest.mark.parametrize("value,want", [

@@ -18,21 +18,31 @@ before the next. The accuracy divides by the number of validation
 questions (the reference divides by n_train_batches * bsize and by
 10 * bsize, copy-paste artifacts; PARITY.md, "Known deviations").
 
-The flags and defaults are the JAX harness's less ``--num_devices``
-(one card), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions of the kernels), ``--adam_mu_dtype``,
-``--adam_nu_dtype`` and ``--fast_math`` (as in ``cli/run.py``), and the
-``--synthetic_*`` sizes of the ``--synthetic`` set (the JAX harness
-always writes its generator's default sizes).
+The flags and defaults are the JAX harness's, plus ``--device``
+(default ``cuda``; ``cpu`` runs the plain PyTorch versions of the
+kernels), ``--adam_mu_dtype``, ``--adam_nu_dtype`` and ``--fast_math``
+(as in ``cli/run.py``, less the gradient all-reduce's dtype, which the
+JAX harness does not set), and the ``--synthetic_*`` sizes of the
+``--synthetic`` set (the JAX harness always writes its generator's
+default sizes).
+
+``--num_devices N`` (default: every visible card) runs the whole grid
+data-parallel over N ranks, as ``cli/run.py`` does: one process group
+and one feature cache for the grid (JAX builds one mesh), each cell's
+fit and evaluate over all ranks, and only rank 0 writing the grid file,
+the CSVs, the checkpoints and the synthetic set (behind a barrier that
+every rank reaches).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -43,6 +53,7 @@ from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import GraphVQADataset
 from vqa_project_tpu_torch.data.synthetic_medical import (
     generate_synthetic_imageclef, generate_synthetic_mimic)
+from vqa_project_tpu_torch.parallel import make_mesh, multihost
 from vqa_project_tpu_torch.train import loop
 from vqa_project_tpu_torch.train.profiling import StepTimer
 from vqa_project_tpu_torch.train.state import adam_step, save_checkpoint
@@ -86,6 +97,9 @@ def medical_input_args(argv=None, *, n_obj_default=51, neigh_default=19):
     parser.add_argument("--name", metavar="", type=str, default="gcn")
     parser.add_argument("--dropout", metavar="", type=float, default=0.4)
     parser.add_argument("--model_path", metavar="", type=str, default=None)
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="data-parallel ranks, one per card (default: "
+                             "every visible card; with --device cpu, 1)")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--device", type=str, default="cuda",
@@ -121,7 +135,8 @@ def make_configs(args):
     tcfg = TrainConfig(
         lr=args.lr, epochs=args.ep, batch_size=args.bsize, eval_interval=0,
         seed=args.seed, save_dir=args.save_dir, log_interval=40,
-        adam_mu_dtype=mu_dtype, adam_nu_dtype=nu_dtype)
+        adam_mu_dtype=mu_dtype, adam_nu_dtype=nu_dtype,
+        num_devices=args.num_devices)
     return mcfg, tcfg
 
 
@@ -144,21 +159,23 @@ class Cell:
 def train_one_config(args, train_ds, val_ds, ckpt_prefix: str,
                      shared=None) -> Cell:
     """Train a fresh model on the current cell's flags, evaluate it on
-    val and save its checkpoint. ``shared`` is (train cache, val cache)
-    built once by the grid; without it ``fit`` and ``evaluate`` build
-    their own."""
-    cache, val_cache = shared if shared else (loop._UNSET, loop._UNSET)
+    val and save its checkpoint (rank 0). ``shared`` is (mesh, train
+    cache, val cache) built once by the grid; without it ``fit`` and
+    ``evaluate`` build their own."""
+    mesh, cache, val_cache = (shared if shared
+                              else (None, loop._UNSET, loop._UNSET))
     mcfg, tcfg = make_configs(args)
     timer = StepTimer(warmup=3, batch_size=args.bsize)
     model, optimizer, _ = loop.fit(tcfg, mcfg, train_ds, device=args.device,
                                    cache=cache, val_cache=val_cache,
-                                   step_timer=timer)
+                                   step_timer=timer, mesh=mesh)
 
     print("Infer", flush=True)
     t0 = time.perf_counter()
     acc, result, _ = loop.evaluate(model, val_ds, args.bsize,
                                    result_path=None, cache=val_cache,
-                                   train_cfg=tcfg, device=args.device)
+                                   train_cfg=tcfg, device=args.device,
+                                   mesh=mesh)
     eval_s = time.perf_counter() - t0
     # question_id -> dataset row: MIMIC's ids are global csv rows
     # (offset by the train split, gappy where images were filtered)
@@ -169,13 +186,14 @@ def train_one_config(args, train_ds, val_ds, ckpt_prefix: str,
         rows.append(f"{row['image_id']},{row['question']},"
                     f"{r['answer']},{row.get('answer', '')}")
 
-    os.makedirs(args.save_dir, exist_ok=True)
     path = os.path.join(args.save_dir,
                         f"{ckpt_prefix}_{args.n_obj}_{args.n_kernels}_"
                         f"{args.neighbourhood_size}_{acc:.2f}.pt")
-    save_checkpoint(path, model, optimizer, step=adam_step(optimizer),
-                    epoch=args.ep, model_cfg=model.cfg, train_cfg=tcfg,
-                    extra={"accuracy": acc})
+    if multihost.is_primary():
+        os.makedirs(args.save_dir, exist_ok=True)
+        save_checkpoint(path, model, optimizer, step=adam_step(optimizer),
+                        epoch=args.ep, model_cfg=model.cfg, train_cfg=tcfg,
+                        extra={"accuracy": acc})
     step_times = timer.summary()
     print(f"cell timing: steps {json.dumps(step_times)}; evaluate "
           f"{len(result) / eval_s:.1f} questions/s", flush=True)
@@ -184,31 +202,52 @@ def train_one_config(args, train_ds, val_ds, ckpt_prefix: str,
 
 
 def grid_search_main(args, parser, unparsed, *, dataset_name: str,
-                     ckpt_prefix: str) -> Optional[List[Cell]]:
+                     ckpt_prefix: str, argv=None) -> Optional[List[Cell]]:
     """The grid over ``--neighbors_list`` x ``--kernels_list`` (cells
     with more neighbours or kernels than ``--n_obj`` skipped); returns
-    the cells, or None when ``--train`` is off (help printed)."""
+    the cells, or None when ``--train`` is off (help printed) or when
+    this process only started the ranks of ``--num_devices`` (``argv``,
+    default ``sys.argv[1:]``, is what they run)."""
     if len(unparsed) != 0:
         raise SystemExit("Unknown argument: {}".format(unparsed))
     if not args.train:
         parser.print_help()
         return None
+    n = multihost.ranks_to_spawn(args.num_devices, args.device)
+    if n:
+        multihost.spawn(f"vqa_project_tpu_torch.cli.run_{dataset_name}:main",
+                        sys.argv[1:] if argv is None else argv, n)
+        return None
+    started = multihost.maybe_initialize_distributed(args.device)
+    try:
+        return _grid(args, dataset_name, ckpt_prefix)
+    finally:
+        if started:
+            multihost.shutdown()
 
+
+def _grid(args, dataset_name: str, ckpt_prefix: str) -> List[Cell]:
     train_ds, val_ds = _load_datasets(args, dataset_name)
-    # every cell trains at the same n_obj and dtype: one cache per store
+    # one mesh and, as every cell trains at the same n_obj and dtype, one
+    # cache per store for the whole grid
     _, tcfg0 = make_configs(args)
+    mesh = make_mesh(args.num_devices, args.device)
     cache = loop.make_feature_cache(train_ds, tcfg0, args.compute_dtype,
-                                    args.device)
+                                    args.device, mesh)
     val_cache = (cache if loop._same_store(val_ds.store, train_ds.store)
                  else loop.make_feature_cache(val_ds, tcfg0,
                                               args.compute_dtype,
-                                              args.device))
+                                              args.device, mesh))
 
     cells: List[Cell] = []
     best_acc = 0.0
     grid_path = f"grid_search_nodes_{args.n_obj}.txt"
-    os.makedirs(args.plot_dir, exist_ok=True)
-    with open(grid_path, "w") as f:
+    # rank 0 writes the grid's files; the file handle is the rank guard
+    primary = multihost.is_primary()
+    if primary:
+        os.makedirs(args.plot_dir, exist_ok=True)
+    with (open(grid_path, "w") if primary
+          else contextlib.nullcontext()) as f:
         for neighbors in args.neighbors_list:
             for kernels in args.kernels_list:
                 if kernels > args.n_obj or neighbors > args.n_obj:
@@ -217,17 +256,19 @@ def grid_search_main(args, parser, unparsed, *, dataset_name: str,
                 args.neighbourhood_size = neighbors
                 print(args, flush=True)
                 cell = train_one_config(args, train_ds, val_ds, ckpt_prefix,
-                                        shared=(cache, val_cache))
+                                        shared=(mesh, cache, val_cache))
                 # the cell's model and optimizer are gone with its frame;
                 # collect them before the next cell allocates its own
                 gc.collect()
                 line = (f"neighbors: {neighbors}, kernels: {kernels}, "
                         f"Validation acc: {cell.acc:.3f} %\n")
                 print(line, end="", flush=True)
-                f.write(line)
-                f.flush()
-                if cell.acc > best_acc:
-                    best_acc = cell.acc
+                if f:
+                    f.write(line)
+                    f.flush()
+                better = cell.acc > best_acc
+                best_acc = max(best_acc, cell.acc)
+                if better and primary:
                     csv_path = os.path.join(
                         args.plot_dir,
                         f"{ckpt_prefix}_{args.n_obj}_{cell.acc:.2f}.csv")
@@ -262,13 +303,12 @@ def _load_datasets(args, dataset_name: str):
         ensure_synthetic(
             sdir, knobs, lambda: generators[dataset_name](sdir, **knobs))
         args.data_dir = sdir
+    # rank 0 packs the feature stores on first use, the others then read
     if dataset_name == "imageclef":
         # train and val read the one imageclef json (as the reference)
-        train_ds = GraphVQADataset.imageclef(args.data_dir, "train",
-                                             args.emb, args.n_obj)
+        train_ds = multihost.primary_first(lambda: GraphVQADataset.imageclef(
+            args.data_dir, "train", args.emb, args.n_obj))
         return train_ds, train_ds
-    train_ds = GraphVQADataset.mimic(args.data_dir, "train", args.emb,
-                                     args.n_obj)
-    val_ds = GraphVQADataset.mimic(args.data_dir, "val", args.emb,
-                                   args.n_obj)
-    return train_ds, val_ds
+    return multihost.primary_first(lambda: (
+        GraphVQADataset.mimic(args.data_dir, "train", args.emb, args.n_obj),
+        GraphVQADataset.mimic(args.data_dir, "val", args.emb, args.n_obj)))

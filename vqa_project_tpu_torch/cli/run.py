@@ -7,14 +7,22 @@ Counterpart of ``vqa_project_tpu/cli/run.py`` with its flag names and
 defaults, reading the same artifacts (``GraphVQADataset.vqa2``) or, with
 ``--synthetic``, generating them under ``<data_dir>/synthetic`` (again
 when a ``--synthetic_*`` knob changes). ``--adam_mu_dtype``,
-``--adam_nu_dtype`` and ``--fast_math`` resolve as in JAX
-(``resolve_dtype_knobs``). Left out: ``--num_devices``, ``--tp`` and
-``--grad_reduce_dtype`` (one card: no gradient all-reduce, so
-``--fast_math`` sets the two Adam knobs only), and the TPU-only
-``--pallas``, ``--no_pallas`` and ``--pallas_gather``: passing any of
-them, or any other unknown argument, raises SystemExit.
+``--adam_nu_dtype``, ``--grad_reduce_dtype`` and ``--fast_math``
+resolve as in JAX (``resolve_dtype_knobs``, ``resolve_grad_reduce``).
+Left out: ``--tp`` (tensor parallelism is not ported yet) and the
+TPU-only ``--pallas``, ``--no_pallas`` and ``--pallas_gather``: passing
+any of them, or any other unknown argument, raises SystemExit.
 Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels).
+
+Data parallelism: ``--bsize`` is the global batch, split over the
+ranks. ``--num_devices N`` (default: every visible card) starts N ranks,
+rank i on card i, joined by NCCL (gloo with ``--device cpu``); a count
+above the visible cards raises. Under ``torchrun --nproc_per_node N -m
+vqa_project_tpu_torch.cli.run ...`` each process is a rank already.
+Rank 0 alone generates the synthetic set (every rank waits at a
+barrier), packs the feature stores first and writes checkpoints,
+``metrics.jsonl`` and ``result.json``.
 
 - ``--train``: fit on the train split with a mini-validation on val
   every ``--eval_interval`` steps, ``{save_dir}/{name}_{epoch}.ckpt``
@@ -36,9 +44,11 @@ import argparse
 import json
 import os
 import shutil
+import sys
 
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import GraphVQADataset, write_synthetic_vqa
+from vqa_project_tpu_torch.parallel import multihost
 
 
 def input_args(argv=None):
@@ -81,9 +91,19 @@ def input_args(argv=None):
                         help="dropout probability")
     parser.add_argument("--model_path", type=str, default=None,
                         help="trained model path.")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="data-parallel ranks, one per card (default: "
+                             "every visible card; with --device cpu, 1)")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
     add_adam_dtype_args(parser)
+    parser.add_argument("--grad_reduce_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="dtype of the data-parallel gradient "
+                             "all-reduce (bfloat16 halves its bytes; "
+                             "float32 = exact up to the order of the sum; "
+                             "default float32, or bfloat16 under "
+                             "--fast_math)")
     parser.add_argument("--feature_cache_dtype", type=str, default="auto",
                         choices=["auto", "bfloat16", "float32", "int8"],
                         help="dtype of the feature table on the card: "
@@ -127,6 +147,14 @@ def resolve_dtype_knobs(args):
     return mu, nu
 
 
+def resolve_grad_reduce(args) -> str:
+    """grad_reduce_dtype: the explicit flag, else bfloat16 under
+    --fast_math, else float32 (the JAX CLI's third knob at tp = 1; fit
+    degrades bfloat16 to float32 for a sharded feature cache)."""
+    return args.grad_reduce_dtype or (
+        "bfloat16" if getattr(args, "fast_math", False) else "float32")
+
+
 def add_synthetic_args(parser) -> None:
     """The --synthetic flag group (``synthetic_dir`` reads every knob)."""
     parser.add_argument("--synthetic", action="store_true",
@@ -160,7 +188,9 @@ def make_configs(args):
         log_interval=args.log_interval, eval_interval=args.eval_interval,
         save_dir=args.save_dir, name=args.name, seed=args.seed,
         feature_cache_dtype=args.feature_cache_dtype,
-        adam_mu_dtype=mu_dtype, adam_nu_dtype=nu_dtype)
+        adam_mu_dtype=mu_dtype, adam_nu_dtype=nu_dtype,
+        num_devices=args.num_devices,
+        grad_reduce_dtype=resolve_grad_reduce(args))
     return mcfg, tcfg
 
 
@@ -185,28 +215,42 @@ def synthetic_dir(args) -> str:
 def ensure_synthetic(sdir: str, knobs: dict, generate) -> None:
     """Run ``generate()`` to (re)write the synthetic set in ``sdir``
     unless its ``fingerprint.json`` holds exactly ``knobs``: the knobs
-    are the dataset, so a changed one never trains on a stale set."""
+    are the dataset, so a changed one never trains on a stale set.
+
+    Over several ranks rank 0 alone reads the fingerprint and generates,
+    and every rank then reaches one barrier, whatever rank 0 decided (a
+    rank that read the fingerprint itself could take another branch);
+    the others then read rank 0's files, so ``sdir`` must be on a file
+    system that every rank shares."""
     fp_path = os.path.join(sdir, "fingerprint.json")
-    on_disk = None
-    if os.path.exists(fp_path):
-        with open(fp_path) as f:
-            on_disk = json.load(f)
-    if on_disk != knobs:
-        if os.path.exists(sdir):
-            # wholly generated: a smaller set must leave nothing behind
-            print(f"Synthetic knobs changed vs {fp_path}: regenerating the "
-                  "dataset", flush=True)
-            shutil.rmtree(sdir)
-        generate()
-        tmp = fp_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(knobs, f)
-        os.replace(tmp, fp_path)   # a crash leaves no half fingerprint
+    if multihost.is_primary():
+        on_disk = None
+        if os.path.exists(fp_path):
+            with open(fp_path) as f:
+                on_disk = json.load(f)
+        if on_disk != knobs:
+            if os.path.exists(sdir):
+                # wholly generated: a smaller set must leave nothing behind
+                print(f"Synthetic knobs changed vs {fp_path}: regenerating "
+                      "the dataset", flush=True)
+                shutil.rmtree(sdir)
+            generate()
+            tmp = fp_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(knobs, f)
+            os.replace(tmp, fp_path)   # a crash leaves no half fingerprint
+    multihost.barrier()
+    if not os.path.exists(fp_path):
+        raise FileNotFoundError(
+            f"rank {multihost.rank()}: no synthetic set at {sdir} after "
+            "rank 0 generated it; --data_dir must be shared by every rank")
 
 
 def _dataset(args, split):
     data_dir = synthetic_dir(args) if args.synthetic else args.data_dir
-    return GraphVQADataset.vqa2(data_dir, split, args.emb, args.n_obj)
+    # rank 0 packs the feature store on first use, the others then read it
+    return multihost.primary_first(lambda: GraphVQADataset.vqa2(
+        data_dir, split, args.emb, args.n_obj))
 
 
 def train(args):
@@ -237,14 +281,16 @@ def trainval(args):
     model, optimizer, acc = fit(
         tcfg, mcfg, ds, device=args.device, resume_path=args.model_path,
         jsonl_path=os.path.join(args.save_dir, "metrics.jsonl"))
-    os.makedirs(args.save_dir, exist_ok=True)
     name = (f"vqa_{args.n_obj}_{args.n_kernels}_"
             f"{args.neighbourhood_size}_{acc:.2f}.pt")
     path = os.path.join(args.save_dir, name)
-    save_checkpoint(path, model, optimizer, step=adam_step(optimizer),
-                    epoch=tcfg.epochs, model_cfg=model.cfg, train_cfg=tcfg,
-                    extra={"accuracy": acc, "config": vars(args)})
-    print(f"Saved {name}", flush=True)
+    if multihost.is_primary():
+        os.makedirs(args.save_dir, exist_ok=True)
+        save_checkpoint(path, model, optimizer, step=adam_step(optimizer),
+                        epoch=tcfg.epochs, model_cfg=model.cfg,
+                        train_cfg=tcfg,
+                        extra={"accuracy": acc, "config": vars(args)})
+        print(f"Saved {name}", flush=True)
     return model, path, acc
 
 
@@ -293,6 +339,20 @@ def main(argv=None) -> None:
     args, parser, unparsed = input_args(argv)
     if len(unparsed) != 0:
         raise SystemExit("Unknown argument: {}".format(unparsed))
+    n = multihost.ranks_to_spawn(args.num_devices, args.device)
+    if n:
+        multihost.spawn("vqa_project_tpu_torch.cli.run:main",
+                        sys.argv[1:] if argv is None else argv, n)
+        return
+    started = multihost.maybe_initialize_distributed(args.device)
+    try:
+        _run_modes(args, parser)
+    finally:
+        if started:
+            multihost.shutdown()
+
+
+def _run_modes(args, parser) -> None:
     ran = False
     if args.train:
         train(args)

@@ -20,7 +20,7 @@ def main(argv=None):
     args, parser, unparsed = medical_input_args(
         argv, n_obj_default=51, neigh_default=19)
     return grid_search_main(args, parser, unparsed, dataset_name="mimic",
-                            ckpt_prefix="mimic")
+                            ckpt_prefix="mimic", argv=argv)
 
 
 if __name__ == "__main__":

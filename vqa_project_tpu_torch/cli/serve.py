@@ -14,8 +14,11 @@ defaults. ``--model_path`` is any checkpoint ``train.load_checkpoint``
 reads: the port's own, a reference ``.pt`` or a JAX-package msgpack.
 Without it the server runs random weights (the smoke mode); a path that
 names no file raises. ``--quantize`` serves int8 projections
-(``ModelConfig.quantized_inference``). Left out: ``--num_devices`` (one
-card) and the TPU-only ``--pallas`` / ``--no_pallas``. Added:
+(``ModelConfig.quantized_inference``). ``--num_devices`` (JAX's default
+1; 0 means every visible card) serves each padded batch split over that
+many cards, one replica of the model on each
+(``InferenceServer(devices=)``); a count above the visible cards
+raises. Left out: the TPU-only ``--pallas`` / ``--no_pallas``. Added:
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions
 of the kernels).
 """
@@ -26,6 +29,8 @@ import argparse
 import dataclasses
 import os
 import sys
+
+import torch
 
 
 def input_args(argv=None):
@@ -39,6 +44,10 @@ def input_args(argv=None):
     p.add_argument("--bsize", type=int, default=16)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--top_k", type=int, default=5)
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="cards to serve one batch on (default 1: scale by "
+                        "replica; >1 splits each padded batch over that "
+                        "many cards, 0 = all)")
     # model hyper-params must match the checkpoint (same flags as run.py)
     p.add_argument("--emb", type=int, default=300)
     p.add_argument("--hid", type=int, default=1024)
@@ -93,9 +102,26 @@ def build_server(args):
         model.load_state_dict(quantize_state_dict_for_serving(float_sd))
         print("int8 projection weights (serving quantization) on",
               flush=True)
-    return InferenceServer(model, ds, device=args.device,
+    return InferenceServer(model, ds, devices=serving_devices(args),
                            batch_size=args.bsize,
                            max_wait_ms=args.max_wait_ms, top_k=args.top_k)
+
+
+def serving_devices(args) -> list:
+    """``--device`` once, or with ``--num_devices`` N != 1 cards 0..N-1
+    (0: every visible card); more cards than visible raise. On the CPU,
+    N replicas on the CPU."""
+    n = args.num_devices
+    if n == 1:
+        return [args.device]
+    if torch.device(args.device).type != "cuda":
+        return [args.device] * max(n, 1)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = cards if n == 0 else n
+    if n > cards or n < 1:
+        raise ValueError(f"requested {n} serving cards but only {cards} "
+                         "CUDA device(s) are visible")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def main(argv=None):

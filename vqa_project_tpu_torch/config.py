@@ -8,8 +8,9 @@ launch the kernels, CPU tensors take the plain versions).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,7 +48,7 @@ class ModelConfig:
 @dataclasses.dataclass
 class TrainConfig:
     """Training-harness settings; the fields and defaults of
-    ``vqa_project_tpu/config.py::TrainConfig`` that a single-card trainer
+    ``vqa_project_tpu/config.py::TrainConfig`` that the port's trainer
     uses (reference run.py defaults)."""
 
     lr: float = 1e-4               # --lr
@@ -77,6 +78,20 @@ class TrainConfig:
     # rounded back for storage, as the JAX package's nu_dtype does
     adam_mu_dtype: str = "float32"  # float32 | bfloat16
     adam_nu_dtype: str = "float32"  # float32 | bfloat16
+    # data parallelism (parallel/): one rank per card, each on its share
+    # of the global batch. num_devices None takes every rank of the
+    # process group (one without a group); a count other than the
+    # group's world raises. data_axis is JAX's name of the mesh axis the
+    # batch is split on, kept so that a checkpoint's train_config holds
+    # JAX's fields; a 1-D data mesh has no other axis to name
+    data_axis: str = "data"
+    num_devices: Optional[int] = None
+    # dtype of the data-parallel gradient all-reduce over one flat
+    # buffer: "float32" is exact up to the order of the sum; "bfloat16"
+    # rounds each rank's contribution to bf16, sums in bf16 and widens
+    # back, halving the bytes. Only at world > 1, and refused for the
+    # sharded feature cache (train.steps.supports_bf16_reduce)
+    grad_reduce_dtype: str = "float32"  # float32 | bfloat16
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -93,6 +108,17 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_guard(device: torch.device):
+    """A context in which ``device`` is the current CUDA device, a no-op
+    for the CPU. The hand kernels launch on the current device, on the
+    stream of their tensors' device: a process that drives several cards
+    (serving split over devices) must make each one current first, or a
+    kernel runs on the wrong card, out of order with its inputs."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -308,19 +308,26 @@ inline bool fits(const void* A, int lda, const void* B, int ldb) {
 // graph_block_bwd.cu) sets the shared-memory attribute of its own copy of
 // the kernel. A static local of an inline function would be one object
 // across every library of the process, and the second library's kernel
-// would launch unconfigured.
+// would launch unconfigured. The attribute belongs to the current
+// device, so it is set once per device (a process may serve on several).
+constexpr int kMaxDevices = 64;
+
 template <int BM, int BN, bool kAT, bool kBT>
 static cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb,
                           const Epilogue& ep, int M, int N, int K, int vec2,
                           int sms, cudaStream_t s) {
   using T = Tile<BM, BN>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<BM, BN, kAT, kBT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  static bool configured[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[device]) {
+    e = cudaFuncSetAttribute(gemm_kernel<BM, BN, kAT, kBT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured[device] = true;
   }
   // as few blocks as keep the busiest one to the same number of tiles
   const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);

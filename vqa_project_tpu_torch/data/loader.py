@@ -13,12 +13,13 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
+from vqa_project_tpu_torch.parallel.multihost import local_batch_rows
 
 # the fields a host-mode step reads on the device
 DENSE_KEYS = ("question", "image", "qlen", "answers", "votes", "mask")
@@ -37,17 +38,49 @@ class Batcher:
 
     Epoch e's order is a pure function of (seed, e), shuffled by
     ``default_rng([seed, e])``: a run resumed at epoch e sees the batches
-    the uninterrupted run would have seen.
+    the uninterrupted run would have seen, and every rank of a
+    data-parallel run builds the same global batch.
+
+    ``partitions`` (n_questions,) gives the rank that owns each
+    question's image in a sharded feature cache
+    (``parallel.ShardedFeatureCache``); every batch is then built so
+    that its i-th equal slice holds only rank i's questions: each epoch
+    shuffles every rank's pool and takes B / n_partitions from each, a
+    short pool padded with repeats of its head under mask 0, so
+    ``drop_last`` is ignored and ``len`` is the longest pool's. JAX's
+    ``_iter_partitioned``, in the same order.
+
+    ``shard=(rank, world)`` in host mode makes the dense fields (image,
+    answers, votes) for rank's rows of each global batch only
+    (``parallel.multihost.local_batch_rows``); the other fields and the
+    batch's order stay global.
     """
 
     def __init__(self, dataset: GraphVQADataset, batch_size: int,
                  shuffle: bool = False, seed: int = 1000,
-                 drop_last: bool = False, materialize: bool = True):
+                 drop_last: bool = False, materialize: bool = True,
+                 partitions: Optional[np.ndarray] = None,
+                 n_partitions: Optional[int] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.materialize = materialize
+        self.partitions = partitions
+        if partitions is not None:
+            # n_partitions is the world even where some ranks' images
+            # back no questions (their pools stay empty)
+            self.n_parts = n_partitions or int(partitions.max()) + 1
+            if batch_size % self.n_parts:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by "
+                    f"{self.n_parts} cache shards")
+            self._pools = [np.flatnonzero(partitions == c)
+                           for c in range(self.n_parts)]
+        self.dense_rows = slice(None)
+        if shard is not None and shard[1] > 1:
+            self.dense_rows = local_batch_rows(batch_size, *shard)
         self.seed = seed
         self._epoch = 0
         self._skip_next = 0
@@ -60,12 +93,18 @@ class Batcher:
 
     def __len__(self) -> int:
         n = self.ds.n_questions
+        if self.partitions is not None:
+            per = self.batch_size // self.n_parts
+            return max(-(-len(p) // per) for p in self._pools)
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         self._epoch += 1
         skip, self._skip_next = self._skip_next, 0  # one-shot
+        if self.partitions is not None:
+            yield from self._iter_partitioned(skip)
+            return
         n = self.ds.n_questions
         order = np.arange(n)
         if self.shuffle:
@@ -74,6 +113,32 @@ class Batcher:
         stop = (n // bs) * bs if self.drop_last else n
         for start in range(skip * bs, stop, bs):
             yield self._make_batch(order[start:start + bs])
+
+    def _iter_partitioned(self, skip: int
+                          ) -> Iterator[Dict[str, np.ndarray]]:
+        per = self.batch_size // self.n_parts
+        pools = [p.copy() for p in self._pools]
+        if self.shuffle:
+            rng = np.random.default_rng([self.seed, self._epoch])
+            for p in pools:
+                rng.shuffle(p)
+        for b in range(skip, len(self)):
+            rows, valid = [], []
+            for p in pools:
+                seg = p[b * per:(b + 1) * per]
+                nv = len(seg)
+                if nv < per:  # pad with repeats of the pool head, mask 0
+                    filler = (p[np.arange(per - nv) % max(len(p), 1)]
+                              if len(p) else np.zeros(per - nv, np.int64))
+                    seg = np.concatenate([seg, filler])
+                rows.append(seg)
+                valid.append(nv)
+            batch = self._make_batch(np.concatenate(rows))
+            mask = np.zeros((self.batch_size,), np.float32)
+            for c, nv in enumerate(valid):
+                mask[c * per:c * per + nv] = 1.0
+            batch["mask"] = mask
+            yield batch
 
     def _make_batch(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
         ds, bs = self.ds, self.batch_size
@@ -92,9 +157,10 @@ class Batcher:
             "index": rows.astype(np.int64),
         }
         if self.materialize:
-            answers, votes = t.dense_answers(rows)
+            mine = rows[self.dense_rows]
+            answers, votes = t.dense_answers(mine)
             batch.update(answers=answers, votes=votes,
-                         image=ds.store.batch(t.image_row[rows]))
+                         image=ds.store.batch(t.image_row[mine]))
         else:
             batch.update(
                 image_row=t.image_row[rows],
@@ -138,9 +204,12 @@ def _host_tensors(batch: Dict[str, np.ndarray],
     return {k: v.pin_memory() for k, v in out.items()} if pin else out
 
 
-def prefetch_to_device(iterator, device, depth: int = 2):
+def prefetch_to_device(iterator, device, depth: int = 2,
+                       part: Optional[Callable] = None):
     """Yield ``(host_batch, device_batch)`` for each batch of
-    ``iterator``, up to ``depth`` batches ahead.
+    ``iterator``, up to ``depth`` batches ahead; with ``part``, the
+    device batch holds ``part(host_batch)`` (a data-parallel rank's rows,
+    ``train.loop``) and the host batch stays the global one.
 
     A worker thread assembles the host batches and packs their
     device-bound fields (``pack_index_batch`` for index batches, the
@@ -170,7 +239,8 @@ def prefetch_to_device(iterator, device, depth: int = 2):
     def worker():
         try:
             for batch in iterator:
-                if not put((batch, _host_tensors(batch, cuda))):
+                sent = batch if part is None else part(batch)
+                if not put((batch, _host_tensors(sent, cuda))):
                     return
         except BaseException as e:  # raised again in the consumer
             errors.append(e)

@@ -33,8 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vqa_project_tpu_torch.config import (ModelConfig, resolve_device,
-                                          torch_dtype)
+from vqa_project_tpu_torch.config import (ModelConfig, device_guard,
+                                          resolve_device, torch_dtype)
 from vqa_project_tpu_torch.ops import quant
 from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
                                        fused_sel_aggregate_act,
@@ -337,15 +337,18 @@ class GraphVQAModel(nn.Module):
         ``generator`` (a generator on the model's device), in the JAX
         model's places: on the feat||bbox vector, fused into conv1's
         epilogue with per-image int32 seeds, and after the classifier's
-        first layer (torch's default generator when none is given)."""
-        if not train:
-            with torch.no_grad():
-                return self._forward(question, image, qlen, 0.0, None)
-        if self.cfg.quantized_inference:
-            raise ValueError("quantized_inference serves only: there is no "
-                             "int8 backward")
-        return self._forward(question, image, qlen, self.cfg.dropout,
-                             generator)
+        first layer (torch's default generator when none is given). The
+        kernels launch with the inputs' card current (``device_guard``);
+        the backward's run on autograd's thread for that card."""
+        with device_guard(question.device):
+            if not train:
+                with torch.no_grad():
+                    return self._forward(question, image, qlen, 0.0, None)
+            if self.cfg.quantized_inference:
+                raise ValueError("quantized_inference serves only: there is "
+                                 "no int8 backward")
+            return self._forward(question, image, qlen, self.cfg.dropout,
+                                 generator)
 
     def _forward(self, question, image, qlen, rate, generator):
         cfg, cdt = self.cfg, self.compute_dtype

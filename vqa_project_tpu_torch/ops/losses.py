@@ -28,20 +28,26 @@ def soft_margin_per_sample(logits: torch.Tensor,
 
 def multilabel_soft_margin_loss(
         logits: torch.Tensor, targets: torch.Tensor,
-        sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        sample_mask: Optional[torch.Tensor] = None,
+        count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scalar float32 loss: the mean of ``soft_margin_per_sample`` over
     the rows whose ``sample_mask`` is > 0 (all rows without a mask).
 
     The mask is applied by ``where``, not by multiplication: a padded row
     may hold logits that are inf or NaN, and 0 * inf would poison the
     mean (and its gradient).
+
+    ``count`` (0-d float32) replaces the mask's sum as the denominator: a
+    data-parallel rank passes the GLOBAL batch's valid count, so that the
+    ranks' losses, and their gradients, sum to the global masked mean's.
     """
     per_sample = soft_margin_per_sample(logits, targets)
     if sample_mask is None:
         return per_sample.mean()
     m = sample_mask.float()
     per_sample = torch.where(m > 0, per_sample, torch.zeros_like(per_sample))
-    return per_sample.sum() / torch.clamp(m.sum(), min=1.0)
+    return per_sample.sum() / torch.clamp(m.sum() if count is None else count,
+                                          min=1.0)
 
 
 def vqa_score(logits: torch.Tensor, n_votes: torch.Tensor,

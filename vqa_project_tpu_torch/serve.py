@@ -1,6 +1,6 @@
 """Online inference serving: dynamic batching over one fixed-shape forward.
 
-Counterpart of ``vqa_project_tpu/serve.py`` (single device):
+Counterpart of ``vqa_project_tpu/serve.py``:
 
 - requests are padded into one fixed (batch_size, T) / (batch_size, K,
   feat) batch, so every batch runs the same shapes;
@@ -9,7 +9,11 @@ Counterpart of ``vqa_project_tpu/serve.py`` (single device):
 - image features are looked up on the host from the dataset's
   FeatureStore, or supplied with the request;
 - the forward, the softmax and the top-k run on ``device`` (CUDA by
-  default, where the graph kernels launch).
+  default, where the graph kernels launch), or split over ``devices``:
+  one replica of the model per card, each padded batch cut into equal
+  parts, every part's launches issued before any result is read, and
+  the parts' top-k joined (the counterpart of JAX's ``mesh=``, which
+  shards the batch over a data mesh with the parameters replicated).
 
 Thread-safety: torch work happens on the worker thread only (and in
 the constructor's warmup, before the worker starts); submitters block on
@@ -18,6 +22,7 @@ a per-request Future.
 
 from __future__ import annotations
 
+import copy
 import json
 import queue
 import sys
@@ -55,11 +60,23 @@ class InferenceServer:
     """
 
     def __init__(self, model, ds, *, device="cuda", batch_size: int = 16,
-                 max_wait_ms: float = 5.0, top_k: int = 5):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
-        self.ds = ds
+                 max_wait_ms: float = 5.0, top_k: int = 5,
+                 devices: Optional[List] = None):
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.batch_size = int(batch_size)
+        if self.batch_size % len(self.devices):
+            raise ValueError(f"batch_size {self.batch_size} not divisible "
+                             f"by {len(self.devices)} serving devices")
+        self.model = model.to(self.device).eval()
+        # one replica per distinct device; a device listed twice serves
+        # two parts of each batch from one replica
+        replicas = {self.device: self.model}
+        for d in self.devices[1:]:
+            if d not in replicas:
+                replicas[d] = copy.deepcopy(self.model).to(d).eval()
+        self._replicas = [replicas[d] for d in self.devices]
+        self.ds = ds
         self.max_wait_ms = float(max_wait_ms)
         self.top_k = int(min(top_k, ds.n_answers - 1))
         self._shapes = (ds.max_qlen, ds.n_obj, ds.feat_dim)
@@ -75,8 +92,9 @@ class InferenceServer:
         self._forward(np.zeros((self.batch_size, t), np.int32),
                       np.zeros((self.batch_size, k, fdim), np.float32),
                       np.ones((self.batch_size,), np.int32))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in set(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         self.warmup_s = time.monotonic() - t0
         if self.warmup_s > 5:
             print(f"forward warm after {self.warmup_s:.0f}s (kernel build)",
@@ -86,18 +104,28 @@ class InferenceServer:
 
     def _forward(self, q: np.ndarray, image: np.ndarray,
                  qlen: np.ndarray):
-        """Top-k (probs, answer ids) of one padded batch, as numpy."""
-        dev = self.device
+        """Top-k (probs, answer ids) of one padded batch, as numpy: each
+        device's part launched in turn, then the parts read back."""
+        per = len(q) // len(self.devices)
+        parts = []
         with torch.inference_mode():
-            logits, _, _ = self.model(
-                torch.from_numpy(q).to(dev),
-                torch.from_numpy(image).to(dev),
-                torch.from_numpy(qlen).to(dev))
-            # column n_answers-1 is the padding answer slot, never servable
-            logits[:, -1] = float("-inf")
-            probs = torch.softmax(logits.float(), dim=-1)
-            vals, idxs = torch.topk(probs, self.top_k, dim=-1)
-            return vals.cpu().numpy(), idxs.cpu().numpy()
+            for i, (dev, model) in enumerate(zip(self.devices,
+                                                 self._replicas)):
+                rows = slice(i * per, (i + 1) * per)
+                logits, _, _ = model(
+                    torch.from_numpy(q[rows]).to(dev),
+                    torch.from_numpy(image[rows]).to(dev),
+                    torch.from_numpy(qlen[rows]).to(dev))
+                # column n_answers-1 is the padding answer slot, never
+                # servable
+                logits[:, -1] = float("-inf")
+                probs = torch.softmax(logits.float(), dim=-1)
+                parts.append(torch.topk(probs, self.top_k, dim=-1))
+            vals = [v.cpu().numpy() for v, _ in parts]
+            idxs = [i.cpu().numpy() for _, i in parts]
+        if len(parts) == 1:
+            return vals[0], idxs[0]
+        return np.concatenate(vals), np.concatenate(idxs)
 
     # ---------------- public API ----------------
 

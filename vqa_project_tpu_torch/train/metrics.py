@@ -1,9 +1,12 @@
 """Windowed training metrics to stdout and JSONL.
 
-Copy of ``vqa_project_tpu/train/metrics.py::MetricLogger`` for one
-process: every ``log_interval`` steps (40 by default, the reference's
-loss averaging) one reference-style line and one JSON record with the
-window's mean loss, VQA accuracy, steps/s and QA pairs/s.
+Copy of ``vqa_project_tpu/train/metrics.py::MetricLogger``: every
+``log_interval`` steps (40 by default, the reference's loss averaging)
+one reference-style line and one JSON record with the window's mean
+loss, VQA accuracy, steps/s and QA pairs/s per chip (``n_chips`` ranks
+share the global batch). Only rank 0 writes the JSONL file; every rank
+logs the same global numbers, whose per-rank shares ``window_sums``
+adds up with one all_reduce per window.
 """
 
 from __future__ import annotations
@@ -11,16 +14,33 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Optional
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vqa_project_tpu_torch.parallel import multihost
+
+
+def window_sums(window: List[Dict[str, torch.Tensor]]) -> np.ndarray:
+    """(loss, score, valid) summed over a window of ``train_step``
+    results and over the ranks, in float64 on the host: one stack, one
+    all_reduce (across ranks) and one fetch for the whole window."""
+    vals = torch.stack([torch.stack([m["loss"], m["score"], m["valid"]])
+                        for m in window])
+    multihost.all_reduce_sum(vals)
+    return vals.double().sum(dim=0).cpu().numpy()
 
 
 class MetricLogger:
     def __init__(self, log_interval: int = 40,
-                 jsonl_path: Optional[str] = None, batch_size: int = 0):
+                 jsonl_path: Optional[str] = None, n_chips: int = 1,
+                 batch_size: int = 0):
         self.log_interval = max(1, log_interval)
+        self.n_chips = max(1, n_chips)
         self.batch_size = batch_size
         self._f = None
-        if jsonl_path:
+        if jsonl_path and multihost.is_primary():
             os.makedirs(os.path.dirname(os.path.abspath(jsonl_path)),
                         exist_ok=True)
             self._f = open(jsonl_path, "a")
@@ -56,7 +76,7 @@ class MetricLogger:
             "loss": self._loss / self._count,
             "vqa_acc": 100.0 * self._score / max(1.0, self._examples),
             "steps_per_sec": steps_per_sec,
-            "qa_pairs_per_sec_per_chip": qa_per_sec,   # one device
+            "qa_pairs_per_sec_per_chip": qa_per_sec / self.n_chips,
         }
         if lr is not None:
             rec["lr"] = lr

@@ -150,7 +150,7 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig,
 
 def _payload(model: torch.nn.Module, optimizer, scheduler, *, step: int,
              epoch: int, generator, model_cfg, train_cfg, extra,
-             host: bool = True) -> dict:
+             host: bool = True, rank_generators=None) -> dict:
     """The checkpoint's dict; the weights copied to the CPU with
     ``host``, else left where they are."""
     sched = None
@@ -171,6 +171,9 @@ def _payload(model: torch.nn.Module, optimizer, scheduler, *, step: int,
         "train_config": (dataclasses.asdict(train_cfg)
                          if train_cfg is not None else None),
         "extra": dict(extra or {}),
+        # a data-parallel run's every rank's dropout generator state, in
+        # rank order ("generator" is rank 0's)
+        "rank_generators": rank_generators,
     }
 
 
@@ -195,15 +198,17 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
                     scheduler=None, *, step: int = 0, epoch: int = 0,
                     generator: Optional[torch.Generator] = None,
                     model_cfg=None, train_cfg=None,
-                    extra: Optional[dict] = None) -> None:
+                    extra: Optional[dict] = None,
+                    rank_generators: Optional[list] = None) -> None:
     """One full dict: ``state_dict`` (CPU, reference names), optimizer
     and scheduler state, step, epoch (the next one to run), the dropout
-    generator's state, both configs and ``extra``. Written to a unique
-    temporary file beside ``path``, then renamed onto it."""
+    generator's state, both configs and ``extra``; a data-parallel run
+    adds every rank's generator state (``rank_generators``). Written to
+    a unique temporary file beside ``path``, then renamed onto it."""
     _write(path, _payload(model, optimizer, scheduler, step=step,
                           epoch=epoch, generator=generator,
                           model_cfg=model_cfg, train_cfg=train_cfg,
-                          extra=extra))
+                          extra=extra, rank_generators=rank_generators))
 
 
 def _host_copy(obj):

@@ -13,6 +13,14 @@ Counterpart of ``vqa_project_tpu/train/steps.py``. Ingest modes:
 One training step is forward, masked loss, backward, Adam and the score;
 ``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
 loop.
+
+Across data-parallel ranks (``parallel.Mesh``) each rank steps on its
+rows of the global batch: its loss is its masked sum over the GLOBAL
+valid count, and the gradients are summed over the ranks before Adam
+(``parallel.all_reduce_grads``, one flat buffer, f32 or bf16), so every
+rank applies the global masked mean's gradient: JAX's rule
+(``train/steps.py::_build_bf16_reduce_step``), which DDP's average of
+per-rank means is not wherever the ranks' valid counts differ.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vqa_project_tpu_torch.config import torch_dtype
+from vqa_project_tpu_torch.config import device_guard, torch_dtype
 from vqa_project_tpu_torch.data.loader import DENSE_KEYS, pack_index_batch
 from vqa_project_tpu_torch.ops.gather_rows import NodeImage, gather_image_rows
 from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
                                               vqa_score)
+from vqa_project_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
+from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
 
 
 class QuantizedFeatureCache(NamedTuple):
@@ -80,6 +90,8 @@ def make_image_fn(feature_cache, compute_dtype: str,
     """
     if feature_cache is None:
         return None
+    if isinstance(feature_cache, ShardedFeatureCache):
+        return feature_cache.gather_fn(compute_dtype, merged_block)
     node_dtype = torch_dtype(compute_dtype)
     if isinstance(feature_cache, QuantizedFeatureCache):
         features, scales, boxes, out = feature_cache
@@ -90,10 +102,21 @@ def make_image_fn(feature_cache, compute_dtype: str,
         (features, boxes), scales = feature_cache, None
 
     def image_fn(rows) -> NodeImage:
-        return gather_image_rows(features, boxes, rows, scales, node_dtype,
-                                 padded=merged_block)
+        with device_guard(rows.device):
+            return gather_image_rows(features, boxes, rows, scales,
+                                     node_dtype, padded=merged_block)
 
     return image_fn
+
+
+def supports_bf16_reduce(feature_cache) -> Tuple[bool, Optional[str]]:
+    """(ok, why): the bf16 gradient all-reduce takes a replicated device
+    cache or host mode; ``why`` names the cache it refuses. One rule for
+    ``train_step``'s refusal and ``fit``'s degrade to float32 (JAX's
+    ``supports_bf16_reduce`` less its model-parallel mesh)."""
+    if isinstance(feature_cache, ShardedFeatureCache):
+        return False, f"a {type(feature_cache).__name__} feature cache"
+    return True, None
 
 
 def unpack_index_batch(batch: Dict[str, torch.Tensor]
@@ -157,7 +180,9 @@ def _assemble_inputs(batch: Dict[str, torch.Tensor],
 
 def train_step(model, optimizer, scheduler, batch: Dict[str, object],
                generator: Optional[torch.Generator] = None,
-               image_fn: Optional[Callable] = None
+               image_fn: Optional[Callable] = None,
+               mesh: Optional[Mesh] = None, n_valid: Optional[float] = None,
+               grad_reduce_dtype: str = "float32"
                ) -> Dict[str, torch.Tensor]:
     """One step: train-mode forward (dropout from ``generator``), the
     masked soft-margin loss, backward, the optimizer and the scheduler.
@@ -167,15 +192,40 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     tensors on the model's device (reading them waits for the step):
     loss, score (the summed VQA score of the train-mode logits, padded
     rows 0) and valid (the count of unpadded rows).
+
+    Inside a process group (``mesh.distributed``) ``batch`` is this
+    rank's rows and ``n_valid`` the global batch's valid count: the loss
+    is this rank's share of the global masked mean, and the gradients are
+    summed over the ranks in ``grad_reduce_dtype`` before the optimizer
+    (bf16 only at world > 1, refused for a sharded cache by the caller);
+    the returned loss, score and valid are this rank's shares.
     """
+    dp = mesh is not None and mesh.distributed
+    if dp and n_valid is None:
+        raise ValueError("a data-parallel step needs the global batch's "
+                         "valid count (n_valid)")
+    if dp and mesh.world > 1 and grad_reduce_dtype == "bfloat16":
+        ok, why = supports_bf16_reduce(getattr(image_fn, "feature_cache",
+                                               None))
+        if not ok:
+            raise ValueError(
+                f"grad_reduce_dtype=bfloat16 does not support {why}: it "
+                "needs a replicated device feature cache or host-mode "
+                "batches")
     dev = next(model.parameters()).device
     question, image, qlen, mask, answers_fn, score_fn = _assemble_inputs(
         to_device(batch, dev), image_fn, model.cfg.out_dim)
     logits, _, _ = model(question, image, qlen, train=True,
                          generator=generator)
-    loss = multilabel_soft_margin_loss(logits, answers_fn(), mask)
+    # a fill, not a copy: the global count reaches the card as a launch
+    # argument
+    count = (torch.full((), float(n_valid), dtype=torch.float32, device=dev)
+             if dp else None)
+    loss = multilabel_soft_margin_loss(logits, answers_fn(), mask, count)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if dp:
+        all_reduce_grads(model, mesh, grad_reduce_dtype)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
