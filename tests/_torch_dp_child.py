@@ -8,23 +8,30 @@ with RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment
 VQA v2 files) and a list of legs, each run by every rank in order:
 
 - ``fit``: ``train.fit`` with the leg's ModelConfig / TrainConfig
-  fields, optionally resumed; rank 0's parameters are saved as
-  ``<out>/<name>.pt``;
+  fields (``tp`` among them), optionally resumed, or with ``alone`` in
+  one process's path on every rank (no collective); rank 0's parameters
+  are saved as ``<out>/<name>.pt``;
 - ``evaluate``: ``train.evaluate`` of the parameters a fit leg saved,
-  writing ``<out>/<name>_rank<r>.json`` (rank 0 only, if right);
+  writing ``<out>/<name>_rank<r>.json`` (rank 0 only, if right), over a
+  (data, model) mesh with ``tp``;
 - ``step``: one ``train.train_step`` on the first batch of a 2-way
-  partition of the questions, whose halves hold unequal valid counts.
+  partition of the questions, whose halves hold unequal valid counts;
+- ``refusals``: the meshes ``make_mesh_2d`` refuses in this group.
 
 Each rank writes ``<out>/rank<r>.json``: per leg, a SHA-256 of its
-parameters, the logged windows and accuracies, and the files under the
-leg's save_dir.
+parameters, the logged windows and accuracies, the mini-validations'
+printed accuracies, the files under the leg's save_dir, and rank 0's
+``metrics.jsonl`` as this rank reads it after ``fit``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -102,29 +109,41 @@ def run_fit(spec, leg, rank):
     import torch
 
     from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
+    from vqa_project_tpu_torch.parallel import Mesh, multihost
     from vqa_project_tpu_torch.train import fit
 
     train_ds = _dataset(spec, leg.get("split", "train"))
     val_ds = _dataset(spec, "val") if leg.get("with_val") else None
     # a folder per rank: rank 0's alone may fill
-    save_dir = os.path.join(spec["out"], leg["name"], f"rank{rank}")
+    folder = os.path.join(spec["out"], leg["name"])
+    save_dir = os.path.join(folder, f"rank{rank}")
     tcfg = TrainConfig(save_dir=save_dir, **leg["train"])
     jsonl = os.path.join(save_dir, "metrics.jsonl")
-    model, _, acc = fit(tcfg, ModelConfig(**leg["model"]), train_ds, val_ds,
-                        device="cpu", resume_path=leg.get("resume"),
-                        save_every_epoch=leg.get("save_every_epoch", False),
-                        jsonl_path=jsonl)
+    mesh = Mesh(0, 1, torch.device("cpu")) if leg.get("alone") else None
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        model, _, acc = fit(
+            tcfg, ModelConfig(**leg["model"]), train_ds, val_ds,
+            device="cpu", resume_path=leg.get("resume"),
+            save_every_epoch=leg.get("save_every_epoch", False),
+            jsonl_path=jsonl, mesh=mesh)
+    # fit returns on every rank without waiting for rank 0's last write
+    multihost.barrier()
     if rank == 0:
-        torch.save(model.state_dict(),
-                   os.path.join(spec["out"], leg["name"] + ".pt"))
+        torch.save(model.state_dict(), folder + ".pt")
     return {"sha": params_sha(model), "acc": acc,
-            "records": _records(jsonl), "files": _files(save_dir)}
+            "records": _records(jsonl), "files": _files(save_dir),
+            "rank0_records": _records(os.path.join(folder, "rank0",
+                                                   "metrics.jsonl")),
+            "val_accs": re.findall(r"Validation accuracy: (\S+) %",
+                                   printed.getvalue())}
 
 
 def run_evaluate(spec, leg, rank):
     import torch
 
     from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
+    from vqa_project_tpu_torch.parallel import make_mesh_2d
     from vqa_project_tpu_torch.train import build_model, evaluate
 
     ds = _dataset(spec, leg.get("split", "val"))
@@ -133,9 +152,11 @@ def run_evaluate(spec, leg, rank):
         os.path.join(spec["out"], leg["weights"] + ".pt"), weights_only=True))
     path = os.path.join(spec["out"], f"{leg['name']}_rank{rank}.json")
     tcfg = TrainConfig(batch_size=leg["batch_size"], **leg.get("train", {}))
+    mesh = make_mesh_2d(leg["tp"], None, "cpu") if "tp" in leg else None
     acc, result, adj = evaluate(
         model, ds, leg["batch_size"], result_path=path, train_cfg=tcfg,
-        device="cpu", collect_adjacency=leg.get("adjacency", False))
+        device="cpu", collect_adjacency=leg.get("adjacency", False),
+        mesh=mesh)
     out = {"acc": acc, "result": result}
     if adj is not None:
         out["adjacency"] = {str(k): v.tolist() for k, v in adj.items()}
@@ -183,6 +204,19 @@ def run_step(spec, leg, rank):
             "loss": float(m["loss"]), "valid": float(m["valid"])}
 
 
+def run_refusals(spec, leg, rank):
+    """The messages of the meshes ``make_mesh_2d`` refuses here."""
+    from vqa_project_tpu_torch.parallel import make_mesh_2d
+
+    out = {}
+    for tp, n in leg["cases"]:
+        try:
+            make_mesh_2d(tp, n, "cpu")
+        except ValueError as e:
+            out[f"{tp},{n}"] = str(e)
+    return out
+
+
 def main(path):
     import torch
 
@@ -193,7 +227,8 @@ def main(path):
         spec = json.load(f)
     assert multihost.maybe_initialize_distributed("cpu")
     rank = multihost.rank()
-    runs = {"fit": run_fit, "evaluate": run_evaluate, "step": run_step}
+    runs = {"fit": run_fit, "evaluate": run_evaluate, "step": run_step,
+            "refusals": run_refusals}
     report = {"rank": rank, "world": multihost.world()}
     try:
         for leg in spec["legs"]:

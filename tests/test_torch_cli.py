@@ -27,9 +27,8 @@ from vqa_project_tpu_torch.train import build_model
 
 SMALL = ["--synthetic", "--hid", "64", "--n_kernels", "4",
          "--neighbourhood_size", "5", "--bsize", "32", "--device", "cpu"]
-# the JAX CLI's flags the port leaves out: tensor parallelism (not
-# ported yet) and the TPU-only kernel switches
-LEFT_OUT = {"tp", "pallas", "no_pallas", "pallas_gather"}
+# the JAX CLI's flags the port leaves out: the TPU-only kernel switches
+LEFT_OUT = {"pallas", "no_pallas", "pallas_gather"}
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +104,7 @@ def test_eval_and_test_write_result_json(trained, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--tp", "2"], ["--pallas"], ["--no_pallas"],
+    ["--pallas"], ["--no_pallas"],
     ["--pallas_gather", "on"], ["--device_cache_bytes", "1"],
     ["--bogus"]], ids=lambda a: a[0])
 def test_left_out_and_unknown_flags_exit(extra):

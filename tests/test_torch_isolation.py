@@ -48,7 +48,7 @@ def test_scan_covers_the_port():
                    "data/preprocess/image_features.py",
                    "data/yolo/loaders.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/multihost.py",
-                   "parallel/sharded_cache.py"):
+                   "parallel/sharded_cache.py", "parallel/tp.py"):
         assert f"vqa_project_tpu_torch/{module}" in names
 
 

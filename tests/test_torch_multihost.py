@@ -256,6 +256,8 @@ def test_only_rank0_writes(setup):
         assert "metrics.jsonl" in r0[leg]["files"], leg
         assert r1[leg]["files"] == [], leg
         assert r1[leg]["records"] is None
+        # rank 0's file as rank 1 reads it, after a barrier past fit
+        assert r1[leg]["rank0_records"] == r0[leg]["records"], leg
     assert {"model_1.ckpt", "model_2.ckpt"} <= set(r0["dropout"]["files"])
     assert os.path.exists(os.path.join(setup["out"], "evaluate_rank0.json"))
     assert not os.path.exists(os.path.join(setup["out"],

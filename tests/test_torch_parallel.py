@@ -157,9 +157,39 @@ def test_num_devices_beyond_the_visible_cards_raises(monkeypatch):
         serve_cli.serving_devices(args)
 
 
-def test_tp_is_still_refused():
-    with pytest.raises(SystemExit, match="Unknown argument"):
-        run.main(["--train", "--tp", "2", "--device", "cpu"])
+@pytest.mark.parametrize("argv,tp", [
+    ([], 1), (["--tp", "2"], 2), (["--tp", "4", "--num_devices", "8"], 4)],
+    ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_tp_flag_parses_as_the_jax_cli(argv, tp):
+    """--tp: JAX's name and default (1), into TrainConfig.tp."""
+    args, _, unparsed = run.input_args(argv)
+    assert not unparsed and args.tp == j_input_args(argv)[0].tp == tp
+    assert run.make_configs(args)[1].tp == tp
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fast_math", "--tp", "2"], ["--fast_math", "--tp", "1"],
+    ["--fast_math", "--tp", "2", "--grad_reduce_dtype", "bfloat16"],
+    ["--tp", "2"]], ids=lambda a: " ".join(a))
+def test_fast_math_reduces_in_bf16_only_at_tp_1(argv):
+    """--fast_math's bf16 gradient reduce needs the 1-D data mesh: at
+    --tp 2 it resolves to float32 (an explicit flag still wins), as in
+    JAX's CLI (cli/run.py:172); the Adam moments stay bf16."""
+    args, _, _ = run.input_args(argv)
+    j_args = j_input_args(argv)[0]
+    assert run.resolve_grad_reduce(args) == j_resolve(j_args)[2]
+    assert run.resolve_dtype_knobs(args) == j_resolve(j_args)[:2]
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--tp", "2", "--num_devices", "3"], "3 not divisible by --tp 2"),
+    (["--tp", "4", "--num_devices", "2"], "2 not divisible by --tp 4"),
+    (["--tp", "0"], "--tp must be >= 1")])
+def test_num_devices_must_divide_by_tp(monkeypatch, argv, message):
+    """Refused before any rank starts."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=message):
+        run.main(["--train", "--synthetic", "--device", "cpu", *argv])
 
 
 @pytest.mark.parametrize("argv", [

@@ -9,9 +9,9 @@ defaults, reading the same artifacts (``GraphVQADataset.vqa2``) or, with
 when a ``--synthetic_*`` knob changes). ``--adam_mu_dtype``,
 ``--adam_nu_dtype``, ``--grad_reduce_dtype`` and ``--fast_math``
 resolve as in JAX (``resolve_dtype_knobs``, ``resolve_grad_reduce``).
-Left out: ``--tp`` (tensor parallelism is not ported yet) and the
-TPU-only ``--pallas``, ``--no_pallas`` and ``--pallas_gather``: passing
-any of them, or any other unknown argument, raises SystemExit.
+Left out: the TPU-only ``--pallas``, ``--no_pallas`` and
+``--pallas_gather``: passing any of them, or any other unknown argument,
+raises SystemExit.
 Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels).
 
@@ -22,7 +22,12 @@ above the visible cards raises. Under ``torchrun --nproc_per_node N -m
 vqa_project_tpu_torch.cli.run ...`` each process is a rank already.
 Rank 0 alone generates the synthetic set (every rank waits at a
 barrier), packs the feature stores first and writes checkpoints,
-``metrics.jsonl`` and ``result.json``.
+``metrics.jsonl`` and ``result.json``. ``--tp T`` (default 1) makes
+``--train`` / ``--trainval`` put the ranks on a (data, model) grid of
+``num_devices / T`` x T (``parallel/tp.py``): the batch splits over the
+data axis and Adam's step of the rule-sharded parameters over the
+model axis; ``--num_devices`` must be divisible by it. ``--eval`` /
+``--test`` keep the 1-D data mesh, as in JAX.
 
 - ``--train``: fit on the train split with a mini-validation on val
   every ``--eval_interval`` steps, ``{save_dir}/{name}_{epoch}.ckpt``
@@ -94,6 +99,10 @@ def input_args(argv=None):
     parser.add_argument("--num_devices", type=int, default=None,
                         help="data-parallel ranks, one per card (default: "
                              "every visible card; with --device cpu, 1)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="model-parallel factor (2-D (data, model) "
+                             "mesh; parameters + Adam moments sharded "
+                             "per parallel/tp.py)")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
     add_adam_dtype_args(parser)
@@ -149,10 +158,22 @@ def resolve_dtype_knobs(args):
 
 def resolve_grad_reduce(args) -> str:
     """grad_reduce_dtype: the explicit flag, else bfloat16 under
-    --fast_math, else float32 (the JAX CLI's third knob at tp = 1; fit
-    degrades bfloat16 to float32 for a sharded feature cache)."""
-    return args.grad_reduce_dtype or (
-        "bfloat16" if getattr(args, "fast_math", False) else "float32")
+    --fast_math at tp = 1, else float32 (the JAX CLI's third knob; fit
+    degrades bfloat16 to float32 for a sharded feature cache or a model
+    axis)."""
+    fast = getattr(args, "fast_math", False) and getattr(args, "tp", 1) == 1
+    return args.grad_reduce_dtype or ("bfloat16" if fast else "float32")
+
+
+def check_tp(args) -> None:
+    """Refuse a --tp below 1, or one that does not divide --num_devices
+    (fit's mesh checks the process group's world when --num_devices is
+    left to default)."""
+    if args.tp < 1:
+        raise ValueError(f"--tp must be >= 1, got {args.tp}")
+    if args.num_devices is not None and args.num_devices % args.tp:
+        raise ValueError(f"--num_devices {args.num_devices} not divisible "
+                         f"by --tp {args.tp}")
 
 
 def add_synthetic_args(parser) -> None:
@@ -189,7 +210,7 @@ def make_configs(args):
         save_dir=args.save_dir, name=args.name, seed=args.seed,
         feature_cache_dtype=args.feature_cache_dtype,
         adam_mu_dtype=mu_dtype, adam_nu_dtype=nu_dtype,
-        num_devices=args.num_devices,
+        num_devices=args.num_devices, tp=args.tp,
         grad_reduce_dtype=resolve_grad_reduce(args))
     return mcfg, tcfg
 
@@ -271,6 +292,7 @@ def train(args):
 def trainval(args):
     """Train on train + val and save the named checkpoint; returns
     (model, its path, epoch accuracy)."""
+    from vqa_project_tpu_torch.parallel.tp import full_optimizer_state
     from vqa_project_tpu_torch.train.loop import fit
     from vqa_project_tpu_torch.train.state import adam_step, save_checkpoint
 
@@ -284,11 +306,13 @@ def trainval(args):
     name = (f"vqa_{args.n_obj}_{args.n_kernels}_"
             f"{args.neighbourhood_size}_{acc:.2f}.pt")
     path = os.path.join(args.save_dir, name)
+    # every rank: under --tp the moments are gathered over the model group
+    opt_state = full_optimizer_state(optimizer)
     if multihost.is_primary():
         os.makedirs(args.save_dir, exist_ok=True)
         save_checkpoint(path, model, optimizer, step=adam_step(optimizer),
                         epoch=tcfg.epochs, model_cfg=model.cfg,
-                        train_cfg=tcfg,
+                        train_cfg=tcfg, optimizer_state=opt_state,
                         extra={"accuracy": acc, "config": vars(args)})
         print(f"Saved {name}", flush=True)
     return model, path, acc
@@ -339,6 +363,7 @@ def main(argv=None) -> None:
     args, parser, unparsed = input_args(argv)
     if len(unparsed) != 0:
         raise SystemExit("Unknown argument: {}".format(unparsed))
+    check_tp(args)
     n = multihost.ranks_to_spawn(args.num_devices, args.device)
     if n:
         multihost.spawn("vqa_project_tpu_torch.cli.run:main",

@@ -86,11 +86,16 @@ class TrainConfig:
     # JAX's fields; a 1-D data mesh has no other axis to name
     data_axis: str = "data"
     num_devices: Optional[int] = None
+    # model-parallel factor: tp > 1 puts the ranks on a (data, model)
+    # grid and splits the Adam step of the rule-sharded parameters over
+    # the model axis (parallel/tp.py); the batch splits over the data
+    # axis only, so num_devices / tp ranks share it
+    tp: int = 1
     # dtype of the data-parallel gradient all-reduce over one flat
     # buffer: "float32" is exact up to the order of the sum; "bfloat16"
     # rounds each rank's contribution to bf16, sums in bf16 and widens
     # back, halving the bytes. Only at world > 1, and refused for the
-    # sharded feature cache (train.steps.supports_bf16_reduce)
+    # sharded feature cache and at tp > 1 (train.steps.supports_bf16_reduce)
     grad_reduce_dtype: str = "float32"  # float32 | bfloat16
 
 

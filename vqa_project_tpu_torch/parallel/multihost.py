@@ -106,31 +106,32 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, in place; ``x`` itself without a
-    group."""
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        dist.all_reduce(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (default every rank), in
+    place; ``x`` itself without a group or in a group of one."""
+    if dist.is_initialized() and dist.get_world_size(group) > 1:
+        dist.all_reduce(x, group=group)
     return x
 
 
-def fetch_global(x: torch.Tensor, axis: int = 0) -> np.ndarray:
-    """The global array whose ``axis`` every rank holds an equal slice
-    of, in rank order, as numpy on every rank.
+def fetch_global(x: torch.Tensor, axis: int = 0, group=None) -> np.ndarray:
+    """The global array whose ``axis`` every rank of ``group`` (default
+    every rank) holds an equal slice of, in the group's rank order, as
+    numpy on every rank.
 
     One all_reduce of a zeroed global buffer in which this rank filled its
     rows (adding zeros leaves every value as it is), then one copy to the
-    host. Without a group: ``x`` on the host.
+    host. Without a group, or in a group of one: ``x`` on the host.
     """
-    n = world()
-    if n == 1:
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return x.cpu().numpy()
+    n = dist.get_world_size(group)
     shape = list(x.shape)
     per = shape[axis]
     shape[axis] = per * n
     buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    buf.narrow(axis, rank() * per, per).copy_(x)
-    dist.all_reduce(buf)
+    buf.narrow(axis, dist.get_rank(group) * per, per).copy_(x)
+    dist.all_reduce(buf, group=group)
     return buf.cpu().numpy()
 
 

@@ -24,7 +24,10 @@ Over several ranks every rank builds the same global batch and runs its
 rows of it (``--bsize`` is the global batch); the logged sums, the
 mini-validation's and evaluate's scores are summed over the ranks, the
 predictions gathered (``multihost.fetch_global``), and only rank 0
-writes checkpoints, ``metrics.jsonl`` and ``result.json``.
+writes checkpoints, ``metrics.jsonl`` and ``result.json``. Under tensor
+parallelism (``TrainConfig.tp``, ``parallel/tp.py``) the rows, sums and
+gathers follow the data axis: the ranks of a model group run the same
+rows, so each row counts once.
 """
 
 from __future__ import annotations
@@ -46,8 +49,11 @@ from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
 from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
 from vqa_project_tpu_torch.ops.quant import quantize_feature_table
 from vqa_project_tpu_torch.parallel import multihost
-from vqa_project_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from vqa_project_tpu_torch.parallel.mesh import (Mesh, data_rows, data_sum,
+                                                 make_mesh, shard_batch)
 from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
+from vqa_project_tpu_torch.parallel.tp import (full_optimizer_state,
+                                               make_mesh_2d, shard_optimizer)
 from vqa_project_tpu_torch.train.metrics import MetricLogger, window_sums
 from vqa_project_tpu_torch.train.profiling import StepTimer, force_sync
 from vqa_project_tpu_torch.train.state import (load_checkpoint,
@@ -130,10 +136,12 @@ def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
     ``QuantizedFeatureCache`` (replicated only), or the compute dtype
     when even int8 does not fit; a table that fits only divided over the
     mesh's ranks becomes a ``ShardedFeatureCache`` (rank r uploads only
-    its rows); else None.
+    its rows); else None. On a (data, model) mesh a table over the
+    budget streams from the host, as in JAX: the sharded cache is the
+    1-D mesh's.
     """
     dev = resolve_device(device) if mesh is None else mesh.device
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.data_world
     store = ds.store
     cache_dtype = train_cfg.feature_cache_dtype
     if cache_dtype == "auto":
@@ -149,6 +157,11 @@ def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
     if nbytes <= train_cfg.device_cache_bytes:
         return (_upload(store.features, dtype, dev),
                 _upload(store.boxes, torch.float32, dev))
+    if mesh is not None and mesh.tp > 1:
+        print(f"feature table {nbytes / 1e9:.1f} GB exceeds device "
+              "cache budget and mesh has a model axis; streaming from "
+              "host (sharded cache is 1-D-mesh only)", flush=True)
+        return None
     if world > 1 and nbytes / world <= train_cfg.device_cache_bytes:
         print(f"feature table {nbytes / 1e9:.1f} GB: sharding across "
               f"{world} ranks ({nbytes / world / 1e9:.1f} GB/rank)",
@@ -167,8 +180,8 @@ def _batches_forever(batcher: Batcher):
 def _rank_part(mesh: Mesh, cache):
     """The function from a global host batch to this rank's part of it
     (its rows; with a sharded cache their image rows in its shard), or
-    None at world 1."""
-    if mesh.world == 1:
+    None on a data axis of one rank."""
+    if mesh.data_world == 1:
         return None
     sharded = isinstance(cache, ShardedFeatureCache)
 
@@ -187,17 +200,18 @@ def _locality_kwargs(cache, ds: GraphVQADataset, mesh: Mesh) -> dict:
     mode the dense fields of this rank's rows only."""
     if isinstance(cache, ShardedFeatureCache):
         return {"partitions": cache.partitions()[ds.table.image_row],
-                "n_partitions": mesh.world}
-    if cache is None and mesh.world > 1:
-        return {"shard": (mesh.rank, mesh.world)}
+                "n_partitions": mesh.data_world}
+    if cache is None and mesh.data_world > 1:
+        return {"shard": (mesh.data_rank, mesh.data_world)}
     return {}
 
 
 def mini_validation(model, val_iter, n_batches: int = 10,
-                    part=None) -> float:
+                    part=None, mesh=None) -> float:
     """Accuracy (%) over ``n_batches`` random host-mode validation
-    batches, streamed, summed over the ranks (``part``: a rank's part of
-    a batch); the denominator counts only unpadded rows."""
+    batches, streamed, summed over the data group of ``mesh``
+    (``parallel.data_sum``; ``part``: a rank's part of a batch); the
+    denominator counts only unpadded rows."""
     scores, n_valid = [], 0.0
     for _ in range(n_batches):
         batch = next(val_iter)
@@ -205,7 +219,7 @@ def mini_validation(model, val_iter, n_batches: int = 10,
         _, score, _ = eval_step(model, batch if part is None
                                 else part(batch))
         scores.append(score)
-    scores = multihost.all_reduce_sum(torch.stack(scores))
+    scores = data_sum(torch.stack(scores), mesh)
     correct = 0.0
     for s in scores.double().cpu().tolist():
         correct += s
@@ -213,7 +227,8 @@ def mini_validation(model, val_iter, n_batches: int = 10,
 
 
 def mini_validation_resident(model, val_iter, image_fn, device,
-                             n_batches: int = 10, part=None) -> float:
+                             n_batches: int = 10, part=None,
+                             mesh=None) -> float:
     """``mini_validation`` with a device feature cache: the 10 index
     batches (a rank's parts of them) go to the device in one copy and
     the summed score comes back in one fetch."""
@@ -222,8 +237,7 @@ def mini_validation_resident(model, val_iter, image_fn, device,
     epoch, _ = stack_epoch_batches(
         hosts if part is None else [part(h) for h in hosts], device)
     total, _ = eval_epoch(model, epoch, image_fn)
-    return (float(multihost.all_reduce_sum(total)) / max(n_valid, 1.0)
-            * 100.0)
+    return float(data_sum(total, mesh)) / max(n_valid, 1.0) * 100.0
 
 
 def _same_store(a, b) -> bool:
@@ -235,27 +249,29 @@ def _same_store(a, b) -> bool:
     return fa is not None and fa == getattr(b.features, "filename", None)
 
 
-def dropout_seed(seed: int, rank: int) -> int:
-    """The seed of rank ``rank``'s dropout generator: ``seed`` itself on
-    rank 0 (the single-card stream), a stream of its own derived from
-    (seed, rank) on the others."""
-    if rank == 0:
+def dropout_seed(seed: int, data_index: int) -> int:
+    """The seed of the dropout generator of data index ``data_index``:
+    ``seed`` itself at 0 (the single-card stream), a stream of its own
+    derived from (seed, data_index) at the others. The ranks of one model
+    group share their data index, so they draw the same masks."""
+    if data_index == 0:
         return int(seed)
-    return int(np.random.SeedSequence([int(seed), int(rank)])
+    return int(np.random.SeedSequence([int(seed), int(data_index)])
                .generate_state(1)[0])
 
 
 def _gather_generators(generator: torch.Generator,
                        mesh: Mesh) -> Optional[List[torch.Tensor]]:
-    """Every rank's generator state, in rank order, on every rank (one
-    all_reduce); None at world 1."""
-    if mesh.world == 1:
+    """The generator state of every data index, in order, on every rank
+    (one all_reduce over the data group); None on a data axis of one
+    rank."""
+    if mesh.data_world == 1:
         return None
     state = generator.get_state()
-    buf = torch.zeros((mesh.world, state.numel()), dtype=torch.uint8,
+    buf = torch.zeros((mesh.data_world, state.numel()), dtype=torch.uint8,
                       device=mesh.device)
-    buf[mesh.rank].copy_(state)
-    multihost.all_reduce_sum(buf)
+    buf[mesh.data_rank].copy_(state)
+    multihost.all_reduce_sum(buf, mesh.data_group)
     # a tensor of its own per rank: set_state reads a view's storage
     # from its start, not from the view's offset
     return [row.clone() for row in buf.cpu()]
@@ -269,15 +285,15 @@ def _resume_checkpoint(path: str, model, optimizer, scheduler,
     in it, step). ``step_in_epoch > 0`` marks a checkpoint written
     mid-epoch at a mini-validation, by the port or by the JAX package; a
     reference ``.pt`` resumes at an epoch boundary. Every rank reads rank
-    0's file and takes its own dropout generator's state from it when the
-    file was written by as many ranks (else a rank past 0 keeps its
-    fresh stream: rank 0's would repeat rank 0's bits)."""
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    0's file and takes its data index's dropout generator state from it
+    when the file was written over as many data indices (else an index
+    past 0 keeps its fresh stream: index 0's would repeat its bits)."""
+    index, n = (0, 1) if mesh is None else (mesh.data_rank, mesh.data_world)
     payload = load_checkpoint(path, model, optimizer, scheduler,
-                              generator if rank == 0 else None)
+                              generator if index == 0 else None)
     states = payload.get("rank_generators")
-    if rank > 0 and states is not None and len(states) == world:
-        generator.set_state(states[rank].clone())
+    if index > 0 and states is not None and len(states) == n:
+        generator.set_state(states[index].clone())
     extra = payload.get("extra") or {}
     return (int(payload["epoch"]), int(extra.get("step_in_epoch", 0)),
             int(payload["step"]))
@@ -317,23 +333,32 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     for bit.
 
     ``mesh`` (default ``make_mesh(train_cfg.num_devices, device)``: the
-    process group's ranks, or one card without a group) spreads each
-    global batch of ``batch_size`` over the ranks: each builds the same
-    batch and steps on its rows, the gradients summed over the ranks in
+    process group's ranks, or one card without a group; at
+    ``train_cfg.tp > 1`` ``make_mesh_2d``'s (data, model) grid) spreads
+    each global batch of ``batch_size`` over the data axis: each rank
+    builds the same batch and steps on its data index's rows, the
+    gradients summed over the data group in
     ``train_cfg.grad_reduce_dtype`` (bf16 degrades to float32 with a
-    sharded cache, as in JAX), and rank r > 0 draws dropout from a
-    stream of its own (``dropout_seed``). The logged numbers are global
-    and equal on every rank; only rank 0 writes files, its checkpoints
-    holding every rank's generator state."""
+    sharded cache or a model axis, as in JAX), and data index d > 0
+    draws dropout from a stream of its own (``dropout_seed``). Over a
+    model axis Adam steps each rank's shards (``parallel.tp``). The
+    logged numbers are global and equal on every rank; only rank 0
+    writes files, its checkpoints in the tp = 1 layout and holding every
+    data index's generator state."""
     if resume_path and not os.path.isfile(resume_path):
         raise FileNotFoundError(f"resume checkpoint not found: {resume_path}")
     if mesh is None:
-        mesh = make_mesh(train_cfg.num_devices, device)
+        mesh = (make_mesh_2d(train_cfg.tp, train_cfg.num_devices, device)
+                if train_cfg.tp > 1
+                else make_mesh(train_cfg.num_devices, device))
+    if mesh.tp != train_cfg.tp:
+        raise ValueError(f"a mesh of tp={mesh.tp} for TrainConfig.tp="
+                         f"{train_cfg.tp}")
     dev = mesh.device
     bs = train_cfg.batch_size
-    if bs % mesh.world:
-        raise ValueError(f"batch_size {bs} not divisible by {mesh.world} "
-                         "data-parallel ranks")
+    if bs % mesh.data_world:
+        raise ValueError(f"batch_size {bs} not divisible by "
+                         f"{mesh.data_world} data-parallel ranks")
     model = build_model(model_cfg, train_ds, device=dev,
                         seed=train_cfg.seed)
     if cache is _UNSET:
@@ -348,15 +373,15 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     steps_per_epoch = len(loader)
     optimizer, scheduler = make_optimizer(model, train_cfg, steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(
-        dropout_seed(train_cfg.seed, mesh.rank))
+        dropout_seed(train_cfg.seed, mesh.data_rank))
     grad_reduce = train_cfg.grad_reduce_dtype
     if grad_reduce == "bfloat16" and mesh.world > 1:
-        ok, why = supports_bf16_reduce(cache)
+        ok, why = supports_bf16_reduce(cache, mesh)
         if not ok:
-            print("grad_reduce_dtype=bfloat16 needs a replicated (or "
-                  f"host-mode) feature cache; this run uses {why} — "
-                  "falling back to the exact float32 gradient all-reduce",
-                  flush=True)
+            print("grad_reduce_dtype=bfloat16 needs the 1-D data mesh "
+                  "with a replicated (or host-mode) feature cache; this "
+                  f"run uses {why} — falling back to the exact float32 "
+                  "gradient all-reduce", flush=True)
             grad_reduce = "float32"
     step = start_epoch = resume_skip = 0
     if resume_path:
@@ -370,6 +395,10 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         # epoch e's order is a function of (seed, e): the resumed epoch
         # sees the batches the uninterrupted run saw, less those done
         loader.set_epoch(start_epoch, skip=resume_skip)
+    if mesh.tp > 1:
+        # the tp = 1 pair (resumed as such) becomes this rank's shards
+        optimizer, scheduler = shard_optimizer(model, mesh, optimizer,
+                                               scheduler)
     val_fn = None
     if val_ds is not None:
         if val_cache is _UNSET:
@@ -384,17 +413,21 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         val_part = _rank_part(mesh, val_cache)
         if val_cache is None:
             val_fn = lambda: mini_validation(  # noqa: E731
-                model, val_iter, part=val_part)
+                model, val_iter, part=val_part, mesh=mesh)
         else:
             val_image_fn = make_image_fn(val_cache, model_cfg.compute_dtype,
                                          model_cfg.merged_block)
             val_fn = lambda: mini_validation_resident(  # noqa: E731
-                model, val_iter, val_image_fn, dev, part=val_part)
+                model, val_iter, val_image_fn, dev, part=val_part,
+                mesh=mesh)
     logger = MetricLogger(train_cfg.log_interval, jsonl_path,
-                          n_chips=mesh.world, batch_size=bs)
+                          n_chips=mesh.data_world, batch_size=bs)
 
     def checkpoint(ep: int, step_in_epoch: int) -> None:
-        states = _gather_generators(generator, mesh)  # every rank
+        # collectives every rank joins: the generators over the data
+        # group, the moments over the model group
+        states = _gather_generators(generator, mesh)
+        opt_state = full_optimizer_state(optimizer)
         if not multihost.is_primary():
             return
         save_checkpoint(
@@ -402,7 +435,7 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
             model, optimizer, scheduler, step=step, epoch=ep + 1,
             generator=generator, model_cfg=model.cfg, train_cfg=train_cfg,
             extra={"step_in_epoch": int(step_in_epoch)},
-            rank_generators=states)
+            rank_generators=states, optimizer_state=opt_state)
 
     epoch_acc = 0.0
     for ep in range(start_epoch, start_epoch + train_cfg.epochs):
@@ -416,7 +449,7 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
 
         def flush_window():
             # one all_reduce and one fetch for the whole window
-            sums = window_sums(window)
+            sums = window_sums(window, mesh)
             totals[:] += sums
             logger.log_window(epoch=ep, step=step, loss_sum=float(sums[0]),
                               score_sum=float(sums[1]), n=len(window),
@@ -485,7 +518,8 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
     ``fit``) each rank runs its rows of every batch (locality batches
     with a sharded cache); the scores are summed and the predictions and
     adjacencies gathered over the ranks, so every rank returns the same
-    three results, and only rank 0 writes ``result_path``.
+    three results, and only rank 0 writes ``result_path``. On a (data,
+    model) mesh the rows, sums and gathers follow the data axis.
     """
     dev = resolve_device(device)
     if next(model.parameters()).device != dev:
@@ -493,9 +527,9 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
                          f", evaluate was asked for {dev}")
     if mesh is None:
         mesh = make_mesh(None, dev)
-    if batch_size % mesh.world:
+    if batch_size % mesh.data_world:
         raise ValueError(f"batch_size {batch_size} not divisible by "
-                         f"{mesh.world} data-parallel ranks")
+                         f"{mesh.data_world} data-parallel ranks")
     if cache is _UNSET:
         cache = make_feature_cache(ds, train_cfg or TrainConfig(
             batch_size=batch_size), model.cfg.compute_dtype, dev, mesh)
@@ -518,20 +552,20 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
                 host_batches if part is None
                 else [part(h) for h in host_batches], dev)
             total, preds_all = eval_epoch(model, epoch, image_fn)
-            correct = float(multihost.all_reduce_sum(total))
-            preds_all = multihost.fetch_global(preds_all, axis=1)
+            correct = float(data_sum(total, mesh))
+            preds_all = data_rows(preds_all, mesh, axis=1)
             for host, preds in zip(host_batches, preds_all):
                 n_valid += float(host["mask"].sum())
                 _emit(ds, host, preds, result)
     else:
         for host, batch in prefetch_to_device(batches, dev, 2, part):
             preds, score, adjacency = eval_step(model, batch, image_fn)
-            correct += float(multihost.all_reduce_sum(score))
+            correct += float(data_sum(score, mesh))
             n_valid += float(host["mask"].sum())
-            preds = multihost.fetch_global(preds)
+            preds = data_rows(preds, mesh)
             _emit(ds, host, preds, result)
             if collect_adjacency:
-                adj = multihost.fetch_global(adjacency.float())
+                adj = data_rows(adjacency.float(), mesh)
                 for i in np.flatnonzero(host["mask"] > 0):
                     adjacencies[int(host["index"][i])] = adj[i]
     acc = correct / max(n_valid, 1.0) * 100.0

@@ -4,9 +4,9 @@ Copy of ``vqa_project_tpu/train/metrics.py::MetricLogger``: every
 ``log_interval`` steps (40 by default, the reference's loss averaging)
 one reference-style line and one JSON record with the window's mean
 loss, VQA accuracy, steps/s and QA pairs/s per chip (``n_chips`` ranks
-share the global batch). Only rank 0 writes the JSONL file; every rank
-logs the same global numbers, whose per-rank shares ``window_sums``
-adds up with one all_reduce per window.
+share the global batch: the data axis's extent, as in JAX). Only rank 0
+writes the JSONL file; every rank logs the same global numbers, whose
+per-rank shares ``window_sums`` adds up with one all_reduce per window.
 """
 
 from __future__ import annotations
@@ -20,15 +20,20 @@ import numpy as np
 import torch
 
 from vqa_project_tpu_torch.parallel import multihost
+from vqa_project_tpu_torch.parallel.mesh import data_sum
 
 
-def window_sums(window: List[Dict[str, torch.Tensor]]) -> np.ndarray:
+def window_sums(window: List[Dict[str, torch.Tensor]],
+                mesh=None) -> np.ndarray:
     """(loss, score, valid) summed over a window of ``train_step``
-    results and over the ranks, in float64 on the host: one stack, one
-    all_reduce (across ranks) and one fetch for the whole window."""
+    results and over the data group of ``mesh`` (``parallel.data_sum``:
+    every rank without a mesh; under tensor parallelism the ranks that
+    hold the global batch's rows once each), in float64 on the host: one
+    stack, one all_reduce (across ranks) and one fetch for the whole
+    window."""
     vals = torch.stack([torch.stack([m["loss"], m["score"], m["valid"]])
                         for m in window])
-    multihost.all_reduce_sum(vals)
+    data_sum(vals, mesh)
     return vals.double().sum(dim=0).cpu().numpy()
 
 

@@ -150,7 +150,8 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig,
 
 def _payload(model: torch.nn.Module, optimizer, scheduler, *, step: int,
              epoch: int, generator, model_cfg, train_cfg, extra,
-             host: bool = True, rank_generators=None) -> dict:
+             host: bool = True, rank_generators=None,
+             optimizer_state=None) -> dict:
     """The checkpoint's dict; the weights copied to the CPU with
     ``host``, else left where they are."""
     sched = None
@@ -161,7 +162,8 @@ def _payload(model: torch.nn.Module, optimizer, scheduler, *, step: int,
     return {
         "state_dict": {k: v.detach().cpu() if host else v.detach()
                        for k, v in model.state_dict().items()},
-        "optimizer": optimizer.state_dict() if optimizer else None,
+        "optimizer": (optimizer_state if optimizer_state is not None
+                      else optimizer.state_dict() if optimizer else None),
         "scheduler": sched,
         "step": int(step),
         "epoch": int(epoch),
@@ -171,8 +173,8 @@ def _payload(model: torch.nn.Module, optimizer, scheduler, *, step: int,
         "train_config": (dataclasses.asdict(train_cfg)
                          if train_cfg is not None else None),
         "extra": dict(extra or {}),
-        # a data-parallel run's every rank's dropout generator state, in
-        # rank order ("generator" is rank 0's)
+        # a data-parallel run's dropout generator state of every data
+        # index, in order ("generator" is data index 0's)
         "rank_generators": rank_generators,
     }
 
@@ -199,16 +201,21 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
                     generator: Optional[torch.Generator] = None,
                     model_cfg=None, train_cfg=None,
                     extra: Optional[dict] = None,
-                    rank_generators: Optional[list] = None) -> None:
+                    rank_generators: Optional[list] = None,
+                    optimizer_state: Optional[dict] = None) -> None:
     """One full dict: ``state_dict`` (CPU, reference names), optimizer
     and scheduler state, step, epoch (the next one to run), the dropout
     generator's state, both configs and ``extra``; a data-parallel run
-    adds every rank's generator state (``rank_generators``). Written to
-    a unique temporary file beside ``path``, then renamed onto it."""
+    adds the generator state of every data index (``rank_generators``).
+    ``optimizer_state`` stands for ``optimizer.state_dict()`` where the
+    caller already has it in the tp = 1 layout
+    (``parallel.tp.full_optimizer_state``). Written to a unique
+    temporary file beside ``path``, then renamed onto it."""
     _write(path, _payload(model, optimizer, scheduler, step=step,
                           epoch=epoch, generator=generator,
                           model_cfg=model_cfg, train_cfg=train_cfg,
-                          extra=extra, rank_generators=rank_generators))
+                          extra=extra, rank_generators=rank_generators,
+                          optimizer_state=optimizer_state))
 
 
 def _host_copy(obj):

@@ -14,7 +14,8 @@ One training step is forward, masked loss, backward, Adam and the score;
 ``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
 loop.
 
-Across data-parallel ranks (``parallel.Mesh``) each rank steps on its
+Across data-parallel ranks (``parallel.Mesh``; the data axis of a
+(data, model) grid under tensor parallelism) each rank steps on its
 rows of the global batch: its loss is its masked sum over the GLOBAL
 valid count, and the gradients are summed over the ranks before Adam
 (``parallel.all_reduce_grads``, one flat buffer, f32 or bf16), so every
@@ -109,11 +110,14 @@ def make_image_fn(feature_cache, compute_dtype: str,
     return image_fn
 
 
-def supports_bf16_reduce(feature_cache) -> Tuple[bool, Optional[str]]:
-    """(ok, why): the bf16 gradient all-reduce takes a replicated device
-    cache or host mode; ``why`` names the cache it refuses. One rule for
-    ``train_step``'s refusal and ``fit``'s degrade to float32 (JAX's
-    ``supports_bf16_reduce`` less its model-parallel mesh)."""
+def supports_bf16_reduce(feature_cache, mesh: Optional[Mesh] = None
+                         ) -> Tuple[bool, Optional[str]]:
+    """(ok, why): the bf16 gradient all-reduce takes the 1-D data mesh
+    (tp = 1) and a replicated device cache or host mode; ``why`` names
+    what it refuses. One rule for ``train_step``'s refusal and ``fit``'s
+    degrade to float32 (JAX's ``supports_bf16_reduce``)."""
+    if mesh is not None and mesh.tp > 1:
+        return False, "a model-parallel mesh"
     if isinstance(feature_cache, ShardedFeatureCache):
         return False, f"a {type(feature_cache).__name__} feature cache"
     return True, None
@@ -196,17 +200,25 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     Inside a process group (``mesh.distributed``) ``batch`` is this
     rank's rows and ``n_valid`` the global batch's valid count: the loss
     is this rank's share of the global masked mean, and the gradients are
-    summed over the ranks in ``grad_reduce_dtype`` before the optimizer
-    (bf16 only at world > 1, refused for a sharded cache by the caller);
-    the returned loss, score and valid are this rank's shares.
+    summed over the data group in ``grad_reduce_dtype`` before the
+    optimizer (bf16 only at world > 1, refused for a sharded cache or a
+    model axis by the caller); the returned loss, score and valid are
+    this rank's shares. On a (data, model) mesh the optimizer is
+    ``parallel.tp.shard_optimizer``'s: it steps this rank's shards, and
+    one all-gather over the model group then writes them into the whole
+    parameters (``parallel/tp.py``).
     """
     dp = mesh is not None and mesh.distributed
+    shards = getattr(optimizer, "shards", None)
     if dp and n_valid is None:
         raise ValueError("a data-parallel step needs the global batch's "
                          "valid count (n_valid)")
+    if mesh is not None and mesh.tp > 1 and shards is None:
+        raise ValueError("a tensor-parallel step needs the optimizer of "
+                         "parallel.tp.shard_optimizer")
     if dp and mesh.world > 1 and grad_reduce_dtype == "bfloat16":
         ok, why = supports_bf16_reduce(getattr(image_fn, "feature_cache",
-                                               None))
+                                               None), mesh)
         if not ok:
             raise ValueError(
                 f"grad_reduce_dtype=bfloat16 does not support {why}: it "
@@ -223,10 +235,16 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
              if dp else None)
     loss = multilabel_soft_margin_loss(logits, answers_fn(), mask, count)
     optimizer.zero_grad(set_to_none=True)
+    if shards is not None:
+        model.zero_grad(set_to_none=True)   # the sharded parameters' own
     loss.backward()
     if dp:
-        all_reduce_grads(model, mesh, grad_reduce_dtype)
+        all_reduce_grads(model, mesh, grad_reduce_dtype, mesh.data_group)
+    if shards is not None:
+        shards.load_grads()
     optimizer.step()
+    if shards is not None:
+        shards.gather()
     if scheduler is not None:
         scheduler.step()
     with torch.no_grad():
