@@ -1,0 +1,10 @@
+"""mfu.train: the model's product operations a step
+(portbench/counts/ops.py::model_flops over the rows filled) times the
+window's steps, over the untraced window's time times the H100's bf16
+peak, %."""
+
+from portbench.metrics import _common
+
+
+def read(rec):
+    return _common.mfu(rec, "train")
