@@ -218,7 +218,14 @@ def prefetch_to_device(iterator, device, depth: int = 2,
     for a batch's copies before the batch is yielded, and each pinned
     buffer is held until its copy has completed. On the CPU the tensors
     share the numpy batch's memory and nothing is copied.
+
+    Its spans (``train.profiling.annotate``): ``loader.assemble`` on the
+    worker's thread, one a batch (its ``next``, ``part`` and the pack
+    into pinned memory), and ``loader.wait`` around each of this
+    thread's gets from the worker's queue.
     """
+    # train/ imports this module
+    from vqa_project_tpu_torch.train.profiling import annotate
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     depth = max(1, int(depth))
@@ -238,9 +245,15 @@ def prefetch_to_device(iterator, device, depth: int = 2,
 
     def worker():
         try:
-            for batch in iterator:
-                sent = batch if part is None else part(batch)
-                if not put((batch, _host_tensors(sent, cuda))):
+            batches = iter(iterator)
+            while True:
+                with annotate("loader.assemble"):
+                    batch = next(batches, sentinel)
+                    if batch is sentinel:
+                        return
+                    sent = batch if part is None else part(batch)
+                    item = (batch, _host_tensors(sent, cuda))
+                if not put(item):
                     return
         except BaseException as e:  # raised again in the consumer
             errors.append(e)
@@ -270,7 +283,8 @@ def prefetch_to_device(iterator, device, depth: int = 2,
         while True:
             while not done and len(staged) < depth:
                 try:
-                    item = ready.get(block=not staged)
+                    with annotate("loader.wait"):
+                        item = ready.get(block=not staged)
                 except queue.Empty:
                     break
                 if item is sentinel:

@@ -55,7 +55,8 @@ from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
 from vqa_project_tpu_torch.parallel.tp import (full_optimizer_state,
                                                make_mesh_2d, shard_optimizer)
 from vqa_project_tpu_torch.train.metrics import MetricLogger, window_sums
-from vqa_project_tpu_torch.train.profiling import StepTimer, force_sync
+from vqa_project_tpu_torch.train.profiling import (StepTimer, annotate,
+                                                   force_sync)
 from vqa_project_tpu_torch.train.state import (load_checkpoint,
                                                make_optimizer,
                                                save_checkpoint)
@@ -520,6 +521,12 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
     adjacencies gathered over the ranks, so every rank returns the same
     three results, and only rank 0 writes ``result_path``. On a (data,
     model) mesh the rows, sums and gathers follow the data axis.
+
+    Its spans (``train.profiling.annotate``): ``evaluate`` around the
+    call; on the resident path ``evaluate.assemble`` (the batches and
+    their one copy in), ``.epoch`` (``eval_epoch``'s issue), ``.fetch``
+    (the wait for the score and the predictions), ``.emit`` (the result
+    list); ``evaluate.write`` around the ``json.dump``.
     """
     dev = resolve_device(device)
     if next(model.parameters()).device != dev:
@@ -530,46 +537,53 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
     if batch_size % mesh.data_world:
         raise ValueError(f"batch_size {batch_size} not divisible by "
                          f"{mesh.data_world} data-parallel ranks")
-    if cache is _UNSET:
-        cache = make_feature_cache(ds, train_cfg or TrainConfig(
-            batch_size=batch_size), model.cfg.compute_dtype, dev, mesh)
-    image_fn = make_image_fn(cache, model.cfg.compute_dtype,
-                             model.cfg.merged_block)
-    part = _rank_part(mesh, cache)
-    batches = iter(Batcher(ds, batch_size, shuffle=False,
-                           materialize=cache is None,
-                           **_locality_kwargs(cache, ds, mesh)))
-    if max_batches is not None:
-        batches = itertools.islice(batches, max_batches)
+    with annotate("evaluate"):
+        if cache is _UNSET:
+            cache = make_feature_cache(ds, train_cfg or TrainConfig(
+                batch_size=batch_size), model.cfg.compute_dtype, dev, mesh)
+        image_fn = make_image_fn(cache, model.cfg.compute_dtype,
+                                 model.cfg.merged_block)
+        part = _rank_part(mesh, cache)
+        # a generator: its batches are built where it is iterated
+        batches = iter(Batcher(ds, batch_size, shuffle=False,
+                               materialize=cache is None,
+                               **_locality_kwargs(cache, ds, mesh)))
+        if max_batches is not None:
+            batches = itertools.islice(batches, max_batches)
 
-    result: List[dict] = []
-    adjacencies = {} if collect_adjacency else None
-    correct = n_valid = 0.0
-    if cache is not None and not collect_adjacency:
-        host_batches = list(batches)
-        if host_batches:
-            epoch, _ = stack_epoch_batches(
-                host_batches if part is None
-                else [part(h) for h in host_batches], dev)
-            total, preds_all = eval_epoch(model, epoch, image_fn)
-            correct = float(data_sum(total, mesh))
-            preds_all = data_rows(preds_all, mesh, axis=1)
-            for host, preds in zip(host_batches, preds_all):
+        result: List[dict] = []
+        adjacencies = {} if collect_adjacency else None
+        correct = n_valid = 0.0
+        if cache is not None and not collect_adjacency:
+            with annotate("evaluate.assemble"):
+                host_batches = list(batches)
+                if host_batches:
+                    epoch, _ = stack_epoch_batches(
+                        host_batches if part is None
+                        else [part(h) for h in host_batches], dev)
+            if host_batches:
+                with annotate("evaluate.epoch"):
+                    total, preds_all = eval_epoch(model, epoch, image_fn)
+                with annotate("evaluate.fetch"):
+                    correct = float(data_sum(total, mesh))
+                    preds_all = data_rows(preds_all, mesh, axis=1)
+                with annotate("evaluate.emit"):
+                    for host, preds in zip(host_batches, preds_all):
+                        n_valid += float(host["mask"].sum())
+                        _emit(ds, host, preds, result)
+        else:
+            for host, batch in prefetch_to_device(batches, dev, 2, part):
+                preds, score, adjacency = eval_step(model, batch, image_fn)
+                correct += float(data_sum(score, mesh))
                 n_valid += float(host["mask"].sum())
+                preds = data_rows(preds, mesh)
                 _emit(ds, host, preds, result)
-    else:
-        for host, batch in prefetch_to_device(batches, dev, 2, part):
-            preds, score, adjacency = eval_step(model, batch, image_fn)
-            correct += float(data_sum(score, mesh))
-            n_valid += float(host["mask"].sum())
-            preds = data_rows(preds, mesh)
-            _emit(ds, host, preds, result)
-            if collect_adjacency:
-                adj = data_rows(adjacency.float(), mesh)
-                for i in np.flatnonzero(host["mask"] > 0):
-                    adjacencies[int(host["index"][i])] = adj[i]
-    acc = correct / max(n_valid, 1.0) * 100.0
-    if result_path and multihost.is_primary():
-        with open(result_path, "w") as f:
-            json.dump(result, f)
-    return acc, result, adjacencies
+                if collect_adjacency:
+                    adj = data_rows(adjacency.float(), mesh)
+                    for i in np.flatnonzero(host["mask"] > 0):
+                        adjacencies[int(host["index"][i])] = adj[i]
+        acc = correct / max(n_valid, 1.0) * 100.0
+        if result_path and multihost.is_primary():
+            with annotate("evaluate.write"), open(result_path, "w") as f:
+                json.dump(result, f)
+        return acc, result, adjacencies

@@ -6,7 +6,9 @@ names:
 - ``trace(log_dir)``: ``torch.profiler`` around a region (the CPU, and
   the card's kernels when CUDA is up), written into ``log_dir`` as a
   Chrome trace that TensorBoard's profiler plugin and Perfetto read;
-- ``annotate(name)``: a named region in that trace;
+- ``annotate(name)``: a named region, kept in the process's ring of
+  spans (``recent_spans``, ``clear_spans``) whether or not a profiler
+  runs, and a region in the profiler's trace while one runs;
 - ``force_sync(x)``: wait until ``x`` is computed;
 - ``StepTimer``: wall-clock step times with a warm-up left out, and the
   JAX package's summary (steps, mean, p50, p95, QA pairs/s per card).
@@ -14,12 +16,22 @@ names:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# every span the process closed, oldest first: (name, parent name or None,
+# root_id, thread id, t0_ns, t1_ns, profiled)
+_SPANS: "collections.deque" = collections.deque(maxlen=1 << 17)
+_ROOT_IDS = itertools.count()
+_THREAD = threading.local()
 
 
 @contextlib.contextmanager
@@ -37,9 +49,59 @@ def trace(log_dir: str):
         yield prof
 
 
-def annotate(name: str):
-    """Named region (a ``record_function`` span in the trace)."""
-    return torch.profiler.record_function(name)
+class annotate:
+    """Named region: ``with annotate(name): ...``.
+
+    On exit it appends ``(name, parent, root_id, thread_id, t0_ns, t1_ns,
+    profiled)`` to the process's ring of spans (the last 131,072; read by
+    ``recent_spans``), on ``time.perf_counter_ns``'s clock. ``parent`` is
+    the name of the span open around it on its thread, or None;
+    ``root_id`` numbers the outermost span of a thread, and the spans
+    nested in it share it. Only while a profiler runs (at enter) is the
+    region also a ``record_function`` in its trace, and ``profiled``
+    True; otherwise it makes no dispatcher call. It never synchronizes
+    nor touches a tensor."""
+
+    __slots__ = ("name", "parent", "root", "t0", "record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_THREAD, "stack", None)
+        if stack is None:
+            stack = _THREAD.stack = []
+        if stack:
+            self.parent, self.root = stack[-1].name, stack[-1].root
+        else:
+            self.parent, self.root = None, next(_ROOT_IDS)
+        stack.append(self)
+        self.record = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.record = torch.profiler.record_function(self.name)
+            self.record.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        if self.record is not None:
+            self.record.__exit__(*exc)
+        _THREAD.stack.pop()
+        _SPANS.append((self.name, self.parent, self.root,
+                       threading.get_ident(), self.t0, t1,
+                       self.record is not None))
+        return False
+
+
+def recent_spans() -> List[Tuple]:
+    """A copy of the ring of spans, oldest first (``annotate``)."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    """Empty the ring of spans."""
+    _SPANS.clear()
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:

@@ -38,6 +38,7 @@ from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
                                               vqa_score)
 from vqa_project_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
+from vqa_project_tpu_torch.train.profiling import annotate
 
 
 class QuantizedFeatureCache(NamedTuple):
@@ -207,6 +208,12 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     ``parallel.tp.shard_optimizer``'s: it steps this rank's shards, and
     one all-gather over the model group then writes them into the whole
     parameters (``parallel/tp.py``).
+
+    Its spans (``train.profiling.annotate``): ``train_step`` around the
+    call, and inside it ``train_step.inputs`` (the copy in, the unpack,
+    the image gather), ``.forward`` (the model, the loss and its labels),
+    ``.backward`` (the zeroing, autograd's backward, the data-parallel
+    reduce) and ``.optimizer`` (the optimizer and the schedule).
     """
     dp = mesh is not None and mesh.distributed
     shards = getattr(optimizer, "shards", None)
@@ -224,32 +231,41 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
                 f"grad_reduce_dtype=bfloat16 does not support {why}: it "
                 "needs a replicated device feature cache or host-mode "
                 "batches")
-    dev = next(model.parameters()).device
-    question, image, qlen, mask, answers_fn, score_fn = _assemble_inputs(
-        to_device(batch, dev), image_fn, model.cfg.out_dim)
-    logits, _, _ = model(question, image, qlen, train=True,
-                         generator=generator)
-    # a fill, not a copy: the global count reaches the card as a launch
-    # argument
-    count = (torch.full((), float(n_valid), dtype=torch.float32, device=dev)
-             if dp else None)
-    loss = multilabel_soft_margin_loss(logits, answers_fn(), mask, count)
-    optimizer.zero_grad(set_to_none=True)
-    if shards is not None:
-        model.zero_grad(set_to_none=True)   # the sharded parameters' own
-    loss.backward()
-    if dp:
-        all_reduce_grads(model, mesh, grad_reduce_dtype, mesh.data_group)
-    if shards is not None:
-        shards.load_grads()
-    optimizer.step()
-    if shards is not None:
-        shards.gather()
-    if scheduler is not None:
-        scheduler.step()
-    with torch.no_grad():
-        score = score_fn(logits, mask)
-    return {"loss": loss.detach(), "score": score, "valid": mask.sum()}
+    with annotate("train_step"):
+        dev = next(model.parameters()).device
+        with annotate("train_step.inputs"):
+            question, image, qlen, mask, answers_fn, score_fn = \
+                _assemble_inputs(to_device(batch, dev), image_fn,
+                                 model.cfg.out_dim)
+        with annotate("train_step.forward"):
+            logits, _, _ = model(question, image, qlen, train=True,
+                                 generator=generator)
+            # a fill, not a copy: the global count reaches the card as a
+            # launch argument
+            count = (torch.full((), float(n_valid), dtype=torch.float32,
+                                device=dev) if dp else None)
+            loss = multilabel_soft_margin_loss(logits, answers_fn(), mask,
+                                               count)
+        with annotate("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            if shards is not None:
+                # the sharded parameters' own
+                model.zero_grad(set_to_none=True)
+            loss.backward()
+            if dp:
+                all_reduce_grads(model, mesh, grad_reduce_dtype,
+                                 mesh.data_group)
+        with annotate("train_step.optimizer"):
+            if shards is not None:
+                shards.load_grads()
+            optimizer.step()
+            if shards is not None:
+                shards.gather()
+            if scheduler is not None:
+                scheduler.step()
+        with torch.no_grad():
+            score = score_fn(logits, mask)
+        return {"loss": loss.detach(), "score": score, "valid": mask.sum()}
 
 
 def _eval_forward(model, b, image_fn):
