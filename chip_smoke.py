@@ -375,6 +375,10 @@ WRAPPERS = {
     "graph_block_fwd": graph_block_fwd,                        # H
     "graph_block_bwd": graph_block_bwd,                        # I
 }
+# each counts through the one registry (ops/_build.py), whose counters a
+# replayed train step adds its capture's launches to (train/steps.py)
+if not all(any(fn is f for f in _build.COUNTED) for fn in WRAPPERS.values()):
+    raise ImportError("a kernel wrapper counts outside _build.COUNTED")
 # launches of one bf16 training step (host mode: no gather); kernels B
 # and E's sweep are persistent, one launch each for all 16 steps
 TRAIN_STEP_LAUNCHES = {

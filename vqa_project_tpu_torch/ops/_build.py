@@ -10,7 +10,8 @@ the compiler flags, so an edited source builds anew and an unchanged one
 is reused; beside each library, ``lib<name>.log``
 keeps the compiler's report (registers, shared memory and spills of each
 kernel, from ``-Xptxas -v``). ``build_all`` starts one ``nvcc`` per
-source, all at once.
+source, all at once. ``counted`` gives a kernel's wrapper its launch
+counter.
 """
 
 from __future__ import annotations
@@ -186,3 +187,16 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: cudaError_t {rc} (cuda_runtime_api.h)")
+
+
+# every kernel wrapper that counts its launches, each noted by
+# ``counted`` where it is defined
+COUNTED: list = []
+
+
+def counted(fn):
+    """Give the kernel wrapper ``fn`` a launch counter, ``fn.launches``
+    from 0, which the wrapper adds to, and note it in ``COUNTED``."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn

@@ -42,7 +42,9 @@ def dropout(x: torch.Tensor, rate: float,
     if not rate < 1:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     u = torch.rand(x.shape, generator=generator, device=x.device)
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    # the scale as x's dtype holds it, passed as a number: no copy to the
+    # card, so the step can be captured as a CUDA graph
+    scale = float(torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype))
     return torch.where(u >= rate, x * scale, torch.zeros((), dtype=x.dtype,
                                                          device=x.device),
                        out=out)

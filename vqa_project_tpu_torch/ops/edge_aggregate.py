@@ -285,7 +285,7 @@ def fused_sel_aggregate_act(sel: torch.Tensor, pseudo: torch.Tensor,
     return out
 
 
-fused_sel_aggregate_act.launches = 0
+_build.counted(fused_sel_aggregate_act)
 
 
 def sel_aggregate_act_residuals(sel: torch.Tensor, pseudo: torch.Tensor,
@@ -321,7 +321,7 @@ def sel_aggregate_act_residuals(sel: torch.Tensor, pseudo: torch.Tensor,
     return out, ghat, denom
 
 
-sel_aggregate_act_residuals.launches = 0
+_build.counted(sel_aggregate_act_residuals)
 
 
 def sel_aggregate_act_vjp(g: torch.Tensor, sel: torch.Tensor,
@@ -371,7 +371,7 @@ def sel_aggregate_act_vjp(g: torch.Tensor, sel: torch.Tensor,
     return dsel, dpseudo, dproj, dgp_part.sum(dim=0)
 
 
-sel_aggregate_act_vjp.launches = 0
+_build.counted(sel_aggregate_act_vjp)
 
 
 class EdgeAggregateFunction(torch.autograd.Function):

@@ -128,7 +128,7 @@ def gather_rows_packed(table: torch.Tensor, rows: torch.Tensor,
     return out
 
 
-gather_rows_packed.launches = 0
+_build.counted(gather_rows_packed)
 
 
 def gather_rows_blocked(table: torch.Tensor, rows: torch.Tensor
@@ -160,7 +160,7 @@ def gather_rows_blocked(table: torch.Tensor, rows: torch.Tensor
     return out
 
 
-gather_rows_blocked.launches = 0
+_build.counted(gather_rows_blocked)
 
 
 class NodeImage(NamedTuple):
@@ -279,4 +279,4 @@ def gather_image_rows(features: torch.Tensor, boxes: torch.Tensor,
     return NodeImage(buf[..., :f + 4], bx)
 
 
-gather_image_rows.launches = 0
+_build.counted(gather_image_rows)

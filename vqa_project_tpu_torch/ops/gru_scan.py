@@ -175,7 +175,7 @@ def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return h_a if t % 2 == 0 else h_b
 
 
-gru_scan.launches = 0
+_build.counted(gru_scan)
 
 
 def _check_sweep_inputs(xp, w_hh, b_hh, qlen, hs, gh_final, hp):
@@ -253,7 +253,7 @@ def gru_scan_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return dxp, dhp
 
 
-gru_scan_bwd.launches = 0
+_build.counted(gru_scan_bwd)
 
 
 def _check_wgrad_inputs(dhp: torch.Tensor, hs: torch.Tensor) -> str:
@@ -305,7 +305,7 @@ def gru_wgrad(dhp: torch.Tensor, hs: torch.Tensor):
     return dw, db
 
 
-gru_wgrad.launches = 0
+_build.counted(gru_wgrad)
 
 
 class GRUScanFunction(torch.autograd.Function):

@@ -14,6 +14,13 @@ One training step is forward, masked loss, backward, Adam and the score;
 ``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
 loop.
 
+On one card, ``train_step`` replays its device work (the inputs' unpack
+and image gather, the forward, the loss, the backward and the score) as
+one CUDA graph once it has seen a batch of the same shapes: the first
+such call runs eagerly and warms up, the second captures, every later
+one copies its batch into the graph's inputs and replays
+(``step_path``). Adam and the schedule stay eager.
+
 Across data-parallel ranks (``parallel.Mesh``; the data axis of a
 (data, model) grid under tensor parallelism) each rank steps on its
 rows of the global batch: its loss is its masked sum over the GLOBAL
@@ -26,6 +33,7 @@ per-rank means is not wherever the ranks' valid counts differ.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +41,7 @@ import torch
 
 from vqa_project_tpu_torch.config import device_guard, torch_dtype
 from vqa_project_tpu_torch.data.loader import DENSE_KEYS, pack_index_batch
+from vqa_project_tpu_torch.ops._build import COUNTED
 from vqa_project_tpu_torch.ops.gather_rows import NodeImage, gather_image_rows
 from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
                                               vqa_score)
@@ -144,9 +153,8 @@ def unpack_index_batch(batch: Dict[str, torch.Tensor]
     return {k: v.contiguous() for k, v in fields.items()}
 
 
-def to_device(batch: Dict[str, object],
-              device: torch.device) -> Dict[str, torch.Tensor]:
-    """The fields a step reads, as tensors on ``device``: an index
+def _fields(batch: Dict[str, object]) -> Dict[str, torch.Tensor]:
+    """The fields a step reads, as tensors where they are: an index
     batch's packed pair (``ints``/``floats``; a host index batch is
     packed first) or a host batch's dense fields."""
     if "image_row" in batch:
@@ -157,8 +165,14 @@ def to_device(batch: Dict[str, object],
         v = batch[k]
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = v.to(device)
+        out[k] = v
     return out
+
+
+def to_device(batch: Dict[str, object],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    """The fields a step reads (``_fields``), as tensors on ``device``."""
+    return {k: v.to(device) for k, v in _fields(batch).items()}
 
 
 def _assemble_inputs(batch: Dict[str, torch.Tensor],
@@ -181,6 +195,172 @@ def _assemble_inputs(batch: Dict[str, torch.Tensor],
                                    n_answers),
             lambda logits, mask=None: sparse_vqa_score(
                 logits, batch["vote_idx"], batch["vote_val"], mask))
+
+
+# ---------------- the one-card step as a CUDA graph ----------------
+
+# each model's one graph (``_StepGraph``), of the key it last saw
+_STEP_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def step_path(cuda: bool, one_rank: bool, hooked: bool, seen: bool,
+              captured: bool, grads_static: bool) -> str:
+    """How ``train_step`` runs a call, from what it observes: "eager" off
+    a CUDA card, across ranks (a data-parallel mesh or a sharded
+    optimizer), with a hook on the model, or for a key other than the
+    model's last (that call is the key's warm-up); else "replay" of the
+    key's graph while every parameter keeps the gradient tensor and the
+    storage that its capture saw, and "capture" (then one replay) where
+    there is no graph yet or they moved."""
+    if not (cuda and one_rank) or hooked or not seen:
+        return "eager"
+    return "replay" if captured and grads_static else "capture"
+
+
+def _hooked(model) -> bool:
+    """A hook that a graph's replay would skip: a global module hook, a
+    forward, pre- or backward hook on a module of the model, or a hook on
+    a parameter."""
+    from torch.nn.modules import module as mm
+    if (mm._global_forward_hooks or mm._global_forward_pre_hooks
+            or mm._global_backward_hooks or mm._global_backward_pre_hooks):
+        return True
+    if any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
+           or m._backward_pre_hooks for m in model.modules()):
+        return True
+    return any(p._backward_hooks or p._post_accumulate_grad_hooks
+               for p in model.parameters())
+
+
+def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
+               image_fn: Optional[Callable],
+               generator: Optional[torch.Generator],
+               n_valid: Optional[float] = None,
+               reduce: Optional[Callable[[], None]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A step's work before the optimizer, which the eager step runs and
+    the graph captures: the inputs on the model's device, the train-mode
+    forward, the masked loss (over the global ``n_valid`` rows in a
+    data-parallel step), the zeroing of the gradients, the backward and
+    then ``reduce`` (the data-parallel sum). Returns (loss, score,
+    valid)."""
+    dev = next(model.parameters()).device
+    with annotate("train_step.inputs"):
+        question, image, qlen, mask, answers_fn, score_fn = \
+            _assemble_inputs({k: v.to(dev) for k, v in fields.items()},
+                             image_fn, model.cfg.out_dim)
+    with annotate("train_step.forward"):
+        logits, _, _ = model(question, image, qlen, train=True,
+                             generator=generator)
+        # a fill, not a copy: the global count reaches the card as a
+        # launch argument
+        count = (None if n_valid is None else
+                 torch.full((), float(n_valid), dtype=torch.float32,
+                            device=dev))
+        loss = multilabel_soft_margin_loss(logits, answers_fn(), mask,
+                                           count)
+    with annotate("train_step.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        if getattr(optimizer, "shards", None) is not None:
+            # the sharded parameters' own
+            model.zero_grad(set_to_none=True)
+        loss.backward()
+        if reduce is not None:
+            reduce()
+    with torch.no_grad():
+        return loss.detach(), score_fn(logits, mask), mask.sum()
+
+
+class _StepGraph:
+    """A model's graph for one key. ``refs`` (optimizer, generator,
+    image_fn) keeps the objects whose ids the key holds alive. A capture
+    makes the static inputs, the graph and its (3,) output, and notes
+    each parameter with the gradient tensor and the storage it saw, and
+    each launch counter's count in the step (``_build.COUNTED``), which
+    every later replay adds."""
+
+    def __init__(self, key: tuple, refs: tuple):
+        self.key, self.refs = key, refs
+        self.graph = self.inputs = self.out = None
+        self.params, self.launches = [], []
+
+    def grads_static(self) -> bool:
+        return all(p.grad is g and p.data_ptr() == ptr
+                   for p, g, ptr in self.params)
+
+    def copy_in(self, fields: Dict[str, torch.Tensor], dev) -> None:
+        if self.inputs is None:
+            self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                           for k, v in fields.items()}
+        for k, v in fields.items():
+            self.inputs[k].copy_(v)
+
+    def capture(self, model, optimizer, generator, image_fn) -> None:
+        # the old graph and its pool go first; the backward then writes
+        # fresh gradients, which every replay overwrites in place
+        self.graph = self.out = None
+        optimizer.zero_grad(set_to_none=True)
+        before = [f.launches for f in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            # every replay advances it by what an eager step draws (the
+            # default generator is registered by the capture itself)
+            graph.register_generator_state(generator)
+        # the loader's thread may pin memory while the capture runs
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.out = torch.stack(_step_body(model, optimizer, self.inputs,
+                                              image_fn, generator))
+        self.graph = graph
+        self.launches = [(f, f.launches - n)
+                         for f, n in zip(COUNTED, before) if f.launches != n]
+        self.params = [(p, p.grad, p.data_ptr()) for p in model.parameters()]
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        return self.out.clone()
+
+    def count_launches(self) -> None:
+        for f, n in self.launches:
+            f.launches += n
+
+
+def _graph_entry(model, optimizer, generator, image_fn,
+                 fields: Dict[str, torch.Tensor]):
+    """(the model's ``_StepGraph``, ``step_path``'s answer) of a one-card
+    call on the card. The key: every input's shape and dtype and the
+    identity of the optimizer, the generator and ``image_fn``. A model
+    keeps one graph: a key other than its last drops it, and the call
+    runs eagerly as the new key's first."""
+    key = (tuple((k, tuple(v.shape), v.dtype) for k, v in fields.items()),
+           id(optimizer), id(generator), id(image_fn))
+    entry = _STEP_GRAPHS.get(model)
+    seen = entry is not None and entry.key == key
+    if not seen:
+        entry = _STEP_GRAPHS[model] = _StepGraph(
+            key, (optimizer, generator, image_fn))
+    captured = entry.graph is not None
+    path = step_path(True, True, _hooked(model), seen, captured,
+                     captured and entry.grads_static())
+    return entry, path
+
+
+def _graphed_step(entry: _StepGraph, path: str, model, optimizer, scheduler,
+                  fields, generator, image_fn, dev) -> Dict[str, torch.Tensor]:
+    with annotate("train_step.inputs"):
+        entry.copy_in(fields, dev)
+    if path == "capture":
+        with annotate("train_step.capture"):
+            entry.capture(model, optimizer, generator, image_fn)
+    with annotate("train_step.graph"):
+        out = entry.replay()
+        if path == "replay":
+            # the capture ran the wrappers once; a replay runs none
+            entry.count_launches()
+    with annotate("train_step.optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+    return {"loss": out[0], "score": out[1], "valid": out[2]}
 
 
 def train_step(model, optimizer, scheduler, batch: Dict[str, object],
@@ -209,11 +389,23 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     one all-gather over the model group then writes them into the whole
     parameters (``parallel/tp.py``).
 
+    On one card (no process group, no sharded optimizer) with no hook on
+    the model, a call with the key (``_graph_entry``) of the call before
+    runs its device work before the optimizer (``_step_body``) as one
+    CUDA graph: the second call of a key captures, later ones replay
+    (``step_path``). Its
+    results, gradients and dropout draws are an eager step's, and each
+    wrapper's ``.launches`` counts a replay as the step it replays.
+
     Its spans (``train.profiling.annotate``): ``train_step`` around the
     call, and inside it ``train_step.inputs`` (the copy in, the unpack,
-    the image gather), ``.forward`` (the model, the loss and its labels),
+    the image gather; on the graph path the copy into the graph's
+    inputs), ``.forward`` (the model, the loss and its labels),
     ``.backward`` (the zeroing, autograd's backward, the data-parallel
-    reduce) and ``.optimizer`` (the optimizer and the schedule).
+    reduce) and ``.optimizer`` (the optimizer and the schedule). On the
+    graph path ``.graph`` (the replay and the copy of its results) takes
+    the place of ``.forward`` and ``.backward``; a capture runs them,
+    with a second ``.inputs``, inside ``.capture``.
     """
     dp = mesh is not None and mesh.distributed
     shards = getattr(optimizer, "shards", None)
@@ -233,28 +425,19 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
                 "batches")
     with annotate("train_step"):
         dev = next(model.parameters()).device
-        with annotate("train_step.inputs"):
-            question, image, qlen, mask, answers_fn, score_fn = \
-                _assemble_inputs(to_device(batch, dev), image_fn,
-                                 model.cfg.out_dim)
-        with annotate("train_step.forward"):
-            logits, _, _ = model(question, image, qlen, train=True,
-                                 generator=generator)
-            # a fill, not a copy: the global count reaches the card as a
-            # launch argument
-            count = (torch.full((), float(n_valid), dtype=torch.float32,
-                                device=dev) if dp else None)
-            loss = multilabel_soft_margin_loss(logits, answers_fn(), mask,
-                                               count)
-        with annotate("train_step.backward"):
-            optimizer.zero_grad(set_to_none=True)
-            if shards is not None:
-                # the sharded parameters' own
-                model.zero_grad(set_to_none=True)
-            loss.backward()
-            if dp:
-                all_reduce_grads(model, mesh, grad_reduce_dtype,
-                                 mesh.data_group)
+        fields = _fields(batch)
+        if dev.type == "cuda" and not dp and shards is None:
+            entry, path = _graph_entry(model, optimizer, generator,
+                                       image_fn, fields)
+            if path != "eager":
+                return _graphed_step(entry, path, model, optimizer,
+                                     scheduler, fields, generator, image_fn,
+                                     dev)
+        loss, score, valid = _step_body(
+            model, optimizer, fields, image_fn, generator,
+            n_valid if dp else None,
+            (lambda: all_reduce_grads(model, mesh, grad_reduce_dtype,
+                                      mesh.data_group)) if dp else None)
         with annotate("train_step.optimizer"):
             if shards is not None:
                 shards.load_grads()
@@ -263,9 +446,7 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
                 shards.gather()
             if scheduler is not None:
                 scheduler.step()
-        with torch.no_grad():
-            score = score_fn(logits, mask)
-        return {"loss": loss.detach(), "score": score, "valid": mask.sum()}
+        return {"loss": loss, "score": score, "valid": valid}
 
 
 def _eval_forward(model, b, image_fn):
