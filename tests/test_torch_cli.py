@@ -162,12 +162,15 @@ def test_flags_keep_the_jax_names_and_defaults():
     _, parser, _ = run.input_args([])
     _, j_parser, _ = j_run.input_args([])
     mine, theirs = _dests(parser), _dests(j_parser)
-    assert set(mine) == (set(theirs) - LEFT_OUT) | {"device"}
-    for dest in set(mine) - {"device"}:
+    added = {"device", "arch"}
+    assert set(mine) == (set(theirs) - LEFT_OUT) | added
+    for dest in set(mine) - added:
         assert mine[dest] == theirs[dest], dest
+    assert mine["arch"] == "graph"
     flags = {s for a in parser._actions for s in a.option_strings}
     j_flags = {s for a in j_parser._actions for s in a.option_strings}
-    assert flags == (j_flags - {f"--{d}" for d in LEFT_OUT}) | {"--device"}
+    assert flags == (j_flags - {f"--{d}" for d in LEFT_OUT}) | {
+        f"--{d}" for d in added}
 
 
 def test_both_clis_share_one_synthetic_directory(trained, tmp_path):

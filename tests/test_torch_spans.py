@@ -11,6 +11,7 @@ import os
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 import torch.autograd.profiler as autograd_profiler
@@ -288,3 +289,65 @@ def test_the_ring_keeps_the_newest():
     assert roots == sorted(roots) and roots[-1] - roots[0] == cap - 1
     profiling.clear_spans()
     assert profiling.recent_spans() == []
+
+
+def test_a_data_parallel_step_sums_its_gradients_in_its_own_span(splits):
+    import torch.distributed as dist
+    from vqa_project_tpu_torch.parallel.mesh import make_mesh
+    from vqa_project_tpu_torch.parallel.multihost import free_port
+    ds = splits["train"]
+    model = build_model(ModelConfig(**MODEL), ds, device="cpu")
+    optimizer, scheduler = make_optimizer(model, TrainConfig(), 10)
+    batch = next(iter(Batcher(ds, BS, materialize=True)))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, "cpu")
+        train_step(model, optimizer, scheduler, batch,
+                   torch.Generator().manual_seed(0), mesh=mesh,
+                   n_valid=float(batch["mask"].sum()))
+    finally:
+        dist.destroy_process_group()
+    spans = profiling.recent_spans()
+    (red,) = _named(spans, "train_step.allreduce")
+    (back,) = _named(spans, "train_step.backward")
+    assert red[PARENT] == "train_step.backward" and _inside(red, back)
+    assert red[ROOT] == back[ROOT]
+
+
+def _profiled_ops(ds, model, optimizer, scheduler, region_counts=None):
+    """The aten ops of making one index batch and stepping on it."""
+    image_fn = make_image_fn(make_feature_cache(
+        ds, TrainConfig(batch_size=BS), "float32", "cpu"), "float32")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        batch = next(iter(Batcher(ds, BS, materialize=False,
+                                  region_counts=region_counts)))
+        train_step(model, optimizer, scheduler, batch,
+                   torch.Generator().manual_seed(0), image_fn)
+    return sorted(e.name for e in prof.events() if e.name.startswith("aten::"))
+
+
+def test_neither_the_allreduce_span_nor_the_row_count_adds_to_a_one_card_step(
+        splits):
+    """A one-card step opens no ``train_step.allreduce``, and region
+    counts given to the Batcher (MCAN's padded-row count) add no op to
+    making a batch and stepping on it: the count is host arithmetic."""
+    ds = splits["train"]
+    model = build_model(ModelConfig(**MODEL), ds, device="cpu")
+    optimizer, scheduler = make_optimizer(model, TrainConfig(), 10)
+    # the first step makes Adam's state; the ring may hold counts of
+    # MCAN runs earlier in this process
+    _profiled_ops(ds, model, optimizer, scheduler)
+    profiling.clear_counts()
+    plain = _profiled_ops(ds, model, optimizer, scheduler)
+    assert profiling.recent_counts() == []
+    counted = _profiled_ops(ds, model, optimizer, scheduler, np.full(
+        ds.store.features.shape[0], N_OBJ - 2, np.int32))
+    made = profiling.recent_counts()
+    profiling.clear_counts()
+    assert counted == plain
+    assert [n for n, _, _ in made] == ["batch.rows", "batch.padded_rows"]
+    assert made[1][1] == made[0][1] - sum(
+        int(x) for x in ds.table.qlen[:BS]) - BS * (N_OBJ - 2)
+    assert not _named(profiling.recent_spans(), "train_step.allreduce")

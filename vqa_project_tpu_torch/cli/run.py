@@ -13,7 +13,10 @@ Left out: the TPU-only ``--pallas``, ``--no_pallas`` and
 ``--pallas_gather``: passing any of them, or any other unknown argument,
 raises SystemExit.
 Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-versions of the kernels).
+versions of the kernels) and ``--arch`` (default ``graph``, the
+conditioned-graph model; ``mcan``: MCAN-large, ``models/mcan.py``, on
+the same train step, Adam, image gather and evaluate, its questions cut
+to ``MAX_QLEN["mcan"]`` = 14 tokens, MCAN's MAX_TOKEN).
 
 Data parallelism: ``--bsize`` is the global batch, split over the
 ranks. ``--num_devices N`` (default: every visible card) starts N ranks,
@@ -55,6 +58,10 @@ from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import GraphVQADataset, write_synthetic_vqa
 from vqa_project_tpu_torch.parallel import multihost
 
+# the tokens a question keeps, by architecture: the dataset's default,
+# and MCAN's MAX_TOKEN
+MAX_QLEN = {"graph": 16, "mcan": 14}
+
 
 def input_args(argv=None):
     """(args, parser, unparsed arguments)."""
@@ -74,6 +81,13 @@ def input_args(argv=None):
                         help="number of epochs.")
     parser.add_argument("--bsize", metavar="", type=int, default=64,
                         help="batch size.")
+    parser.add_argument("--arch", type=str, default="graph",
+                        choices=sorted(MAX_QLEN),
+                        help="the model: graph (the conditioned-graph "
+                             "model) or mcan (MCAN-large, "
+                             "arXiv:1906.10770; its questions are cut to "
+                             "14 tokens; pair it with --n_obj 100 "
+                             "--dropout 0.1)")
     parser.add_argument("--n_kernels", type=int, default=8,
                         help="number of Gaussian kernels.")
     parser.add_argument("--hid", metavar="", type=int, default=1024,
@@ -203,7 +217,8 @@ def make_configs(args):
     mcfg = ModelConfig(
         emb_dim=args.emb, hid_dim=args.hid, n_kernels=args.n_kernels,
         neighbourhood_size=args.neighbourhood_size, n_obj=args.n_obj,
-        dropout=args.dropout, compute_dtype=args.compute_dtype)
+        dropout=args.dropout, compute_dtype=args.compute_dtype,
+        arch=args.arch)
     tcfg = TrainConfig(
         lr=args.lr, epochs=args.ep, batch_size=args.bsize,
         log_interval=args.log_interval, eval_interval=args.eval_interval,
@@ -267,11 +282,11 @@ def ensure_synthetic(sdir: str, knobs: dict, generate) -> None:
             "rank 0 generated it; --data_dir must be shared by every rank")
 
 
-def _dataset(args, split):
+def _dataset(args, split, arch: str = "graph"):
     data_dir = synthetic_dir(args) if args.synthetic else args.data_dir
     # rank 0 packs the feature store on first use, the others then read it
     return multihost.primary_first(lambda: GraphVQADataset.vqa2(
-        data_dir, split, args.emb, args.n_obj))
+        data_dir, split, args.emb, args.n_obj, MAX_QLEN[arch]))
 
 
 def train(args):
@@ -281,8 +296,8 @@ def train(args):
 
     mcfg, tcfg = make_configs(args)
     print("Loading data", flush=True)
-    train_ds = _dataset(args, "train")
-    val_ds = _dataset(args, "val")
+    train_ds = _dataset(args, "train", args.arch)
+    val_ds = _dataset(args, "val", args.arch)
     _print_params(train_ds, args)
     return fit(tcfg, mcfg, train_ds, val_ds, device=args.device,
                resume_path=args.model_path, save_every_epoch=True,
@@ -298,7 +313,7 @@ def trainval(args):
 
     mcfg, tcfg = make_configs(args)
     print("Loading data", flush=True)
-    ds = _dataset(args, "trainval")
+    ds = _dataset(args, "trainval", args.arch)
     _print_params(ds, args)
     model, optimizer, acc = fit(
         tcfg, mcfg, ds, device=args.device, resume_path=args.model_path,
@@ -342,7 +357,7 @@ def _run_eval(args, split):
     print("Resuming from checkpoint %s" % args.model_path, flush=True)
     mcfg, tcfg = make_configs(args)
     print("Loading data", flush=True)
-    ds = _dataset(args, split)
+    ds = _dataset(args, split, args.arch)
     _print_params(ds, args)
     model = build_model(mcfg, ds, device=args.device, seed=args.seed)
     load_checkpoint(args.model_path, model)

@@ -43,6 +43,11 @@ class ModelConfig:
     # the weight-norm layers (ops/quant.py); build the model with this on
     # and load quantize_state_dict_for_serving of a float state_dict
     quantized_inference: bool = False
+    # the architecture: "graph" (models/graph_vqa.py) or "mcan", the
+    # deep modular co-attention network (models/mcan.py, arXiv:1906.10770)
+    # on hid_dim, emb_dim, the regions' feat_dim - 4 features, n_obj,
+    # max_qlen, out_dim - 1 answers and dropout
+    arch: str = "graph"
 
 
 @dataclasses.dataclass

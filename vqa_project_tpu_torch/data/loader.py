@@ -54,6 +54,12 @@ class Batcher:
     answers, votes) for rank's rows of each global batch only
     (``parallel.multihost.local_batch_rows``); the other fields and the
     batch's order stay global.
+
+    Given ``region_counts``, (n_images,) each image's count of live
+    regions (MCAN's, ``data.store.region_counts``), each batch made
+    counts its token and region rows and those of them that are padding
+    (``train.profiling.count``: ``batch.rows``, ``batch.padded_rows``),
+    on the host, from the batch's lengths and its images' counts.
     """
 
     def __init__(self, dataset: GraphVQADataset, batch_size: int,
@@ -61,7 +67,8 @@ class Batcher:
                  drop_last: bool = False, materialize: bool = True,
                  partitions: Optional[np.ndarray] = None,
                  n_partitions: Optional[int] = None,
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None,
+                 region_counts: Optional[np.ndarray] = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -81,6 +88,7 @@ class Batcher:
         self.dense_rows = slice(None)
         if shard is not None and shard[1] > 1:
             self.dense_rows = local_batch_rows(batch_size, *shard)
+        self.region_counts = region_counts
         self.seed = seed
         self._epoch = 0
         self._skip_next = 0
@@ -166,6 +174,15 @@ class Batcher:
                 image_row=t.image_row[rows],
                 ans_idx=t.ans_idx[rows], ans_score=t.ans_score[rows],
                 vote_idx=t.vote_idx[rows], vote_val=t.vote_val[rows])
+        counts = self.region_counts
+        if counts is not None:
+            # train/ imports this module
+            from vqa_project_tpu_torch.train.profiling import count
+            rows_all = bs * (t.max_qlen + ds.n_obj)
+            live = (int(batch["qlen"].sum())
+                    + int(counts[t.image_row[rows]].sum()))
+            count("batch.rows", rows_all)
+            count("batch.padded_rows", rows_all - live)
         return batch
 
 

@@ -84,6 +84,23 @@ def pack_paths(feat_path: str, box_path: str, sizes_csv: str, n_obj: int,
             os.path.join(cache_dir, f"packed_{path_tag}_*"))
 
 
+def region_counts(features, chunk: int = 1024) -> np.ndarray:
+    """(N,) int32: for each image of a (N, K, F) table, one past its last
+    region row that is not all zero (0 for an image of zero rows), read
+    ``chunk`` images at a time. Where an image's zero rows are its last
+    ones, as padded detector features are, its first ``count`` rows are
+    exactly those whose features do not sum to 0 in absolute value
+    (MCAN's padding rule)."""
+    n, k = features.shape[:2]
+    out = np.zeros((n,), np.int32)
+    for i in range(0, n, chunk):
+        live = np.abs(np.asarray(features[i:i + chunk],
+                                 np.float32)).sum(-1) > 0
+        last = k - np.argmax(live[:, ::-1], axis=1)
+        out[i:i + len(live)] = np.where(live.any(axis=1), last, 0)
+    return out
+
+
 class FeatureStore:
     """(n_images, K, feat) features + (n_images, K, 4) boxes, by row."""
 

@@ -44,6 +44,7 @@ from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
 from vqa_project_tpu_torch.ops.dropout import dropout
 from vqa_project_tpu_torch.ops.gather_rows import NodeImage
 from vqa_project_tpu_torch.ops.graph_block import padded_rows
+from vqa_project_tpu_torch.ops.losses import multilabel_soft_margin_loss
 from vqa_project_tpu_torch.ops.matmul import matmul
 
 
@@ -289,6 +290,12 @@ class GraphVQAModel(nn.Module):
     a float state_dict, serves only (its train-mode forward raises) and
     refuses ``merged_block``, as the JAX package's does.
     """
+
+    # the logits' last column is the answer vocabulary's pad slot, which
+    # evaluation never picks
+    pad_logit = True
+    # the training loss (a train step's): the masked soft-margin mean
+    loss = staticmethod(multilabel_soft_margin_loss)
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()

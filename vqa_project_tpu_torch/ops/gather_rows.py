@@ -14,7 +14,10 @@ tensors:
   whole image in one launch: F's features and the boxes gathered
   together, converted to the compute dtype and written straight into
   the model's node rows ``feat||bbox`` (padded for the merged block),
-  with the f32 boxes beside them (a ``NodeImage``).
+  with the f32 boxes beside them (a ``NodeImage``);
+- ``gather_region_rows`` gathers a feature-only image for MCAN (a
+  ``RegionImage``): kernel F's launch of the rows in the table's dtype,
+  and each row's region count beside them.
 
 Rows are clamped to [0, N), as ``jnp.take(mode="clip")`` does. On CPU
 tensors each takes its plain version: ``gather_rows_reference``
@@ -280,3 +283,28 @@ def gather_image_rows(features: torch.Tensor, boxes: torch.Tensor,
 
 
 _build.counted(gather_image_rows)
+
+
+class RegionImage(NamedTuple):
+    """A batch of images as MCAN reads them: the region rows (B, K, F) as
+    the table holds them, and each image's count of regions (B,) int32,
+    its live rows being the first ``count``; the rows after them are the
+    table's zero rows."""
+
+    feats: torch.Tensor      # (B, K, F)
+    count: torch.Tensor      # (B,) int32
+
+
+def gather_region_rows(features: torch.Tensor, counts: torch.Tensor,
+                       rows: torch.Tensor) -> RegionImage:
+    """``RegionImage`` of the clamped ``rows`` (B,) int32 of a (N, K, F)
+    feature table and its (N,) int32 region counts, on the table's
+    device: the rows by ``gather_rows_packed`` (one launch of kernel F on
+    CUDA tensors), the counts by an ``index_select`` of the same rows."""
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (
+            features.shape[0],) or counts.device != features.device:
+        raise ValueError(f"counts must be int32 {(features.shape[0],)} on "
+                         f"{features.device}")
+    feats = gather_rows_packed(features, rows)
+    return RegionImage(feats, counts.index_select(
+        0, rows.clamp(0, features.shape[0] - 1)))

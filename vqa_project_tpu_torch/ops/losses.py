@@ -5,6 +5,8 @@ Counterpart of ``vqa_project_tpu/ops/losses.py``:
 - the soft-target multi-label BCE-with-logits of
   ``nn.MultiLabelSoftMarginLoss`` (mean over classes, then over the
   batch), with an optional per-sample validity mask;
+- MCAN's loss, the same elementwise BCE summed over the batch and the
+  answers (``nn.BCELoss(reduction="sum")`` of the sigmoid);
 - the official VQA score min(#votes[pred] / 3, 1), summed over a batch.
 """
 
@@ -48,6 +50,22 @@ def multilabel_soft_margin_loss(
     per_sample = torch.where(m > 0, per_sample, torch.zeros_like(per_sample))
     return per_sample.sum() / torch.clamp(m.sum() if count is None else count,
                                           min=1.0)
+
+
+def bce_sum_loss(logits: torch.Tensor, targets: torch.Tensor,
+                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scalar float32: ``y * softplus(-x) + (1 - y) * softplus(x)``, the
+    BCE of sigmoid(x) against the soft label y, summed over the answers
+    and the rows whose ``sample_mask`` is > 0 (all rows without a mask;
+    the mask applied by ``where``, as above). A sum needs no count: the
+    data-parallel ranks' sums add up to the global batch's."""
+    x = logits.float()
+    y = targets.float()
+    per_sample = (y * F.softplus(-x) + (1.0 - y) * F.softplus(x)).sum(-1)
+    if sample_mask is not None:
+        per_sample = torch.where(sample_mask.float() > 0, per_sample,
+                                 torch.zeros_like(per_sample))
+    return per_sample.sum()
 
 
 def vqa_score(logits: torch.Tensor, n_votes: torch.Tensor,

@@ -5,7 +5,8 @@ the data-parallel ranks of a process group (``parallel``):
 
 - ``make_feature_cache`` puts the dataset's feature table on the device
   when it fits ``device_cache_bytes`` (as a (features, boxes) pair in
-  the cache dtype on every rank, or int8 with per-box scales), else
+  the cache dtype on every rank, or int8 with per-box scales; for MCAN
+  a ``RegionCache`` of the features and each image's region count), else
   splits it over the ranks when a share fits
   (``parallel.ShardedFeatureCache``), else returns None: host mode,
   dense batches from the host;
@@ -46,6 +47,8 @@ from vqa_project_tpu_torch.config import (ModelConfig, TrainConfig,
                                           resolve_device, torch_dtype)
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
 from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
+from vqa_project_tpu_torch.data.store import region_counts
+from vqa_project_tpu_torch.models import make_model
 from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
 from vqa_project_tpu_torch.ops.quant import quantize_feature_table
 from vqa_project_tpu_torch.parallel import multihost
@@ -61,6 +64,7 @@ from vqa_project_tpu_torch.train.state import (load_checkpoint,
                                                make_optimizer,
                                                save_checkpoint)
 from vqa_project_tpu_torch.train.steps import (QuantizedFeatureCache,
+                                               RegionCache,
                                                eval_epoch, eval_step,
                                                make_image_fn,
                                                stack_epoch_batches,
@@ -75,17 +79,20 @@ _UNSET = object()
 
 
 def build_model(model_cfg: ModelConfig, ds: GraphVQADataset, *,
-                device="cuda", seed: int = 1000) -> GraphVQAModel:
-    """The model at the dataset's widths (vocabulary, embedding, feature,
-    answer and object counts, question length), weights from ``seed``
-    and the dataset's word embeddings."""
+                device="cuda", seed: int = 1000) -> torch.nn.Module:
+    """The model of ``model_cfg.arch`` (``models.make_model``) at the
+    dataset's widths (vocabulary, embedding, feature, answer and object
+    counts, question length), weights from ``seed`` and the dataset's
+    word embeddings."""
     cfg = dataclasses.replace(
         model_cfg, vocab_size=ds.q_words,
         emb_dim=ds.pretrained_wemb.shape[1], feat_dim=ds.feat_dim,
         out_dim=ds.n_answers, n_obj=ds.n_obj, max_qlen=ds.max_qlen)
-    model = GraphVQAModel(cfg, device=device, seed=seed)
+    model = make_model(cfg, device=device, seed=seed)
+    embedding = (model.wembed if isinstance(model, GraphVQAModel)
+                 else model.embedding)
     with torch.no_grad():
-        model.wembed.weight.copy_(torch.from_numpy(ds.pretrained_wemb))
+        embedding.weight.copy_(torch.from_numpy(ds.pretrained_wemb))
     return model
 
 
@@ -124,9 +131,26 @@ def _make_int8_cache(store, train_cfg: TrainConfig, compute_dtype: str,
                                  out_dtype=compute_dtype or "float32")
 
 
+def _make_region_cache(store, train_cfg: TrainConfig, dtype: torch.dtype,
+                       device: torch.device) -> Optional[RegionCache]:
+    """MCAN's cache (``RegionCache``: the features and each image's
+    region count, ``data.store.region_counts``) when it fits the budget,
+    else None."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_images = store.features.shape[0]
+    nbytes = store.features.size * itemsize + n_images * 4
+    if nbytes > train_cfg.device_cache_bytes:
+        print(f"region table {nbytes / 1e9:.1f} GB exceeds device cache "
+              "budget; streaming features from host", flush=True)
+        return None
+    counts = region_counts(store.features, _UPLOAD_ROWS)
+    return RegionCache(_upload(store.features, dtype, device),
+                       torch.from_numpy(counts).to(device))
+
+
 def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
                        compute_dtype: Optional[str] = None, device="cuda",
-                       mesh: Optional[Mesh] = None):
+                       mesh: Optional[Mesh] = None, arch: str = "graph"):
     """The dataset's feature table on ``device`` (``mesh.device`` with a
     mesh), or None (host mode).
 
@@ -139,7 +163,9 @@ def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
     mesh's ranks becomes a ``ShardedFeatureCache`` (rank r uploads only
     its rows); else None. On a (data, model) mesh a table over the
     budget streams from the host, as in JAX: the sharded cache is the
-    1-D mesh's.
+    1-D mesh's. For ``arch`` "mcan" the table becomes a ``RegionCache``
+    on every rank when it fits, else None, in the cache dtype or, where
+    that is int8, in the compute dtype.
     """
     dev = resolve_device(device) if mesh is None else mesh.device
     world = 1 if mesh is None else mesh.data_world
@@ -147,12 +173,16 @@ def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
     cache_dtype = train_cfg.feature_cache_dtype
     if cache_dtype == "auto":
         cache_dtype = compute_dtype or "float32"
-    if cache_dtype == "int8":
+    if cache_dtype == "int8" and arch != "mcan":
         qc = _make_int8_cache(store, train_cfg, compute_dtype, dev)
         if qc is not None:
             return qc
+    if cache_dtype == "int8":
+        # over the budget, or MCAN's region table, which has no int8 form
         cache_dtype = compute_dtype or "float32"
     dtype = torch_dtype(cache_dtype)
+    if arch == "mcan":
+        return _make_region_cache(store, train_cfg, dtype, dev)
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = store.features.size * itemsize + store.boxes.nbytes
     if nbytes <= train_cfg.device_cache_bytes:
@@ -196,9 +226,13 @@ def _rank_part(mesh: Mesh, cache):
     return part
 
 
-def _locality_kwargs(cache, ds: GraphVQADataset, mesh: Mesh) -> dict:
-    """Batcher kwargs: locality batches over a sharded cache, and in host
-    mode the dense fields of this rank's rows only."""
+def _batcher_kwargs(cache, ds: GraphVQADataset, mesh: Mesh) -> dict:
+    """Batcher kwargs: locality batches over a sharded cache, in host
+    mode the dense fields of this rank's rows only, and over MCAN's
+    region table the images' region counts, from which each batch counts
+    its padded rows."""
+    if isinstance(cache, RegionCache):
+        return {"region_counts": cache.counts.cpu().numpy()}
     if isinstance(cache, ShardedFeatureCache):
         return {"partitions": cache.partitions()[ds.table.image_row],
                 "n_partitions": mesh.data_world}
@@ -306,7 +340,7 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         resume_path: Optional[str] = None, save_every_epoch: bool = False,
         jsonl_path: Optional[str] = None, cache=_UNSET, val_cache=_UNSET,
         step_timer: Optional[StepTimer] = None, mesh: Optional[Mesh] = None
-        ) -> Tuple[GraphVQAModel, torch.optim.Optimizer, float]:
+        ) -> Tuple[torch.nn.Module, torch.optim.Optimizer, float]:
     """Train for ``train_cfg.epochs`` epochs; returns (model, optimizer,
     accuracy % of the last epoch).
 
@@ -364,13 +398,14 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
                         seed=train_cfg.seed)
     if cache is _UNSET:
         cache = make_feature_cache(train_ds, train_cfg,
-                                   model_cfg.compute_dtype, dev, mesh)
+                                   model_cfg.compute_dtype, dev, mesh,
+                                   model_cfg.arch)
     image_fn = make_image_fn(cache, model_cfg.compute_dtype,
                              model_cfg.merged_block)
     part = _rank_part(mesh, cache)
     loader = Batcher(train_ds, bs, shuffle=True, seed=train_cfg.seed,
                      drop_last=True, materialize=cache is None,
-                     **_locality_kwargs(cache, train_ds, mesh))
+                     **_batcher_kwargs(cache, train_ds, mesh))
     steps_per_epoch = len(loader)
     optimizer, scheduler = make_optimizer(model, train_cfg, steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(
@@ -406,11 +441,11 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
             val_cache = (cache if _same_store(val_ds.store, train_ds.store)
                          else make_feature_cache(val_ds, train_cfg,
                                                  model_cfg.compute_dtype,
-                                                 dev, mesh))
+                                                 dev, mesh, model_cfg.arch))
         val_iter = _batches_forever(Batcher(
             val_ds, bs, shuffle=True, seed=train_cfg.seed + 1,
             materialize=val_cache is None,
-            **_locality_kwargs(val_cache, val_ds, mesh)))
+            **_batcher_kwargs(val_cache, val_ds, mesh)))
         val_part = _rank_part(mesh, val_cache)
         if val_cache is None:
             val_fn = lambda: mini_validation(  # noqa: E731
@@ -497,7 +532,7 @@ def _emit(ds: GraphVQADataset, host_batch: Dict[str, np.ndarray],
                        "answer": ds.a_itow[int(preds[i])]})
 
 
-def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
+def evaluate(model: torch.nn.Module, ds: GraphVQADataset, batch_size: int, *,
              result_path: Optional[str] = "result.json",
              collect_adjacency: bool = False,
              max_batches: Optional[int] = None, cache=_UNSET,
@@ -540,14 +575,15 @@ def evaluate(model: GraphVQAModel, ds: GraphVQADataset, batch_size: int, *,
     with annotate("evaluate"):
         if cache is _UNSET:
             cache = make_feature_cache(ds, train_cfg or TrainConfig(
-                batch_size=batch_size), model.cfg.compute_dtype, dev, mesh)
+                batch_size=batch_size), model.cfg.compute_dtype, dev, mesh,
+                model.cfg.arch)
         image_fn = make_image_fn(cache, model.cfg.compute_dtype,
                                  model.cfg.merged_block)
         part = _rank_part(mesh, cache)
         # a generator: its batches are built where it is iterated
         batches = iter(Batcher(ds, batch_size, shuffle=False,
                                materialize=cache is None,
-                               **_locality_kwargs(cache, ds, mesh)))
+                               **_batcher_kwargs(cache, ds, mesh)))
         if max_batches is not None:
             batches = itertools.islice(batches, max_batches)
 

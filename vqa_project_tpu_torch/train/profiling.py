@@ -9,6 +9,8 @@ names:
 - ``annotate(name)``: a named region, kept in the process's ring of
   spans (``recent_spans``, ``clear_spans``) whether or not a profiler
   runs, and a region in the profiler's trace while one runs;
+- ``count(name, value)``: a host counter's record, kept in a ring of
+  its own (``recent_counts``, ``clear_counts``);
 - ``force_sync(x)``: wait until ``x`` is computed;
 - ``StepTimer``: wall-clock step times with a warm-up left out, and the
   JAX package's summary (steps, mean, p50, p95, QA pairs/s per card).
@@ -31,6 +33,8 @@ import torch.autograd.profiler as _autograd_profiler
 # root_id, thread id, t0_ns, t1_ns, profiled)
 _SPANS: "collections.deque" = collections.deque(maxlen=1 << 17)
 _ROOT_IDS = itertools.count()
+# every counter record, oldest first: (name, value, t_ns)
+_COUNTS: "collections.deque" = collections.deque(maxlen=1 << 17)
 _THREAD = threading.local()
 
 
@@ -102,6 +106,25 @@ def recent_spans() -> List[Tuple]:
 def clear_spans() -> None:
     """Empty the ring of spans."""
     _SPANS.clear()
+
+
+def count(name: str, value: int) -> None:
+    """Append ``(name, value, t_ns)`` to the ring of counts (the last
+    131,072), on ``annotate``'s clock. Host arithmetic only: it never
+    touches a tensor. The loader's ``Batcher`` counts ``batch.rows`` and
+    ``batch.padded_rows``: the token and region rows of each batch it
+    makes for MCAN, and those of them that are padding."""
+    _COUNTS.append((name, int(value), time.perf_counter_ns()))
+
+
+def recent_counts() -> List[Tuple]:
+    """A copy of the ring of counts, oldest first (``count``)."""
+    return list(_COUNTS)
+
+
+def clear_counts() -> None:
+    """Empty the ring of counts."""
+    _COUNTS.clear()
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:

@@ -7,10 +7,13 @@ Counterpart of ``vqa_project_tpu/train/steps.py``. Ingest modes:
   carries token ids, lengths, image rows and SPARSE answer/vote entries
   (``data.loader.pack_index_batch``), and the step gathers its images
   as the model's node rows in one launch (``make_image_fn``, a
-  ``NodeImage``) and densifies its labels on the device;
+  ``NodeImage``; for MCAN a ``RegionCache`` of feature-only rows and
+  region counts, a ``RegionImage``) and densifies its labels on the
+  device;
 - host mode: the batch carries dense images, answers and votes.
 
-One training step is forward, masked loss, backward, Adam and the score;
+One training step is forward, the model's masked loss (``model.loss``),
+backward, Adam and the score;
 ``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
 loop.
 
@@ -42,9 +45,10 @@ import torch
 from vqa_project_tpu_torch.config import device_guard, torch_dtype
 from vqa_project_tpu_torch.data.loader import DENSE_KEYS, pack_index_batch
 from vqa_project_tpu_torch.ops._build import COUNTED
-from vqa_project_tpu_torch.ops.gather_rows import NodeImage, gather_image_rows
-from vqa_project_tpu_torch.ops.losses import (multilabel_soft_margin_loss,
-                                              vqa_score)
+from vqa_project_tpu_torch.ops.gather_rows import (NodeImage,
+                                                   gather_image_rows,
+                                                   gather_region_rows)
+from vqa_project_tpu_torch.ops.losses import vqa_score
 from vqa_project_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
 from vqa_project_tpu_torch.train.profiling import annotate
@@ -61,6 +65,15 @@ class QuantizedFeatureCache(NamedTuple):
     scales: torch.Tensor     # (N, K) float32
     boxes: torch.Tensor      # (N, K, 4) float32
     out_dtype: str           # dequantization target
+
+
+class RegionCache(NamedTuple):
+    """MCAN's device feature table: the region rows (N, K, F) in the
+    cache dtype, and each image's count of live regions (N,) int32, its
+    rows past the count zero (``data.store.region_counts``)."""
+
+    features: torch.Tensor
+    counts: torch.Tensor
 
 
 def densify_labels(idx: torch.Tensor, val: torch.Tensor,
@@ -98,9 +111,20 @@ def make_image_fn(feature_cache, compute_dtype: str,
     node rows feat||bbox in ``compute_dtype`` (an int8 cache dequantized
     there), in rows padded for the merged block when ``merged_block``,
     and the f32 boxes. An int8 cache must dequantize to ``compute_dtype``.
+    A ``RegionCache`` (MCAN) gives ``rows -> RegionImage`` instead: the
+    rows as the table holds them, by one launch of ``gather_region_rows``,
+    with their region counts.
     """
     if feature_cache is None:
         return None
+    if isinstance(feature_cache, RegionCache):
+        features, counts = feature_cache
+
+        def region_fn(rows):
+            with device_guard(rows.device):
+                return gather_region_rows(features, counts, rows)
+
+        return region_fn
     if isinstance(feature_cache, ShardedFeatureCache):
         return feature_cache.gather_fn(compute_dtype, merged_block)
     node_dtype = torch_dtype(compute_dtype)
@@ -240,9 +264,10 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A step's work before the optimizer, which the eager step runs and
     the graph captures: the inputs on the model's device, the train-mode
-    forward, the masked loss (over the global ``n_valid`` rows in a
-    data-parallel step), the zeroing of the gradients, the backward and
-    then ``reduce`` (the data-parallel sum). Returns (loss, score,
+    forward, the model's masked loss (``model.loss``; a mean over the
+    global ``n_valid`` rows in a data-parallel step), the zeroing of the
+    gradients, the backward and then ``reduce`` (the data-parallel sum,
+    in its span ``train_step.allreduce``). Returns (loss, score,
     valid)."""
     dev = next(model.parameters()).device
     with annotate("train_step.inputs"):
@@ -257,8 +282,7 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
         count = (None if n_valid is None else
                  torch.full((), float(n_valid), dtype=torch.float32,
                             device=dev))
-        loss = multilabel_soft_margin_loss(logits, answers_fn(), mask,
-                                           count)
+        loss = model.loss(logits, answers_fn(), mask, count)
     with annotate("train_step.backward"):
         optimizer.zero_grad(set_to_none=True)
         if getattr(optimizer, "shards", None) is not None:
@@ -266,7 +290,8 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
             model.zero_grad(set_to_none=True)
         loss.backward()
         if reduce is not None:
-            reduce()
+            with annotate("train_step.allreduce"):
+                reduce()
     with torch.no_grad():
         return loss.detach(), score_fn(logits, mask), mask.sum()
 
@@ -370,7 +395,9 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
                grad_reduce_dtype: str = "float32"
                ) -> Dict[str, torch.Tensor]:
     """One step: train-mode forward (dropout from ``generator``), the
-    masked soft-margin loss, backward, the optimizer and the scheduler.
+    model's masked loss (``model.loss``: the conditioned-graph model's
+    soft-margin mean, MCAN's summed BCE), backward, the optimizer and the
+    scheduler.
 
     ``batch`` is a host batch (numpy or tensors) or, with ``image_fn``
     from ``make_image_fn``, an index batch (packed or not). Returns 0-d
@@ -401,8 +428,9 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     call, and inside it ``train_step.inputs`` (the copy in, the unpack,
     the image gather; on the graph path the copy into the graph's
     inputs), ``.forward`` (the model, the loss and its labels),
-    ``.backward`` (the zeroing, autograd's backward, the data-parallel
-    reduce) and ``.optimizer`` (the optimizer and the schedule). On the
+    ``.backward`` (the zeroing, autograd's backward and, inside it,
+    ``.allreduce``: the data-parallel sum) and ``.optimizer`` (the
+    optimizer and the schedule). On the
     graph path ``.graph`` (the replay and the copy of its results) takes
     the place of ``.forward`` and ``.backward``; a capture runs them,
     with a second ``.inputs``, inside ``.capture``.
@@ -453,9 +481,10 @@ def _eval_forward(model, b, image_fn):
     question, image, qlen, mask, _, score_fn = _assemble_inputs(
         b, image_fn, model.cfg.out_dim)
     logits, adjacency, _ = model(question, image, qlen)
-    # the last column, the answer vocabulary's pad slot, never wins: it
-    # has no word and is never a label
-    logits[:, -1] = float("-inf")
+    if model.pad_logit:
+        # the last column, the answer vocabulary's pad slot, never wins:
+        # it has no word and is never a label
+        logits[:, -1] = float("-inf")
     preds = torch.argmax(logits, dim=-1).to(torch.int32)
     return preds, score_fn(logits, mask), adjacency
 
@@ -465,7 +494,7 @@ def eval_step(model, batch: Dict[str, object],
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eval forward of a host batch, or of an index batch with
     ``image_fn``: (preds (B,) int32, summed VQA score, adjacency
-    (B, K, K) f32), on the model's device."""
+    (B, K, K) f32, None for MCAN), on the model's device."""
     dev = next(model.parameters()).device
     return _eval_forward(model, to_device(batch, dev), image_fn)
 
