@@ -200,6 +200,18 @@ Phases, in order; the first failure exits non-zero:
     losses and weights equal to the one-process fit's bit for bit, the
     launches per rank per step as in (a), the parameters that shard, each
     rank's Adam moment bytes against the whole, the gloo all-gather's ms;
+20. the fused Adam kernel (``python3 chip_smoke.py --phase 20`` runs
+    phases 1, 2 and 20 alone; in the full run it comes after phase 19):
+    adam_fused_step at VQA v2's and MCAN-large's parameter lists (every
+    tensor of the models at their published widths, two empty ones
+    added) and at unaligned shards, moments in f32 and in bf16, three
+    steps against the plain _foreach version bit for bit, then (but the
+    shards) timed (device time behind a
+    sleep kernel) beside its byte bound, the plain version and, with f32
+    moments, torch.optim.Adam(fused=True) as a yardstick only; and eight
+    full-width bf16 train steps (B = 64, host batches) with one launch a
+    step, the first eager and the rest inside the step's CUDA graph
+    (adam.graphed 0, then 1);
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -273,10 +285,12 @@ from vqa_project_tpu_torch.data import (Batcher, FeatureStore,
 from vqa_project_tpu_torch.data import zarr_store
 from vqa_project_tpu_torch.data.preprocess import image_features
 from vqa_project_tpu_torch.data.store import _read_sizes_csv, pack_paths
-from vqa_project_tpu_torch.models import (GraphVQAModel,
+from vqa_project_tpu_torch.models import (GraphVQAModel, make_model,
                                           load_reference_checkpoint)
 from vqa_project_tpu_torch.models.graph_vqa import GaussianGraphConv
 from vqa_project_tpu_torch.ops import quant
+from vqa_project_tpu_torch.ops.adam import (AdamTable, adam_fused_step,
+                                            adam_reference)
 from vqa_project_tpu_torch.ops import (_build, bbox_centres,
                                        masked_neighbourhood,
                                        polar_pseudo_coords)
@@ -322,6 +336,11 @@ SEED = 20261016
 FULL = dict(vocab_size=13000, emb_dim=300, feat_dim=2052, hid_dim=1024,
             out_dim=3001, combined_dim=512, n_kernels=8,
             neighbourhood_size=16, n_obj=36, dropout=0.5, max_qlen=16)
+# MCAN-large (arXiv:1906.10770) at its published widths, as ModelConfig
+# takes them
+MCAN_LARGE = dict(arch="mcan", vocab_size=20000, emb_dim=300, feat_dim=2052,
+                  hid_dim=1024, out_dim=3130, n_obj=100, max_qlen=14,
+                  dropout=0.1)
 SERVE_B = 16
 TRAIN_B = 64     # TrainConfig's default batch
 DROPOUT = 0.5    # ModelConfig's default rate
@@ -5402,13 +5421,168 @@ def data_parallel(dev, smi, legs="abcde"):
           f"({smi}): " + json.dumps(numbers), flush=True)
     return numbers
 
+# ---------------- phase 20: the fused Adam kernel ----------------
+
+
+def param_shapes(cfg, dev):
+    """The parameter shapes of ``cfg``'s model at its widths, and two
+    empty tensors."""
+    model = make_model(cfg, device=dev, seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters()] + [(0,), (3, 0)]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def adam_lists(shapes, mu, nu, dev, seed=SEED):
+    """(params, grads, mus, nus) on ``dev`` for Adam in ``shapes``, or
+    with ``shapes`` None as views at offsets that no 16-byte access fits
+    (a tensor-parallel shard's: odd starts in one buffer each, an empty
+    one among them): parameters N(0, 1), gradients over six decades with
+    5% exactly 0, moments in ``mu`` / ``nu`` and not zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cuts = None
+    if shapes is None:
+        cuts, at = [], 1
+        for n in (999, 4003, 0, 17, 65539):
+            cuts.append((at, at + n))
+            at += n + 3
+        shapes = [(b - a,) for a, b in cuts]
+
+    def rand(shape, dtype=torch.float32, kind="normal"):
+        x = (torch.randn if kind == "normal" else torch.rand)(
+            shape, generator=g, device=dev)
+        return x.to(dtype)
+
+    def place(ts, dtype):
+        if cuts is None:
+            return ts
+        flat = torch.empty(cuts[-1][1] + 3, dtype=dtype, device=dev)
+        return [flat[a:b].copy_(t) for (a, b), t in zip(cuts, ts)]
+
+    ps = [rand(s) for s in shapes]
+    gs = [rand(s) * 10.0 ** torch.randint(-4, 2, s, generator=g, device=dev)
+          * (rand(s, kind="uniform") > 0.05) for s in shapes]
+    mus = [(rand(s) * 1e-2).to(mu) for s in shapes]
+    nus = [(rand(s, kind="uniform") * 1e-3).to(nu) for s in shapes]
+    return (place(ps, torch.float32), place(gs, torch.float32),
+            place(mus, mu), place(nus, nu))
+
+
+def adam_scalars(t, dev, lr=1e-4, betas=(0.9, 0.999)):
+    """(lr, 1 - b1^t, 1 - b2^t) of step t as Adam's host part forms them."""
+    bc = [float(1 - torch.tensor(b, dtype=torch.float32) ** t)
+          for b in betas]
+    return torch.tensor([lr, *bc], dtype=torch.float32, device=dev)
+
+
+def adam_bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def check_adam(table, ps, gs, mus, nus, label, steps=3):
+    """``steps`` of adam_fused_step on ``table`` (made of the four lists)
+    against the plain version on copies, bit for bit. Returns the
+    copies."""
+    ref = [[t.clone() for t in x] for x in (ps, gs, mus, nus)]
+    for t in range(1, steps + 1):
+        scalars = adam_scalars(t, ps[0].device)
+        adam_fused_step(table, scalars)
+        lr, bc1, bc2 = scalars.tolist()
+        ref[2], ref[3] = adam_reference(ref[0], ref[1], ref[2], ref[3],
+                                        lr, bc1, bc2)
+    torch.cuda.synchronize()
+    for name, got, want in (("parameters", ps, ref[0]), ("mu", mus, ref[2]),
+                            ("nu", nus, ref[3])):
+        bad = sum(not torch.equal(adam_bits(a), adam_bits(b))
+                  for a, b in zip(got, want))
+        require(bad == 0, f"adam_fused_step at {label}: {bad} of "
+                f"{len(got)} {name} tensors differ from the plain "
+                "version's bits")
+    return ref
+
+
+def check_and_time_adam(dev, label, cfg, mu, nu):
+    """adam_fused_step at ``cfg``'s parameter list: three steps against
+    the plain version bit for bit, then timed. Returns the timing entry."""
+    ps, gs, mus, nus = adam_lists(param_shapes(cfg, dev), mu, nu, dev)
+    n = sum(p.numel() for p in ps)
+    table = AdamTable(ps, gs, mus, nus)
+    table.upload()
+    ref = check_adam(table, ps, gs, mus, nus, f"{label} ({mu}, {nu})")
+    scalars = adam_scalars(4, dev)
+    library = None
+    if mu == nu == torch.float32:
+        leaves = [torch.nn.Parameter(p.clone()) for p in ps]
+        for leaf, grad in zip(leaves, gs):
+            leaf.grad = grad.clone()
+        # a yardstick only: the port never calls a library optimizer
+        lib = torch.optim.Adam(leaves, lr=1e-4, fused=True)
+        library = lib.step
+    # p read and written, g read, each moment read and written
+    nbytes = n * (3 * 4 + 2 * (torch.empty((), dtype=mu).element_size()
+                                   + torch.empty((), dtype=nu).element_size()))
+    t = timed(lambda: adam_fused_step(table, scalars),
+              lambda: adam_reference(ref[0], ref[1], ref[2], ref[3], 1e-4,
+                                     0.1, 0.001), nbytes, 0.0, library)
+    entry = {"name": f"adam_fused_step {label} {str(mu)[6:]}/{str(nu)[6:]}",
+             "parameters": n, "tensors": len(ps), "chunks": table.chunks,
+             "bytes": nbytes, **t,
+             "bound_share": t["bound_ms"] / t["ms"]}
+    print(json.dumps(entry), flush=True)
+    return entry
+
+
+def adam_launches_per_step(dev, gen, n=8):
+    """Full-width bf16 train steps at B = 64: one adam_fused_step launch
+    a step, the first eager and the rest inside the step's graph."""
+    cfg = ModelConfig(**FULL)
+    model = GraphVQAModel(cfg, device=dev, seed=SEED)
+    optimizer, scheduler = make_optimizer(model, TrainConfig(), 100)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    batch = random_train_batch(TRAIN_B, cfg, gen)
+    launches = adam_fused_step.launches
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        train_step(model, optimizer, scheduler, batch, generator)
+    torch.cuda.synchronize()
+    per_step = (adam_fused_step.launches - launches) / n
+    graphed = [c[1] for c in profiling.recent_counts()
+               if c[0] == "adam.graphed" and c[2] >= t0]
+    print(f"adam_fused_step launches per full-width train step: "
+          f"{per_step}; adam.graphed per step: {graphed}", flush=True)
+    require(per_step == 1 and graphed == [0] + [1] * (n - 1),
+            f"Adam per step: {per_step} launches, adam.graphed {graphed}")
+
+
+def fused_adam(dev, gen):
+    """Phase 20 (see the module's docstring)."""
+    entries = []
+    for label, cfg in (("vqa2", ModelConfig(**FULL)),
+                       ("mcan_large", ModelConfig(**MCAN_LARGE))):
+        for dt in (torch.float32, torch.bfloat16):
+            entries.append(check_and_time_adam(dev, label, cfg, dt, dt))
+    for dt in (torch.float32, torch.bfloat16):
+        lists = adam_lists(None, dt, dt, dev)
+        table = AdamTable(*lists)
+        table.upload()
+        check_adam(table, *lists, f"unaligned shards ({dt})")
+    print("adam_fused_step equals the plain version bit for bit at "
+          "unaligned shards, f32 and bf16 moments", flush=True)
+    adam_launches_per_step(dev, gen)
+    print(f"adam_fused_step.cu ptxas:\n{_build.resource_report('adam')}",
+          flush=True)
+    return entries
+
+
 def main(argv) -> int:
     if argv[:1] == ["--dp-rank"]:
         return dp_rank(argv[1:])
     only_dp = {("--phase", "19"): "abcde", ("--phase", "19c"): "cd"}.get(
         tuple(argv))
-    if argv and not only_dp:
-        print("usage: chip_smoke.py [--phase 19 | --phase 19c]",
+    only_adam = tuple(argv) == ("--phase", "20")
+    if argv and not (only_dp or only_adam):
+        print("usage: chip_smoke.py [--phase 19 | --phase 19c | --phase 20]",
               file=sys.stderr)
         return 2
     phase("1 device")
@@ -5433,6 +5607,15 @@ def main(argv) -> int:
         print(f"{name}.cu ptxas:\n{_build.resource_report(name)}", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
+    if only_adam:
+        phase("20 the fused Adam kernel")
+        entries = fused_adam(dev, gen)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if only_dp:
         phase("19 data parallelism (main path)")
         data_parallel(dev, smi, only_dp)
@@ -5504,6 +5687,8 @@ def main(argv) -> int:
         shutil.rmtree(work, ignore_errors=True)
     phase("19 data parallelism (main path)")
     data_parallel(dev, smi)
+    phase("20 the fused Adam kernel")
+    entries += fused_adam(dev, gen)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

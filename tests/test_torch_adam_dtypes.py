@@ -10,6 +10,12 @@ bits). optax runs op by op, as its functions are written: jitted, XLA's
 CPU fusions contract and reorder the multiply-adds and keep bfloat16
 products in f32, which moves the last bits. A resumed optimizer goes on
 bit for bit, and the CLIs resolve --fast_math as the JAX CLI does.
+
+The fused step's CPU side: on CPU tensors ``adam_fused_step`` is the
+plain ``adam_reference``; its table's refusals; the host part of a
+graphed step (counts, lr, bias corrections) across the milestone equal
+to an eager step's; and the state Adam owns. The kernel itself is held
+to the plain version on the card (``tests/test_torch_train_graph.py``).
 """
 
 import jax
@@ -26,7 +32,9 @@ from vqa_project_tpu.train.state import make_optimizer as j_make_optimizer
 from vqa_project_tpu_torch.cli import medical
 from vqa_project_tpu_torch.cli import run
 from vqa_project_tpu_torch.config import TrainConfig
-from vqa_project_tpu_torch.train.state import Adam, make_optimizer
+from vqa_project_tpu_torch.ops.adam import (AdamTable, adam_fused_step,
+                                            adam_reference)
+from vqa_project_tpu_torch.train.state import Adam, adam_step, make_optimizer
 
 SHAPES = {"w": (37, 11), "b": (5,), "u": (64, 3)}
 LR, SPE, STEPS = 1e-3, 2, 5
@@ -195,3 +203,137 @@ def test_fast_math_resolves_as_the_jax_cli(argv, want):
     assert not unparsed
     _, mtcfg = medical.make_configs(margs)
     assert (mtcfg.adam_mu_dtype, mtcfg.adam_nu_dtype) == want
+
+
+# ---------------- the fused step's CPU side ----------------
+
+def _moment_lists(params, grads, mu, nu, seed=3):
+    rng = np.random.default_rng(seed)
+    ps = [torch.from_numpy(params[k].copy()) for k in SHAPES]
+    gs = [torch.from_numpy(grads[0][k].copy()) for k in SHAPES]
+    mus = [torch.from_numpy(rng.standard_normal(SHAPES[k]).astype(
+        np.float32) * 1e-2).to(getattr(torch, mu)) for k in SHAPES]
+    nus = [torch.from_numpy(rng.uniform(size=SHAPES[k]).astype(
+        np.float32) * 1e-3).to(getattr(torch, nu)) for k in SHAPES]
+    return ps, gs, mus, nus
+
+
+@pytest.mark.parametrize("mu,nu", PAIRS)
+def test_cpu_tensors_take_the_plain_version(mu, nu):
+    """On CPU tensors adam_fused_step is adam_reference, bit for bit,
+    with the moments written into the given tensors and no launch."""
+    params, grads = _inputs(4)
+    ps, gs, mus, nus = _moment_lists(params, grads, mu, nu)
+    want_p = [p.clone() for p in ps]
+    want_mu, want_nu = adam_reference(want_p, gs, mus, nus, LR, 0.19, 0.00199)
+    table = AdamTable(ps, gs, mus, nus)
+    assert table.key is None and not table.matches(ps, gs, mus, nus)
+    held = [m for m in mus]
+    launches = adam_fused_step.launches
+    adam_fused_step(table, torch.tensor([LR, 0.19, 0.00199]))
+    assert adam_fused_step.launches == launches
+    for got, want in zip(ps + mus + nus, want_p + want_mu + want_nu):
+        assert got.dtype == want.dtype
+        assert np.array_equal(_bits(got), _bits(want))
+    assert all(a is b for a, b in zip(held, table.mus))
+
+
+@pytest.mark.parametrize("bad", ["length", "device", "param_dtype",
+                                 "mixed_moments", "moment_dtype", "shape",
+                                 "scalars"])
+def test_table_refusals(bad):
+    params, grads = _inputs(5)
+    ps, gs, mus, nus = _moment_lists(params, grads, "float32", "bfloat16")
+    scalars = torch.tensor([LR, 0.1, 0.001])
+    if bad == "length":
+        gs = gs[:-1]
+    elif bad == "device":
+        nus[1] = nus[1].to("meta")
+    elif bad == "param_dtype":
+        ps[0] = ps[0].double()
+    elif bad == "mixed_moments":
+        mus[2] = mus[2].to(torch.bfloat16)
+    elif bad == "moment_dtype":
+        nus = [v.half() for v in nus]
+    elif bad == "shape":
+        mus[0] = mus[0].reshape(-1)
+    elif bad == "scalars":
+        scalars = scalars[:2]
+    error = TypeError if "dtype" in bad or bad == "mixed_moments" \
+        else ValueError
+    with pytest.raises(error):
+        adam_fused_step(AdamTable(ps, gs, mus, nus), scalars)
+
+
+# the schedule steps before the launch here, as in a graphed step, whose
+# key's first (eager) call has called optimizer.step() already
+@pytest.mark.filterwarnings("ignore:Detected call of")
+@pytest.mark.parametrize("mu,nu", PAIRS)
+def test_host_part_over_a_milestone_is_an_eager_step(mu, nu):
+    """Adam's host part (``_advance``: the counts, then lr, 1 - b1^t and
+    1 - b2^t in f32) followed by the launch, with the schedule stepped
+    between them, as a graphed step orders them, gives each step the lr
+    and bias corrections of an eager step and the same parameters,
+    moments and counts bit for bit, across the milestone."""
+    params, grads = _inputs(6)
+    eager, (o_e, s_e) = _port(params, [], mu, nu)
+    split, (o_s, s_s) = _port(params, [], mu, nu)
+    b1, b2 = o_s.param_groups[0]["betas"]
+    for t, g in enumerate(grads, start=1):
+        for (k, p), q in zip(eager.named_parameters(), split.parameters()):
+            p.grad = torch.from_numpy(g[k].copy())
+            q.grad = torch.from_numpy(g[k].copy())
+        lr_before = o_e.param_groups[0]["lr"]
+        o_e.step()
+        s_e.step()
+        qs = list(split.parameters())
+        lists = o_s._launch_lists(0, qs)
+        scalars = o_s._advance(0, qs)
+        s_s.step()
+        with torch.no_grad():
+            adam_fused_step(AdamTable(*lists), scalars)
+        lr, bc1, bc2 = scalars.tolist()
+        assert lr == float(torch.tensor(lr_before, dtype=torch.float32))
+        assert lr_before == (LR if t <= SPE else LR * 0.5)
+        assert bc1 == float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
+        assert bc2 == float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
+        assert adam_step(o_s) == adam_step(o_e) == t
+    for p, q in zip(eager.parameters(), split.parameters()):
+        assert torch.equal(p, q)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            a, b = o_e.state[p][key], o_s.state[q][key]
+            assert a.dtype == b.dtype and torch.equal(a, b), key
+    assert s_s.get_last_lr() == s_e.get_last_lr()
+
+
+def test_adam_owns_its_state():
+    """The moments of a group are views of one buffer each and the
+    counts of one CPU tensor; a loaded state is copied in, never shared
+    with the optimizer it came from."""
+    params, grads = _inputs(7)
+    model, (opt, _) = _port(params, grads[:2], "bfloat16", "float32")
+    pack = opt._packs[0]
+    for p in model.parameters():
+        st = opt.state[p]
+        assert st["exp_avg"].untyped_storage().data_ptr() == \
+            pack.mu.untyped_storage().data_ptr()
+        assert st["exp_avg"].is_contiguous()
+        assert st["exp_avg"].data_ptr() % 16 == 0
+        assert st["step"].untyped_storage().data_ptr() == \
+            pack.steps.untyped_storage().data_ptr()
+    other = Adam(model.parameters(), mu_dtype=torch.bfloat16)
+    other.load_state_dict(opt.state_dict())
+    for p in model.parameters():
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            a, b = opt.state[p][key], other.state[p][key]
+            assert torch.equal(a, b)
+            assert a.untyped_storage().data_ptr() != \
+                b.untyped_storage().data_ptr()
+    before = {p: opt.state[p]["exp_avg"].clone() for p in model.parameters()}
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    other.step()
+    for p in model.parameters():
+        assert torch.equal(opt.state[p]["exp_avg"], before[p])
+        assert int(opt.state[p]["step"]) == 2
+        assert int(other.state[p]["step"]) == 3

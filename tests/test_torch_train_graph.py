@@ -6,12 +6,21 @@ one key and graph a model keeps; the launch counters a replay adds; and
 that a CPU ``train_step`` never captures, with its results and spans as
 an eager step's.
 
+On the CPU too: ``adam_path``, the rule that puts the port's Adam
+inside the graph, and what it observes of an optimizer; the recapture
+when a captured moment moves; one ``adam.graphed`` record a step.
+
 On the card (marker ``cuda``; skipped without one; run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_train_graph.py``):
 six graphed steps against six eager ones from the same weights, batches
-and dropout seeds, with a CUDA generator, with the default generator
-and under the merged block; the capture with the prefetching loader
-running; and the calls that must leave the graph.
+and dropout seeds, across an lr milestone with Adam inside the graph,
+bit for bit, with a CUDA generator, with the default generator, under
+the merged block and with bfloat16 moments; the capture with the
+prefetching loader running; the calls that must leave the graph; a
+checkpoint taken mid-run resumed bit for bit; and the fused Adam kernel
+against the plain _foreach step bit for bit at VQA v2's and
+MCAN-large's parameter lists and at unaligned shards, in every pair of
+moment dtypes, and its refusal of a non-contiguous tensor.
 """
 
 import collections
@@ -26,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data.loader import (pack_index_batch,
                                                prefetch_to_device)
@@ -34,8 +45,12 @@ from vqa_project_tpu_torch import ops
 from vqa_project_tpu_torch.ops import _build
 from vqa_project_tpu_torch.ops.losses import multilabel_soft_margin_loss
 from vqa_project_tpu_torch.parallel.mesh import Mesh
+from vqa_project_tpu_torch.ops.adam import AdamTable, adam_fused_step
 from vqa_project_tpu_torch.train import make_optimizer, train_step
+from vqa_project_tpu_torch.train.state import (adam_step, load_checkpoint,
+                                               save_checkpoint)
 from vqa_project_tpu_torch.train import steps
+from vqa_project_tpu_torch.train import profiling
 from vqa_project_tpu_torch.train.profiling import recent_spans
 
 B, T, S, K, N_IMAGES, SEED, LR = 16, 8, 6, 36, 40, 20261018, 1e-3
@@ -182,6 +197,110 @@ def test_a_replay_adds_the_capture_launches():
         a.launches, b.launches = a0, b0
 
 
+# ---------------- Adam inside the graph: the rule ----------------
+
+# (port_adam, own_step, step_hooks, sharded, on_card) -> path
+ADAM_RULE = [
+    ((True, True, False, False, True), "graph"),
+    ((True, True, False, False, False), "eager"),   # parameters off the card
+    ((True, False, False, False, True), "eager"),   # step replaced
+    ((True, True, True, False, True), "eager"),     # a step hook
+    ((True, True, False, True, True), "eager"),     # sharded (tensor parallel)
+    ((False, False, False, False, True), "eager"),  # torch's Adam
+]
+
+
+@pytest.mark.parametrize("seen,want", ADAM_RULE)
+def test_adam_path(seen, want):
+    assert steps.adam_path(*seen) == want
+
+
+def _adam_case(case):
+    """An optimizer (and its schedule, kept alive) as ``case`` leaves it;
+    its parameters on the CPU."""
+    model = GraphVQAModel(_tiny(), device="cpu", seed=1)
+    if case == "torch":
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        return opt, torch.optim.lr_scheduler.MultiStepLR(opt, [2])
+    if case == "subclass":
+        class Own(steps.Adam):
+            def step(self, closure=None):
+                return None
+        opt = Own(model.parameters(), lr=LR)
+        return opt, None
+    opt, sched = make_optimizer(model, TrainConfig(lr=LR), 3)
+    if case == "replaced":      # the harness's ``unchanged`` fault
+        opt.step = lambda *a, **k: None
+    elif case == "hook":
+        opt.register_step_pre_hook(lambda *a: None)
+    elif case == "sharded":     # what parallel.tp.shard_optimizer adds
+        opt.shards = object()
+    return opt, sched
+
+
+# case -> (port_adam, own_step, step_hooks, sharded); on_card is False on
+# the CPU
+ADAM_CASES = {"port": (True, True, False, False),
+              "replaced": (True, False, False, False),
+              "hook": (True, True, True, False),
+              "sharded": (True, True, False, True),
+              "torch": (False, False, False, False),
+              "subclass": (True, False, False, False)}
+
+
+@pytest.mark.parametrize("case", ADAM_CASES)
+def test_adam_seen(case):
+    """The port's Adam under its MultiStepLR (which wraps its step on the
+    instance) goes in where its parameters are on the card; a replaced
+    step, a step hook, a sharded optimizer, torch's Adam and a subclass
+    with a step of its own stay out."""
+    opt, _ = _adam_case(case)
+    seen = steps.adam_seen(opt)
+    assert seen == (*ADAM_CASES[case], False)
+    assert steps.adam_path(*seen[:4], True) == (
+        "graph" if case == "port" else "eager")
+
+
+@pytest.mark.parametrize("change", ["none", "replaced", "loaded", "moved",
+                                    "rule"])
+def test_a_moved_moment_recaptures(change):
+    """A graph holding Adam recaptures where a captured moment is no
+    longer its parameter's, or lies elsewhere, or the rule now leaves
+    Adam out: ``adam_static`` is False and ``step_path`` says capture."""
+    model = GraphVQAModel(_tiny(), device="cpu", seed=1)
+    opt, _ = make_optimizer(model, TrainConfig(lr=LR), 3)
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    params = list(model.parameters())
+    entry = steps._StepGraph((), ())
+    entry.adam_wanted = True
+    entry.moments = [(p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"],
+                      (opt.state[p]["exp_avg"].data_ptr(),
+                       opt.state[p]["exp_avg_sq"].data_ptr()))
+                     for p in params]
+    adam = True
+    if change == "replaced":
+        opt.state[params[3]]["exp_avg"] = \
+            opt.state[params[3]]["exp_avg"].clone()
+    elif change == "loaded":    # a resume
+        opt.load_state_dict(opt.state_dict())
+    elif change == "moved":
+        opt.state[params[1]]["exp_avg_sq"].set_(
+            opt.state[params[1]]["exp_avg_sq"].clone())
+    elif change == "rule":
+        adam = False
+    static = entry.adam_static(opt, adam)
+    assert static is (change == "none")
+    assert steps.step_path(True, True, False, True, True, static) == (
+        "replay" if static else "capture")
+
+
+def _graphed_counts(since):
+    return [c[1] for c in profiling.recent_counts()
+            if c[0] == "adam.graphed" and c[2] >= since]
+
+
 def _host_batch(rng, cfg, b=B):
     return {"question": rng.integers(1, cfg.vocab_size,
                                      (b, cfg.max_qlen)).astype(np.int32),
@@ -229,6 +348,8 @@ def test_cpu_steps_never_capture_and_match_an_eager_step():
     for batch in batches:
         n0 = time.perf_counter_ns()
         got = train_step(model, opt, sched, batch, gen)
+        # one record of adam.graphed a step, 0 off the card
+        assert _graphed_counts(n0) == [0]
         names = _span_names(n0)
         assert names == collections.Counter(
             ["train_step", "train_step.inputs", "train_step.forward",
@@ -291,12 +412,15 @@ def _table(dev, cfg):
 
 class Run:
     """One model, optimizer, schedule, generator and image gather, and
-    what its steps returned, read once every step has run."""
+    what its steps returned, read once every step has run. The schedule
+    halves the lr after step 3 (a milestone at epoch 1 of 3 steps); both
+    moments are stored in ``moments``."""
 
-    def __init__(self, dev, cfg, generator):
+    def __init__(self, dev, cfg, generator, moments="float32"):
         self.model = GraphVQAModel(cfg, device=dev, seed=SEED)
-        self.opt, self.sched = make_optimizer(self.model, TrainConfig(lr=LR),
-                                              3)
+        self.opt, self.sched = make_optimizer(self.model, TrainConfig(
+            lr=LR, lr_milestones=(1,), adam_mu_dtype=moments,
+            adam_nu_dtype=moments), 3)
         self.gen = (torch.Generator(device=dev).manual_seed(SEED + 1)
                     if generator == "cuda" else None)
         self.image_fn = steps.make_image_fn(_table(dev, cfg),
@@ -317,6 +441,7 @@ class Run:
         for p, st in self.opt.state.items():
             out[f"mu.{names[p]}"] = st["exp_avg"]
             out[f"nu.{names[p]}"] = st["exp_avg_sq"]
+            out[f"step.{names[p]}"] = st["step"]
         return out
 
 
@@ -324,10 +449,11 @@ def _counts():
     return {f.__name__: f.launches for f in _build.COUNTED}
 
 
-def _run(dev, cfg, generator, batches, *, eager, prefetch=False):
+def _run(dev, cfg, generator, batches, *, eager, prefetch=False,
+         moments="float32"):
     if generator is None:
         torch.cuda.manual_seed(SEED + 1)
-    run = Run(dev, cfg, generator)
+    run = Run(dev, cfg, generator, moments)
     if eager:
         # a forward hook keeps every step on the eager path
         run.model.register_forward_hook(lambda *a: None)
@@ -356,32 +482,43 @@ def _compare(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("generator,merged,prefetch", [
-    ("cuda", False, True), (None, False, False), ("cuda", True, False)])
-def test_graphed_steps_equal_eager_steps(card, generator, merged, prefetch):
+@pytest.mark.parametrize("generator,merged,prefetch,moments", [
+    ("cuda", False, True, "float32"), (None, False, False, "float32"),
+    ("cuda", True, False, "float32"), ("cuda", False, False, "bfloat16")])
+def test_graphed_steps_equal_eager_steps(card, generator, merged, prefetch,
+                                         moments):
+    """Six steps across the lr milestone, Adam inside the graph from the
+    capture on: the results, parameters, moments and counts of six eager
+    steps."""
     cfg = ModelConfig(**CARD, merged_block=merged)
     batches = _index_batches(6)
     eager, eager_counts, eager_spans = _run(card, cfg, generator, batches,
-                                            eager=True)
+                                            eager=True, moments=moments)
+    n0 = time.perf_counter_ns()
     graphed, counts, spans = _run(card, cfg, generator, batches,
-                                  eager=False, prefetch=prefetch)
+                                  eager=False, prefetch=prefetch,
+                                  moments=moments)
     # the first call warms up, the second captures (its step's spans
-    # inside), four replay
+    # inside), four replay; Adam is inside from the capture on
     assert eager_spans["train_step.graph"] == 0
     assert spans["train_step.forward"] == 2
     assert spans["train_step.capture"] == 1
     assert spans["train_step.graph"] == 5
+    assert spans["train_step.optimizer"] == 6
+    assert _graphed_counts(n0) == [0, 1, 1, 1, 1, 1]
+    assert graphed.sched.get_last_lr() == [LR / 2]
+    assert adam_step(graphed.opt) == adam_step(eager.opt) == 6
     # the capture counted the wrappers' calls of one eager step, and each
     # replay adds them
     entry = steps._STEP_GRAPHS[graphed.model]
     assert {f.__name__: n for f, n in entry.launches} == {
         k: v // 6 for k, v in eager_counts.items() if v}
     assert counts == eager_counts
+    assert counts["adam_fused_step"] == 6
     gap = _compare(graphed.state(), eager.state())
     print(f"graphed vs eager ({generator} generator, merged {merged}, "
-          f"prefetch {prefetch}): {gap}")
-    # cuBLAS may pick another algorithm on the capture stream: then 1e-5
-    assert gap == "bitwise" or gap <= 1e-5, gap
+          f"prefetch {prefetch}, {moments} moments): {gap}")
+    assert gap == "bitwise", gap
 
 
 def _paths(run, batches, dev):
@@ -417,6 +554,21 @@ def test_what_leaves_the_graph(card):
     # a gradient set to None elsewhere: recapture, not a silent skip
     run.opt.zero_grad(set_to_none=True)
     assert _paths(run, full[:2], card) == ["capture", "replay"]
+    # a resume's load_state_dict moves every moment: recapture
+    run.opt.load_state_dict(run.opt.state_dict())
+    assert _paths(run, full[:2], card) == ["capture", "replay"]
+    # a step set on the instance leaves Adam out of the graph (it runs
+    # after the replay), and back: a recapture each time
+    wrapped = run.opt.step
+    n0 = time.perf_counter_ns()
+    run.opt.step = lambda *a, **k: None
+    assert _paths(run, full[:2], card) == ["capture", "replay"]
+    assert _graphed_counts(n0) == [0, 0]
+    assert steps._STEP_GRAPHS[run.model].adam is None
+    run.opt.step = wrapped
+    n0 = time.perf_counter_ns()
+    assert _paths(run, full[:2], card) == ["capture", "replay"]
+    assert _graphed_counts(n0) == [1, 1]
     # inside a process group (one rank) every step is eager
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -438,3 +590,81 @@ def test_what_leaves_the_graph(card):
     # the graph's results are fresh tensors: later replays leave them
     assert [float(r["loss"]) for r in run.results[:len(run.read)]] \
         == run.read
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_a_checkpoint_mid_run_resumes_bit_for_bit(card, tmp_path, moments):
+    """Three graphed steps (eager, capture, replay), a checkpoint, a
+    fresh model, optimizer, schedule and generator loaded from it and
+    three more: the parameters, moments and counts of six uninterrupted
+    steps, bit for bit."""
+    cfg = ModelConfig(**CARD)
+    batches = [_on_card(b, card) for b in _index_batches(6)]
+    whole = Run(card, cfg, "cuda", moments)
+    for batch in batches:
+        whole.step(batch)
+    first = Run(card, cfg, "cuda", moments)
+    for batch in batches[:3]:
+        first.step(batch)
+    path = str(tmp_path / "mid.ckpt")
+    save_checkpoint(path, first.model, first.opt, first.sched, step=3,
+                    generator=first.gen)
+    assert adam_step(first.opt) == 3
+    resumed = Run(card, cfg, "cuda", moments)
+    load_checkpoint(path, resumed.model, resumed.opt, resumed.sched,
+                    resumed.gen)
+    for batch in batches[3:]:
+        resumed.step(batch)
+    want = {k: v for k, v in whole.state().items() if not k.startswith("out")}
+    got = {k: v for k, v in resumed.state().items()
+           if not k.startswith("out")}
+    assert got.keys() == want.keys()
+    assert _compare(got, want) == "bitwise"
+
+
+# ---------------- the fused Adam kernel on the card ----------------
+
+_SHAPES: dict = {}
+
+
+def _adam_lists(which, mu, nu, dev):
+    """chip_smoke's Adam lists: VQA v2's or MCAN-large's parameter shapes
+    (made once), or unaligned shards."""
+    if which != "shards" and which not in _SHAPES:
+        cfg = ModelConfig(**(chip_smoke.FULL if which == "vqa2"
+                             else chip_smoke.MCAN_LARGE))
+        _SHAPES[which] = chip_smoke.param_shapes(cfg, dev)
+    return chip_smoke.adam_lists(_SHAPES.get(which), getattr(torch, mu),
+                                 getattr(torch, nu), dev, seed=SEED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["vqa2", "mcan_large", "shards"])
+@pytest.mark.parametrize("mu,nu", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("bfloat16", "float32"),
+                                   ("float32", "bfloat16")])
+def test_fused_adam_equals_the_foreach_step(card, which, mu, nu):
+    """Five steps of adam_fused_step (one launch each) against five of
+    the plain _foreach version on the card from the same tensors: the
+    parameters and both moments bit for bit."""
+    ps, gs, mus, nus = _adam_lists(which, mu, nu, card)
+    table = AdamTable(ps, gs, mus, nus)
+    table.upload()
+    launches = adam_fused_step.launches
+    # raises where a tensor's bits differ
+    chip_smoke.check_adam(table, ps, gs, mus, nus, which, steps=5)
+    assert adam_fused_step.launches - launches == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["param", "grad", "mu", "nu"])
+def test_fused_adam_refuses_a_non_contiguous_tensor(card, which):
+    ps, gs, mus, nus = _adam_lists("shards", "float32", "float32", card)
+    lists = {"param": ps, "grad": gs, "mu": mus, "nu": nus}
+    x = lists[which]
+    x[1] = torch.empty((x[1].numel(), 2), dtype=x[1].dtype,
+                       device=card)[:, 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        AdamTable(ps, gs, mus, nus)

@@ -32,7 +32,7 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("edge_aggregate", "edge_aggregate_bwd", "gather_rows",
+KERNELS = ("adam", "edge_aggregate", "edge_aggregate_bwd", "gather_rows",
            "graph_block", "graph_block_bwd", "gru_scan", "gru_scan_bwd",
            "gru_wgrad")
 
@@ -44,6 +44,9 @@ _L = ctypes.c_longlong
 # C signature of each library's entry points (all return cudaError_t,
 # except edge_aggregate_bwd_tiles and graph_block_bwd_groups, counts)
 _SIGNATURES = {
+    "adam": {
+        "adam_fused_step": [_P, _L, _P] + [_F] * 5 + [_I, _I, _P],
+    },
     "edge_aggregate": {
         "edge_aggregate_fwd": [_P] * 6 + [_I] * 7 + [_P],
         "edge_aggregate_fwd_res": [_P] * 8 + [_I] * 5 + [_U, _F, _I, _I, _P],

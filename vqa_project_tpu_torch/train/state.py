@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import operator
 import os
 import tempfile
 import threading
@@ -27,11 +28,47 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from vqa_project_tpu_torch.config import TrainConfig, torch_dtype
+from vqa_project_tpu_torch.ops.adam import AdamTable, adam_fused_step
 from vqa_project_tpu_torch.models.weights import (reference_name,
                                                   reference_state_dict,
                                                   state_dict_from_jax_params)
 from vqa_project_tpu_torch.train._msgpack import (migrate_conv_kernels,
                                                   read_flax_msgpack)
+
+
+class _Moments:
+    """A group's Adam state in buffers the optimizer owns: each
+    parameter's moments as views of one buffer per moment (every view on
+    a 16-byte boundary, contiguous), its count as a 0-d view of one
+    float32 CPU tensor, so that one add advances every count. Each given
+    state takes its views, with the values it held copied in (cast to
+    the moment dtypes); a state without moments starts at zero."""
+
+    ALIGN = 8   # elements: 16 bytes of bfloat16, 32 of float32
+
+    def __init__(self, params: List[torch.Tensor], states: List[dict],
+                 mu_dtype: torch.dtype, nu_dtype: torch.dtype):
+        offsets, total = [], 0
+        for p in params:
+            offsets.append(total)
+            total += -(-p.numel() // self.ALIGN) * self.ALIGN
+        dev = params[0].device
+        self.params = list(params)
+        self.mu = torch.zeros(total, dtype=mu_dtype, device=dev)
+        self.nu = torch.zeros(total, dtype=nu_dtype, device=dev)
+        self.steps = torch.zeros(len(params), dtype=torch.float32)
+        for i, (p, st, off) in enumerate(zip(params, states, offsets)):
+            mu = self.mu[off:off + p.numel()].view(p.shape)
+            nu = self.nu[off:off + p.numel()].view(p.shape)
+            if "exp_avg" in st:
+                mu.copy_(st["exp_avg"])
+                nu.copy_(st["exp_avg_sq"])
+                self.steps[i] = st["step"]
+            st["step"], st["exp_avg"], st["exp_avg_sq"] = self.steps[i], mu, nu
+
+    def holds(self, params: List[torch.Tensor]) -> bool:
+        return len(params) == len(self.params) and all(
+            map(operator.is_, params, self.params))
 
 
 class Adam(torch.optim.Optimizer):
@@ -50,8 +87,18 @@ class Adam(torch.optim.Optimizer):
     The state has torch Adam's keys (``step``, ``exp_avg``,
     ``exp_avg_sq``), so the reference's Adam state and this one's load
     into each other; ``load_state_dict`` casts the moments to the
-    configured dtypes, as the JAX package's resume does. Every operation
-    runs over all parameters at once (``torch._foreach_*``).
+    configured dtypes, as the JAX package's resume does. The optimizer
+    owns its state (``_Moments``: a group's moments as views of one
+    buffer each, its counts as views of one CPU tensor; a loaded state
+    is copied in) and updates it in place: each group's update is one
+    ``ops.adam.adam_fused_step``, one kernel launch on the card and the
+    plain ``torch._foreach`` version (``adam_reference``) on the CPU.
+
+    Each step has a host part (``_advance``: the counts, then lr,
+    1 - b1^t and 1 - b2^t in f32 into a (3,) float32 tensor on the
+    card, by one copy) and the launch. ``train_step``'s CUDA graph
+    captures the launch after the backward (``capture_update``) and runs
+    the host part before each replay (``graph_host_step``).
     """
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
@@ -63,13 +110,51 @@ class Adam(torch.optim.Optimizer):
                                  "bfloat16 only")
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
         self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+        self._packs: Dict[int, _Moments] = {}       # by group index
+        self._tables: Dict[int, AdamTable] = {}     # the eager launches'
+        self._scalars: Dict[tuple, torch.Tensor] = {}
 
     def load_state_dict(self, state_dict) -> None:
         super().load_state_dict(state_dict)
-        for st in self.state.values():
-            if "exp_avg" in st:
-                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
-                st["exp_avg_sq"] = st["exp_avg_sq"].to(self.nu_dtype)
+        self._packs.clear()
+        self._tables.clear()
+        for gi, group in enumerate(self.param_groups):
+            params = [p for p in group["params"]
+                      if "exp_avg" in self.state.get(p, {})]
+            if params:
+                self._own(gi, params)
+
+    def _own(self, gi: int, params: List[torch.Tensor]) -> None:
+        """Give ``params`` (with or without a state) state that this
+        optimizer owns: group ``gi``'s ``_Moments`` where they share a
+        device, else tensors of their own (``_apart``)."""
+        if len({p.device for p in params}) == 1:
+            self._packs[gi] = _Moments(params, [self.state[p] for p in params],
+                                       self.mu_dtype, self.nu_dtype)
+        else:
+            self._apart(params)
+
+    def _apart(self, params: List[torch.Tensor]) -> None:
+        for p in params:
+            st = self.state[p]
+            st["step"] = torch.tensor(float(st.get("step", 0.0)))
+            for key, dt in (("exp_avg", self.mu_dtype),
+                            ("exp_avg_sq", self.nu_dtype)):
+                st[key] = (st[key].to(dt, copy=True) if key in st
+                           else torch.zeros_like(p, dtype=dt))
+
+    def _launch_lists(self, gi: int, params: List[torch.Tensor]):
+        """(params, grads, mus, nus) of group ``gi``'s launch; parameters
+        without a state get one, packed where the whole group is new."""
+        fresh = [p for p in params if "exp_avg" not in self.state[p]]
+        if len(fresh) == len(params) and gi not in self._packs:
+            self._own(gi, params)
+        elif fresh:
+            self._apart(fresh)
+        states = [self.state[p] for p in params]
+        return (params, [p.grad for p in params],
+                [st["exp_avg"] for st in states],
+                [st["exp_avg_sq"] for st in states])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -77,51 +162,100 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
+        for gi, group in enumerate(self.param_groups):
             params = [p for p in group["params"] if p.grad is not None]
-            if params:
-                self._update(group, params)
+            if not params:
+                continue
+            lists = self._launch_lists(gi, params)
+            table = self._tables.get(gi)
+            if table is None or not table.matches(*lists):
+                table = self._tables[gi] = AdamTable(*lists)
+                table.upload()
+            adam_fused_step(table, self._advance(gi, params),
+                            group["betas"], group["eps"])
         return loss
 
-    def _update(self, group, params: List[torch.Tensor]) -> None:
+    def _advance(self, gi: int, params: List[torch.Tensor]) -> torch.Tensor:
+        """The host part of group ``gi``'s step over ``params``: each
+        count + 1, then (lr, 1 - b1^t, 1 - b2^t) at the first one's count
+        t, in f32, in the group's (3,) scalars tensor on the parameters'
+        device: one copy from a host tensor of its own, queued on the
+        current stream (the tensor itself on the CPU)."""
+        group = self.param_groups[gi]
+        pack = self._packs.get(gi)
+        if pack is not None and pack.holds(params):
+            pack.steps.add_(1.0)
+        else:
+            torch._foreach_add_([self.state[p]["step"] for p in params], 1.0)
+        count = int(self.state[params[0]]["step"])
         b1, b2 = group["betas"]
-        states = []
-        for p in params:
-            st = self.state[p]
-            if not st:
-                st["step"] = torch.tensor(0.0)
-                st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
-                st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.nu_dtype)
-            states.append(st)
-        steps = [st["step"] for st in states]
-        torch._foreach_add_(steps, 1.0)
-        count = int(steps[0])
-        grads = [p.grad for p in params]
-        mus = [st["exp_avg"] for st in states]
-        nus = [st["exp_avg_sq"] for st in states]
-        # b1 as the moment's dtype holds it: a bfloat16 b1 times a
-        # bfloat16 mu is exact in f32 and rounds once, to bfloat16
-        b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-        mu = torch._foreach_mul(grads, 1.0 - b1)
-        torch._foreach_add_(mu, torch._foreach_mul(mus, b1_mu))
-        nu = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(nu, 1.0 - b2)
-        wide = nus if self.nu_dtype == torch.float32 else [
-            v.float() for v in nus]
-        torch._foreach_add_(nu, torch._foreach_mul(wide, b2))
         # optax's bias corrections: 1 - decay^count in f32
         bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** count)
         bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** count)
-        update = torch._foreach_div(mu, bc1)
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, group["eps"])
-        torch._foreach_div_(update, denom)
-        torch._foreach_mul_(update, -group["lr"])
-        torch._foreach_add_(params, update)
-        for st, m, v in zip(states, mu, nu):
-            st["exp_avg"] = m.to(self.mu_dtype)
-            st["exp_avg_sq"] = v.to(self.nu_dtype)
+        host = torch.tensor([group["lr"], bc1, bc2], dtype=torch.float32)
+        dev = params[0].device
+        if dev.type == "cpu":
+            return host
+        scalars = self._device_scalars(gi, dev)
+        # a pageable source: the copy takes it before the call returns
+        scalars.copy_(host, non_blocking=True)
+        return scalars
+
+    def _device_scalars(self, gi: int, dev: torch.device) -> torch.Tensor:
+        """Group ``gi``'s (3,) float32 scalars on ``dev``, made once."""
+        scalars = self._scalars.get((gi, dev))
+        if scalars is None:
+            scalars = self._scalars[(gi, dev)] = torch.empty(
+                3, dtype=torch.float32, device=dev)
+        return scalars
+
+    def capture_buffers(self) -> dict:
+        """Before a CUDA graph's capture: per group on the card, its
+        scalars tensor and a table buffer with a row for every parameter
+        (``capture_update``'s), made outside the capture: memory that a
+        capture allocates may be memory that the graph's earlier kernels
+        write at every replay."""
+        out = {}
+        for gi, group in enumerate(self.param_groups):
+            params = group["params"]
+            if params and params[0].is_cuda:
+                self._device_scalars(gi, params[0].device)
+                out[gi] = torch.empty((len(params) + 1, 6),
+                                      dtype=torch.int64,
+                                      device=params[0].device)
+        return out
+
+    @torch.no_grad()
+    def capture_update(self, buffers: dict) -> Optional[list]:
+        """Inside a CUDA graph's capture, after the backward: each group's
+        launch over its parameters with a gradient, reading its scalars
+        tensor, from a table built into its buffer (``capture_buffers``,
+        made before the capture). Returns [(group index, params, table)],
+        whose tables the caller uploads once the capture has ended and
+        which ``graph_host_step`` takes before every replay; or None,
+        launching nothing, where such a parameter has no state yet or
+        lies off the card."""
+        groups = []
+        for gi, group in enumerate(self.param_groups):
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            if gi not in buffers or any(
+                    "exp_avg" not in self.state.get(p, {}) for p in params):
+                return None
+            groups.append((gi, params, AdamTable(
+                *self._launch_lists(gi, params), out=buffers[gi])))
+        for gi, _, table in groups:
+            group = self.param_groups[gi]
+            adam_fused_step(table, self._scalars[(gi, table.device)],
+                            group["betas"], group["eps"])
+        return groups
+
+    def graph_host_step(self, captured: list) -> None:
+        """The host part of the step whose launches ``capture_update``
+        captured, before the graph's replay."""
+        for gi, params, _ in captured:
+            self._advance(gi, params)
 
 
 def adam_step(optimizer) -> int:

@@ -22,7 +22,10 @@ and image gather, the forward, the loss, the backward and the score) as
 one CUDA graph once it has seen a batch of the same shapes: the first
 such call runs eagerly and warms up, the second captures, every later
 one copies its batch into the graph's inputs and replays
-(``step_path``). Adam and the schedule stay eager.
+(``step_path``). The port's own Adam over parameters on the card is
+captured too, after the backward (``adam_path``), with its host part
+(the counts, lr and the bias corrections) and the schedule run before
+each replay; any other optimizer runs eagerly after it.
 
 Across data-parallel ranks (``parallel.Mesh``; the data axis of a
 (data, model) grid under tensor parallelism) each rank steps on its
@@ -51,7 +54,8 @@ from vqa_project_tpu_torch.ops.gather_rows import (NodeImage,
 from vqa_project_tpu_torch.ops.losses import vqa_score
 from vqa_project_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
-from vqa_project_tpu_torch.train.profiling import annotate
+from vqa_project_tpu_torch.train.profiling import annotate, count
+from vqa_project_tpu_torch.train.state import Adam
 
 
 class QuantizedFeatureCache(NamedTuple):
@@ -241,6 +245,44 @@ def step_path(cuda: bool, one_rank: bool, hooked: bool, seen: bool,
     return "replay" if captured and grads_static else "capture"
 
 
+def adam_path(port_adam: bool, own_step: bool, step_hooks: bool,
+              sharded: bool, on_card: bool) -> str:
+    """Where a graphed step runs its optimizer, from what it observes:
+    "graph" (its launch captured after the backward, its host part run
+    before each replay) for the port's ``Adam`` whose ``step`` is its
+    class's own (not one set on the instance; the scheduler's counting
+    wrapper of it is its own), with no step hook, not sharded over a
+    model axis, over parameters all on the card; else "eager", after the
+    replay."""
+    ok = port_adam and own_step and not step_hooks and not sharded
+    return "graph" if ok and on_card else "eager"
+
+
+def _own_step(optimizer) -> bool:
+    cls_step = type(optimizer).step
+    if cls_step is not Adam.step:
+        return False
+    step = vars(optimizer).get("step")
+    # an LRScheduler wraps the step on the instance to count its calls
+    return step is None or (getattr(step, "_wrapped_by_lr_sched", False)
+                            and getattr(step, "__wrapped__", None)
+                            is cls_step)
+
+
+def adam_seen(optimizer) -> Tuple[bool, bool, bool, bool, bool]:
+    """What ``adam_path`` reads of ``optimizer``."""
+    from torch.optim import optimizer as torch_optimizer
+    port = isinstance(optimizer, Adam)
+    hooks = bool(getattr(optimizer, "_optimizer_step_pre_hooks", None)
+                 or getattr(optimizer, "_optimizer_step_post_hooks", None)
+                 or torch_optimizer._global_optimizer_pre_hooks
+                 or torch_optimizer._global_optimizer_post_hooks)
+    return (port, port and _own_step(optimizer), hooks,
+            getattr(optimizer, "shards", None) is not None,
+            port and all(p.is_cuda for g in optimizer.param_groups
+                         for p in g["params"]))
+
+
 def _hooked(model) -> bool:
     """A hook that a graph's replay would skip: a global module hook, a
     forward, pre- or backward hook on a module of the model, or a hook on
@@ -302,16 +344,32 @@ class _StepGraph:
     makes the static inputs, the graph and its (3,) output, and notes
     each parameter with the gradient tensor and the storage it saw, and
     each launch counter's count in the step (``_build.COUNTED``), which
-    every later replay adds."""
+    every later replay adds. With Adam inside (``adam``: what
+    ``Adam.capture_update`` returned, None for an optimizer left out) it
+    notes each captured parameter's moments too."""
 
     def __init__(self, key: tuple, refs: tuple):
         self.key, self.refs = key, refs
-        self.graph = self.inputs = self.out = None
-        self.params, self.launches = [], []
+        self.graph = self.inputs = self.out = self.adam = None
+        self.adam_wanted = False
+        self.params, self.moments, self.launches = [], [], []
 
     def grads_static(self) -> bool:
         return all(p.grad is g and p.data_ptr() == ptr
                    for p, g, ptr in self.params)
+
+    def adam_static(self, optimizer, adam: bool) -> bool:
+        """The capture asked for Adam as ``adam`` does now, and every
+        captured moment is still its parameter's, where it was."""
+        if adam != self.adam_wanted:
+            return False
+        for p, mu, nu, ptrs in self.moments:
+            st = optimizer.state.get(p)
+            if (st is None or st.get("exp_avg") is not mu
+                    or st.get("exp_avg_sq") is not nu
+                    or (mu.data_ptr(), nu.data_ptr()) != ptrs):
+                return False
+        return True
 
     def copy_in(self, fields: Dict[str, torch.Tensor], dev) -> None:
         if self.inputs is None:
@@ -320,10 +378,12 @@ class _StepGraph:
         for k, v in fields.items():
             self.inputs[k].copy_(v)
 
-    def capture(self, model, optimizer, generator, image_fn) -> None:
+    def capture(self, model, optimizer, generator, image_fn,
+                adam: bool) -> None:
         # the old graph and its pool go first; the backward then writes
         # fresh gradients, which every replay overwrites in place
-        self.graph = self.out = None
+        self.graph = self.out = self.adam = None
+        self.adam_wanted = adam
         optimizer.zero_grad(set_to_none=True)
         before = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
@@ -331,14 +391,24 @@ class _StepGraph:
             # every replay advances it by what an eager step draws (the
             # default generator is registered by the capture itself)
             graph.register_generator_state(generator)
+        buffers = optimizer.capture_buffers() if adam else None
         # the loader's thread may pin memory while the capture runs
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.out = torch.stack(_step_body(model, optimizer, self.inputs,
                                               image_fn, generator))
+            if adam:
+                self.adam = optimizer.capture_update(buffers)
         self.graph = graph
+        # the tables' one copy each, which a capture cannot hold
+        for _, _, table in self.adam or ():
+            table.upload()
         self.launches = [(f, f.launches - n)
                          for f, n in zip(COUNTED, before) if f.launches != n]
         self.params = [(p, p.grad, p.data_ptr()) for p in model.parameters()]
+        self.moments = [(p, m, v, (m.data_ptr(), v.data_ptr()))
+                        for _, _, table in self.adam or ()
+                        for p, m, v in zip(table.params, table.mus,
+                                           table.nus)]
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
@@ -350,12 +420,14 @@ class _StepGraph:
 
 
 def _graph_entry(model, optimizer, generator, image_fn,
-                 fields: Dict[str, torch.Tensor]):
+                 fields: Dict[str, torch.Tensor], adam: bool = False):
     """(the model's ``_StepGraph``, ``step_path``'s answer) of a one-card
-    call on the card. The key: every input's shape and dtype and the
+    call on the card, whose optimizer ``adam_path`` puts inside the graph
+    where ``adam``. The key: every input's shape and dtype and the
     identity of the optimizer, the generator and ``image_fn``. A model
     keeps one graph: a key other than its last drops it, and the call
-    runs eagerly as the new key's first."""
+    runs eagerly as the new key's first. A graph recaptures where a
+    gradient or a captured moment moved, or ``adam`` changed."""
     key = (tuple((k, tuple(v.shape), v.dtype) for k, v in fields.items()),
            id(optimizer), id(generator), id(image_fn))
     entry = _STEP_GRAPHS.get(model)
@@ -365,27 +437,54 @@ def _graph_entry(model, optimizer, generator, image_fn,
             key, (optimizer, generator, image_fn))
     captured = entry.graph is not None
     path = step_path(True, True, _hooked(model), seen, captured,
-                     captured and entry.grads_static())
+                     captured and entry.grads_static()
+                     and entry.adam_static(optimizer, adam))
     return entry, path
 
 
-def _graphed_step(entry: _StepGraph, path: str, model, optimizer, scheduler,
-                  fields, generator, image_fn, dev) -> Dict[str, torch.Tensor]:
+def _graphed_step(entry: _StepGraph, path: str, adam: bool, model, optimizer,
+                  scheduler, fields, generator, image_fn,
+                  dev) -> Dict[str, torch.Tensor]:
     with annotate("train_step.inputs"):
         entry.copy_in(fields, dev)
     if path == "capture":
         with annotate("train_step.capture"):
-            entry.capture(model, optimizer, generator, image_fn)
+            entry.capture(model, optimizer, generator, image_fn, adam)
+    inside = entry.adam is not None
+    if inside:
+        # the counts and this step's lr and bias corrections reach the
+        # card before the replay that reads them
+        _optimize(optimizer, scheduler, captured=entry.adam)
     with annotate("train_step.graph"):
         out = entry.replay()
         if path == "replay":
             # the capture ran the wrappers once; a replay runs none
             entry.count_launches()
+    if not inside:
+        _optimize(optimizer, scheduler)
+    count("adam.graphed", int(inside))
+    return {"loss": out[0], "score": out[1], "valid": out[2]}
+
+
+def _optimize(optimizer, scheduler, captured: Optional[list] = None,
+              shards=None) -> None:
+    """The optimizer's part of a step, then the schedule's (which moves
+    the lr on for the next step), in span ``train_step.optimizer``: with
+    ``captured`` Adam's host part for its launch inside the graph
+    (``Adam.graph_host_step``), else the optimizer's step, around which a
+    sharded optimizer takes its rows of the gradients and gathers its
+    rows of the parameters."""
     with annotate("train_step.optimizer"):
-        optimizer.step()
+        if captured is not None:
+            optimizer.graph_host_step(captured)
+        else:
+            if shards is not None:
+                shards.load_grads()
+            optimizer.step()
+            if shards is not None:
+                shards.gather()
         if scheduler is not None:
             scheduler.step()
-    return {"loss": out[0], "score": out[1], "valid": out[2]}
 
 
 def train_step(model, optimizer, scheduler, batch: Dict[str, object],
@@ -420,9 +519,14 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     the model, a call with the key (``_graph_entry``) of the call before
     runs its device work before the optimizer (``_step_body``) as one
     CUDA graph: the second call of a key captures, later ones replay
-    (``step_path``). Its
-    results, gradients and dropout draws are an eager step's, and each
-    wrapper's ``.launches`` counts a replay as the step it replays.
+    (``step_path``). The port's own Adam on the card is captured with it,
+    after the backward; its host part and the schedule run before each
+    replay (``adam_path``); another optimizer steps after the replay. Its
+    results, gradients, dropout draws, parameters, moments and counts are
+    an eager step's, and each wrapper's ``.launches`` counts a replay as
+    the step it replays. Every call counts ``adam.graphed``
+    (``train.profiling.count``): 1 where its Adam ran inside the replayed
+    graph, else 0.
 
     Its spans (``train.profiling.annotate``): ``train_step`` around the
     call, and inside it ``train_step.inputs`` (the copy in, the unpack,
@@ -430,7 +534,8 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     inputs), ``.forward`` (the model, the loss and its labels),
     ``.backward`` (the zeroing, autograd's backward and, inside it,
     ``.allreduce``: the data-parallel sum) and ``.optimizer`` (the
-    optimizer and the schedule). On the
+    optimizer and the schedule; with Adam inside the graph its host part
+    and the schedule, before ``.graph``). On the
     graph path ``.graph`` (the replay and the copy of its results) takes
     the place of ``.forward`` and ``.backward``; a capture runs them,
     with a second ``.inputs``, inside ``.capture``.
@@ -455,10 +560,11 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
         dev = next(model.parameters()).device
         fields = _fields(batch)
         if dev.type == "cuda" and not dp and shards is None:
+            adam = adam_path(*adam_seen(optimizer)) == "graph"
             entry, path = _graph_entry(model, optimizer, generator,
-                                       image_fn, fields)
+                                       image_fn, fields, adam)
             if path != "eager":
-                return _graphed_step(entry, path, model, optimizer,
+                return _graphed_step(entry, path, adam, model, optimizer,
                                      scheduler, fields, generator, image_fn,
                                      dev)
         loss, score, valid = _step_body(
@@ -466,14 +572,8 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
             n_valid if dp else None,
             (lambda: all_reduce_grads(model, mesh, grad_reduce_dtype,
                                       mesh.data_group)) if dp else None)
-        with annotate("train_step.optimizer"):
-            if shards is not None:
-                shards.load_grads()
-            optimizer.step()
-            if shards is not None:
-                shards.gather()
-            if scheduler is not None:
-                scheduler.step()
+        _optimize(optimizer, scheduler, shards=shards)
+        count("adam.graphed", 0)
         return {"loss": loss, "score": score, "valid": valid}
 
 
