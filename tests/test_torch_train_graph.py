@@ -1,14 +1,13 @@
 """The one-card train step as a CUDA graph (``train.steps``).
 
-On the CPU (tier 1): ``step_path``, the rule that picks eager, capture or
-replay, as a function of what it observes; the hooks it looks for; the
-one key and graph a model keeps; the launch counters a replay adds; and
-that a CPU ``train_step`` never captures, with its results and spans as
-an eager step's.
-
-On the CPU too: ``adam_path``, the rule that puts the port's Adam
-inside the graph, and what it observes of an optimizer; the recapture
-when a captured moment moves; one ``adam.graphed`` record a step.
+On the CPU (tier 1): ``step_path``, the one rule that picks eager,
+capture or replay, as a function of what it observes; the hooks and
+what of an optimizer it looks at (only the port's own Adam goes into a
+graph); the one key and graph a model keeps; the launch counters a
+replay adds; the recapture when a captured moment moves; Adam's capture
+refusing a parameter with no state; and that a CPU ``train_step`` never
+captures, with its results, spans and one ``adam.graphed`` record as an
+eager step's.
 
 On the card (marker ``cuda``; skipped without one; run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_train_graph.py``):
@@ -57,16 +56,31 @@ B, T, S, K, N_IMAGES, SEED, LR = 16, 8, 6, 36, 40, 20261018, 1e-3
 
 # ---------------- the rule, on its own ----------------
 
-# (cuda, one_rank, hooked, seen, captured, grads_static) -> path
+# what adam_seen observes of the port's Adam over parameters on the card
+ADAM = (True, True, False, False, True)
+
+# (cuda, one_rank, hooked, adam, seen, captured, static) -> path
 RULE = [
-    ((False, True, False, True, True, True), "eager"),     # CPU
-    ((True, False, False, True, True, True), "eager"),     # ranks
-    ((True, True, True, True, True, True), "eager"),       # a hook
-    ((True, True, False, False, False, False), "eager"),   # first call
-    ((True, True, False, True, False, False), "capture"),  # second call
-    ((True, True, False, True, True, True), "replay"),
-    ((True, True, False, True, True, False), "capture"),   # grads moved
-    ((False, False, True, False, False, False), "eager"),
+    ((False, True, False, ADAM, True, True, True), "eager"),     # CPU
+    ((True, False, False, ADAM, True, True, True), "eager"),     # ranks
+    ((True, True, True, ADAM, True, True, True), "eager"),       # a hook
+    ((True, True, False, ADAM, False, False, False), "eager"),   # first call
+    ((True, True, False, ADAM, True, False, False), "capture"),  # second
+    ((True, True, False, ADAM, True, True, True), "replay"),
+    ((True, True, False, ADAM, True, True, False), "capture"),   # moved
+    ((False, False, True, ADAM, False, False, False), "eager"),
+    # the optimizer: (port_adam, own_step, step_hooks, sharded, on_card)
+    ((True, True, False, ADAM, True, False, False), "capture"),  # the port's
+    ((True, True, False, (True, True, False, False, False), True, True,
+      True), "eager"),                                 # parameters off the card
+    ((True, True, False, (True, False, False, False, True), True, True,
+      True), "eager"),                                 # step replaced
+    ((True, True, False, (True, True, True, False, True), True, True,
+      True), "eager"),                                 # a step hook
+    ((True, True, False, (True, True, False, True, True), True, True,
+      True), "eager"),                                 # sharded (tensor parallel)
+    ((True, True, False, (False, False, False, False, True), True, True,
+      True), "eager"),                                 # torch's Adam
 ]
 
 
@@ -121,7 +135,9 @@ def _fields(b=4, width=7):
             "floats": torch.zeros((b, 3), dtype=torch.float32)}
 
 
-def test_a_model_keeps_one_graph_and_a_new_key_starts_over():
+def test_a_model_keeps_one_graph_and_a_new_key_starts_over(monkeypatch):
+    # every optimizer here is one that a graph holds
+    monkeypatch.setattr(steps, "adam_seen", lambda opt: ADAM)
     model = GraphVQAModel(_tiny(), device="cpu", seed=1)
     opt, gen = object(), object()
     entry, path = steps._graph_entry(model, opt, gen, None, _fields())
@@ -197,23 +213,7 @@ def test_a_replay_adds_the_capture_launches():
         a.launches, b.launches = a0, b0
 
 
-# ---------------- Adam inside the graph: the rule ----------------
-
-# (port_adam, own_step, step_hooks, sharded, on_card) -> path
-ADAM_RULE = [
-    ((True, True, False, False, True), "graph"),
-    ((True, True, False, False, False), "eager"),   # parameters off the card
-    ((True, False, False, False, True), "eager"),   # step replaced
-    ((True, True, True, False, True), "eager"),     # a step hook
-    ((True, True, False, True, True), "eager"),     # sharded (tensor parallel)
-    ((False, False, False, False, True), "eager"),  # torch's Adam
-]
-
-
-@pytest.mark.parametrize("seen,want", ADAM_RULE)
-def test_adam_path(seen, want):
-    assert steps.adam_path(*seen) == want
-
+# ---------------- what the rule observes of an optimizer ----------------
 
 def _adam_case(case):
     """An optimizer (and its schedule, kept alive) as ``case`` leaves it;
@@ -248,25 +248,34 @@ ADAM_CASES = {"port": (True, True, False, False),
               "subclass": (True, False, False, False)}
 
 
+def _path_on_card(seen, static=True):
+    """``step_path`` for a seen key with a graph, on one rank of a card,
+    over what ``adam_seen`` observed (its parameters taken as on the
+    card)."""
+    return steps.step_path(True, True, False, (*seen[:4], True), True, True,
+                           static)
+
+
 @pytest.mark.parametrize("case", ADAM_CASES)
 def test_adam_seen(case):
     """The port's Adam under its MultiStepLR (which wraps its step on the
-    instance) goes in where its parameters are on the card; a replaced
-    step, a step hook, a sharded optimizer, torch's Adam and a subclass
-    with a step of its own stay out."""
+    instance) goes into the graph where its parameters are on the card; a
+    replaced step, a step hook, a sharded optimizer, torch's Adam and a
+    subclass with a step of its own run every step eagerly."""
     opt, _ = _adam_case(case)
     seen = steps.adam_seen(opt)
     assert seen == (*ADAM_CASES[case], False)
-    assert steps.adam_path(*seen[:4], True) == (
+    assert ("graph" if _path_on_card(seen) == "replay" else "eager") == (
         "graph" if case == "port" else "eager")
 
 
 @pytest.mark.parametrize("change", ["none", "replaced", "loaded", "moved",
                                     "rule"])
 def test_a_moved_moment_recaptures(change):
-    """A graph holding Adam recaptures where a captured moment is no
-    longer its parameter's, or lies elsewhere, or the rule now leaves
-    Adam out: ``adam_static`` is False and ``step_path`` says capture."""
+    """A graph recaptures where a captured moment is no longer its
+    parameter's, or lies elsewhere: ``adam_static`` is False and
+    ``step_path`` says capture. A step set on the instance after a
+    capture (``rule``) runs the call eagerly."""
     model = GraphVQAModel(_tiny(), device="cpu", seed=1)
     opt, _ = make_optimizer(model, TrainConfig(lr=LR), 3)
     for p in model.parameters():
@@ -274,12 +283,10 @@ def test_a_moved_moment_recaptures(change):
     opt.step()
     params = list(model.parameters())
     entry = steps._StepGraph((), ())
-    entry.adam_wanted = True
     entry.moments = [(p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"],
                       (opt.state[p]["exp_avg"].data_ptr(),
                        opt.state[p]["exp_avg_sq"].data_ptr()))
                      for p in params]
-    adam = True
     if change == "replaced":
         opt.state[params[3]]["exp_avg"] = \
             opt.state[params[3]]["exp_avg"].clone()
@@ -289,11 +296,35 @@ def test_a_moved_moment_recaptures(change):
         opt.state[params[1]]["exp_avg_sq"].set_(
             opt.state[params[1]]["exp_avg_sq"].clone())
     elif change == "rule":
-        adam = False
-    static = entry.adam_static(opt, adam)
-    assert static is (change == "none")
-    assert steps.step_path(True, True, False, True, True, static) == (
-        "replay" if static else "capture")
+        opt.step = lambda *a, **k: None
+    static = entry.adam_static(opt)
+    assert static is (change in ("none", "rule"))
+    assert _path_on_card(steps.adam_seen(opt), static) == (
+        {"none": "replay", "rule": "eager"}.get(change, "capture"))
+
+
+@pytest.mark.parametrize("case", ["no state", "off the card"])
+def test_adam_capture_refuses_a_parameter_without_state(case):
+    """A capture follows an eager step of its key, which gives every
+    parameter with a gradient its state: ``capture_update`` raises,
+    launching nothing, where one has none or lies off the card."""
+    model = GraphVQAModel(_tiny(), device="cpu", seed=1)
+    opt, _ = make_optimizer(model, TrainConfig(lr=LR), 3)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    n = len(opt.param_groups[0]["params"])
+    if case == "no state":
+        buffers = {0: torch.empty((n + 1, 6), dtype=torch.int64)}
+    else:
+        opt.step()
+        buffers = opt.capture_buffers()
+        assert buffers == {}
+    before = [p.detach().clone() for p in model.parameters()]
+    launches = ops.adam.adam_fused_step.launches
+    with pytest.raises(RuntimeError, match="no state, or off the card"):
+        opt.capture_update(buffers)
+    assert ops.adam.adam_fused_step.launches == launches
+    assert all(torch.equal(p, b) for p, b in zip(model.parameters(), before))
 
 
 def _graphed_counts(since):
@@ -557,14 +588,13 @@ def test_what_leaves_the_graph(card):
     # a resume's load_state_dict moves every moment: recapture
     run.opt.load_state_dict(run.opt.state_dict())
     assert _paths(run, full[:2], card) == ["capture", "replay"]
-    # a step set on the instance leaves Adam out of the graph (it runs
-    # after the replay), and back: a recapture each time
+    # a step set on the instance runs every call eagerly; its class's own
+    # step back, the graph recaptures
     wrapped = run.opt.step
     n0 = time.perf_counter_ns()
     run.opt.step = lambda *a, **k: None
-    assert _paths(run, full[:2], card) == ["capture", "replay"]
+    assert _paths(run, full[:2], card) == ["eager", "eager"]
     assert _graphed_counts(n0) == [0, 0]
-    assert steps._STEP_GRAPHS[run.model].adam is None
     run.opt.step = wrapped
     n0 = time.perf_counter_ns()
     assert _paths(run, full[:2], card) == ["capture", "replay"]

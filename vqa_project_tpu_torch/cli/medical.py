@@ -157,13 +157,11 @@ class Cell:
 
 
 def train_one_config(args, train_ds, val_ds, ckpt_prefix: str,
-                     shared=None) -> Cell:
+                     shared) -> Cell:
     """Train a fresh model on the current cell's flags, evaluate it on
     val and save its checkpoint (rank 0). ``shared`` is (mesh, train
-    cache, val cache) built once by the grid; without it ``fit`` and
-    ``evaluate`` build their own."""
-    mesh, cache, val_cache = (shared if shared
-                              else (None, loop._UNSET, loop._UNSET))
+    cache, val cache) built once by the grid."""
+    mesh, cache, val_cache = shared
     mcfg, tcfg = make_configs(args)
     timer = StepTimer(warmup=3, batch_size=args.bsize)
     model, optimizer, _ = loop.fit(tcfg, mcfg, train_ds, device=args.device,
@@ -234,10 +232,8 @@ def _grid(args, dataset_name: str, ckpt_prefix: str) -> List[Cell]:
     mesh = make_mesh(args.num_devices, args.device)
     cache = loop.make_feature_cache(train_ds, tcfg0, args.compute_dtype,
                                     args.device, mesh)
-    val_cache = (cache if loop._same_store(val_ds.store, train_ds.store)
-                 else loop.make_feature_cache(val_ds, tcfg0,
-                                              args.compute_dtype,
-                                              args.device, mesh))
+    val_cache = loop.val_feature_cache(train_ds, val_ds, cache, tcfg0,
+                                       args.compute_dtype, args.device, mesh)
 
     cells: List[Cell] = []
     best_acc = 0.0

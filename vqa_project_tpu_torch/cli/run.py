@@ -16,7 +16,7 @@ Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels) and ``--arch`` (default ``graph``, the
 conditioned-graph model; ``mcan``: MCAN-large, ``models/mcan.py``, on
 the same train step, Adam, image gather and evaluate, its questions cut
-to ``MAX_QLEN["mcan"]`` = 14 tokens, MCAN's MAX_TOKEN).
+to ``MCANModel.MAX_QLEN`` = 14 tokens, MCAN's MAX_TOKEN).
 
 Data parallelism: ``--bsize`` is the global batch, split over the
 ranks. ``--num_devices N`` (default: every visible card) starts N ranks,
@@ -56,11 +56,8 @@ import sys
 
 from vqa_project_tpu_torch.config import ModelConfig, TrainConfig
 from vqa_project_tpu_torch.data import GraphVQADataset, write_synthetic_vqa
+from vqa_project_tpu_torch.models import MODELS
 from vqa_project_tpu_torch.parallel import multihost
-
-# the tokens a question keeps, by architecture: the dataset's default,
-# and MCAN's MAX_TOKEN
-MAX_QLEN = {"graph": 16, "mcan": 14}
 
 
 def input_args(argv=None):
@@ -82,7 +79,7 @@ def input_args(argv=None):
     parser.add_argument("--bsize", metavar="", type=int, default=64,
                         help="batch size.")
     parser.add_argument("--arch", type=str, default="graph",
-                        choices=sorted(MAX_QLEN),
+                        choices=sorted(MODELS),
                         help="the model: graph (the conditioned-graph "
                              "model) or mcan (MCAN-large, "
                              "arXiv:1906.10770; its questions are cut to "
@@ -286,7 +283,7 @@ def _dataset(args, split, arch: str = "graph"):
     data_dir = synthetic_dir(args) if args.synthetic else args.data_dir
     # rank 0 packs the feature store on first use, the others then read it
     return multihost.primary_first(lambda: GraphVQADataset.vqa2(
-        data_dir, split, args.emb, args.n_obj, MAX_QLEN[arch]))
+        data_dir, split, args.emb, args.n_obj, MODELS[arch].MAX_QLEN))
 
 
 def train(args):

@@ -2,7 +2,8 @@
 batches to the device): the feature store (in memory or packed from
 zarr), the dataset adapters, vocabularies and GloVe vectors, the
 synthetic generator (in memory or as files), host and index batches,
-tokenization."""
+tokenization. ``data.feature_cache`` holds the device tables that index
+batches are gathered from (not imported here: it reaches the ops)."""
 
 from vqa_project_tpu_torch.data.datasets import (GraphVQADataset,
                                                  QuestionTable)

@@ -35,6 +35,7 @@ from torch import nn
 
 from vqa_project_tpu_torch.config import (ModelConfig, device_guard,
                                           resolve_device, torch_dtype)
+from vqa_project_tpu_torch.data.feature_cache import FeatureCache
 from vqa_project_tpu_torch.ops import quant
 from vqa_project_tpu_torch.ops import (bbox_centres, fused_graph_block,
                                        fused_sel_aggregate_act,
@@ -296,6 +297,10 @@ class GraphVQAModel(nn.Module):
     pad_logit = True
     # the training loss (a train step's): the masked soft-margin mean
     loss = staticmethod(multilabel_soft_margin_loss)
+    # the device table its input is gathered from
+    feature_cache = FeatureCache
+    # the tokens a question keeps: the dataset's default
+    MAX_QLEN = 16
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -325,6 +330,11 @@ class GraphVQAModel(nn.Module):
                                       out_dtype=torch.float32, quantized=q8)
         self.reset_parameters(seed)
         self.to(dev)
+
+    @property
+    def word_embedding(self) -> nn.Embedding:
+        """The word-embedding module (state_dict name ``wembed``)."""
+        return self.wembed
 
     def reset_parameters(self, seed: int) -> None:
         g = torch.Generator().manual_seed(int(seed))

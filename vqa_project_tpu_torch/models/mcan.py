@@ -65,6 +65,7 @@ from torch import nn
 
 from vqa_project_tpu_torch.config import (ModelConfig, device_guard,
                                           resolve_device, torch_dtype)
+from vqa_project_tpu_torch.data.feature_cache import RegionCache
 from vqa_project_tpu_torch.ops.dropout import dropout
 from vqa_project_tpu_torch.ops.gather_rows import RegionImage
 from vqa_project_tpu_torch.ops.losses import bce_sum_loss
@@ -271,6 +272,10 @@ class MCANModel(nn.Module):
 
     # the logits hold no pad slot: evaluation masks none of them
     pad_logit = False
+    # the device table its input is gathered from
+    feature_cache = RegionCache
+    # the tokens a question keeps: MCAN's MAX_TOKEN
+    MAX_QLEN = 14
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -292,6 +297,11 @@ class MCANModel(nn.Module):
         self.proj = Linear(2 * h, cfg.out_dim - 1, cdt)
         self.reset_parameters(seed)
         self.to(dev)
+
+    @property
+    def word_embedding(self) -> nn.Embedding:
+        """The word-embedding module (state_dict name ``embedding``)."""
+        return self.embedding
 
     def reset_parameters(self, seed: int) -> None:
         """The embedding N(0, 1); the LSTM U(-1/sqrt(H), 1/sqrt(H)); each

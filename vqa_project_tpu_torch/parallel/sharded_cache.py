@@ -43,7 +43,11 @@ def _upload_rows(table, lo: int, hi: int, out: torch.Tensor) -> None:
 
 class ShardedFeatureCache:
     """This rank's shard of the features (S, K, F) in the cache dtype and
-    of the boxes (S, K, 4) f32."""
+    of the boxes (S, K, 4) f32. It answers what the formats of
+    ``data.feature_cache`` answer; the bf16 gradient all-reduce is
+    refused over it, as in JAX."""
+
+    bf16_reduce = False
 
     def __init__(self, features: torch.Tensor, boxes: torch.Tensor,
                  rank: int, world: int, shard_size: int, n_images: int):
@@ -78,6 +82,12 @@ class ShardedFeatureCache:
         ``partitions()[table.image_row]`` to the Batcher."""
         return (np.arange(self.n_images) // self.shard_size).astype(np.int32)
 
+    def batcher_kwargs(self, ds, mesh) -> dict:
+        """Locality batches: each global batch's i-th slice holds only
+        rank i's images."""
+        return {"partitions": self.partitions()[ds.table.image_row],
+                "n_partitions": mesh.data_world}
+
     def local_rows(self, rows: np.ndarray) -> np.ndarray:
         """Global image rows as rows of this rank's shard (int32; rows of
         other shards fall outside it and are clamped by the gather)."""
@@ -87,7 +97,7 @@ class ShardedFeatureCache:
     def gather_fn(self, compute_dtype: str,
                   merged_block: bool = False) -> Callable:
         """``local rows (B,) int32 -> NodeImage`` from this shard, one
-        launch of ``gather_image_rows`` (``train.steps.make_image_fn``'s
+        launch of ``gather_image_rows`` (``FeatureCache.gather_fn``'s
         image function on the shard)."""
         node_dtype = torch_dtype(compute_dtype)
         features, boxes = self.features, self.boxes
@@ -97,5 +107,4 @@ class ShardedFeatureCache:
                 return gather_image_rows(features, boxes, rows, None,
                                          node_dtype, padded=merged_block)
 
-        image_fn.feature_cache = self   # train_step's bf16-reduce check
         return image_fn

@@ -4,12 +4,8 @@ Counterpart of ``vqa_project_tpu/train/loop.py``, on one card or over
 the data-parallel ranks of a process group (``parallel``):
 
 - ``make_feature_cache`` puts the dataset's feature table on the device
-  when it fits ``device_cache_bytes`` (as a (features, boxes) pair in
-  the cache dtype on every rank, or int8 with per-box scales; for MCAN
-  a ``RegionCache`` of the features and each image's region count), else
-  splits it over the ranks when a share fits
-  (``parallel.ShardedFeatureCache``), else returns None: host mode,
-  dense batches from the host;
+  in the format that the model's class names (``data.feature_cache``),
+  or returns None: host mode, dense batches from the host;
 - ``fit`` (what ``cli/run.py --train`` / ``--trainval`` call): shuffled
   fixed-shape batches prefetched to the device, one ``train_step`` each,
   the loss and accuracy logged per window of ``log_interval`` steps (one
@@ -44,17 +40,14 @@ import numpy as np
 import torch
 
 from vqa_project_tpu_torch.config import (ModelConfig, TrainConfig,
-                                          resolve_device, torch_dtype)
+                                          resolve_device)
 from vqa_project_tpu_torch.data.datasets import GraphVQADataset
+from vqa_project_tpu_torch.data.feature_cache import as_feature_cache
 from vqa_project_tpu_torch.data.loader import Batcher, prefetch_to_device
-from vqa_project_tpu_torch.data.store import region_counts
-from vqa_project_tpu_torch.models import make_model
-from vqa_project_tpu_torch.models.graph_vqa import GraphVQAModel
-from vqa_project_tpu_torch.ops.quant import quantize_feature_table
+from vqa_project_tpu_torch.models import MODELS, make_model
 from vqa_project_tpu_torch.parallel import multihost
 from vqa_project_tpu_torch.parallel.mesh import (Mesh, data_rows, data_sum,
                                                  make_mesh, shard_batch)
-from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
 from vqa_project_tpu_torch.parallel.tp import (full_optimizer_state,
                                                make_mesh_2d, shard_optimizer)
 from vqa_project_tpu_torch.train.metrics import MetricLogger, window_sums
@@ -63,17 +56,12 @@ from vqa_project_tpu_torch.train.profiling import (StepTimer, annotate,
 from vqa_project_tpu_torch.train.state import (load_checkpoint,
                                                make_optimizer,
                                                save_checkpoint)
-from vqa_project_tpu_torch.train.steps import (QuantizedFeatureCache,
-                                               RegionCache,
-                                               eval_epoch, eval_step,
+from vqa_project_tpu_torch.train.steps import (eval_epoch, eval_step,
                                                make_image_fn,
                                                stack_epoch_batches,
                                                supports_bf16_reduce,
                                                train_step)
 
-# images per host chunk while a cache is uploaded (~300 MB of f32 at the
-# VQA v2 widths)
-_UPLOAD_ROWS = 1024
 # sentinel telling "not passed" (build a cache) from None (host mode)
 _UNSET = object()
 
@@ -89,118 +77,38 @@ def build_model(model_cfg: ModelConfig, ds: GraphVQADataset, *,
         emb_dim=ds.pretrained_wemb.shape[1], feat_dim=ds.feat_dim,
         out_dim=ds.n_answers, n_obj=ds.n_obj, max_qlen=ds.max_qlen)
     model = make_model(cfg, device=device, seed=seed)
-    embedding = (model.wembed if isinstance(model, GraphVQAModel)
-                 else model.embedding)
     with torch.no_grad():
-        embedding.weight.copy_(torch.from_numpy(ds.pretrained_wemb))
+        model.word_embedding.weight.copy_(
+            torch.from_numpy(ds.pretrained_wemb))
     return model
-
-
-def _upload(table: np.ndarray, dtype: torch.dtype,
-            device: torch.device) -> torch.Tensor:
-    """``table`` on ``device`` in ``dtype``, sent in f32 chunks and cast
-    there, so no full-size host copy in the cache dtype is made."""
-    out = torch.empty(table.shape, dtype=dtype, device=device)
-    for i in range(0, table.shape[0], _UPLOAD_ROWS):
-        chunk = np.ascontiguousarray(table[i:i + _UPLOAD_ROWS], np.float32)
-        if not chunk.flags.writeable:   # a packed store's read-only memmap
-            chunk = chunk.copy()
-        out[i:i + len(chunk)].copy_(torch.from_numpy(chunk).to(device))
-    return out
-
-
-def _make_int8_cache(store, train_cfg: TrainConfig, compute_dtype: str,
-                     device: torch.device):
-    """The int8 row-quantized cache, or None when even int8 exceeds the
-    budget. Quantized on the host one chunk at a time."""
-    n, k, f = store.features.shape
-    nbytes = n * k * f + n * k * 4 + store.boxes.nbytes
-    if nbytes > train_cfg.device_cache_bytes:
-        print(f"int8 feature table {nbytes / 1e9:.1f} GB still exceeds "
-              "the device cache budget; using the host mode at the "
-              "compute dtype", flush=True)
-        return None
-    q = torch.empty((n, k, f), dtype=torch.int8, device=device)
-    scales = torch.empty((n, k), dtype=torch.float32, device=device)
-    for i in range(0, n, _UPLOAD_ROWS):
-        qc, sc = quantize_feature_table(store.features[i:i + _UPLOAD_ROWS])
-        q[i:i + len(qc)].copy_(torch.from_numpy(qc).to(device))
-        scales[i:i + len(sc)].copy_(torch.from_numpy(sc).to(device))
-    boxes = _upload(store.boxes, torch.float32, device)
-    return QuantizedFeatureCache(features=q, scales=scales, boxes=boxes,
-                                 out_dtype=compute_dtype or "float32")
-
-
-def _make_region_cache(store, train_cfg: TrainConfig, dtype: torch.dtype,
-                       device: torch.device) -> Optional[RegionCache]:
-    """MCAN's cache (``RegionCache``: the features and each image's
-    region count, ``data.store.region_counts``) when it fits the budget,
-    else None."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    n_images = store.features.shape[0]
-    nbytes = store.features.size * itemsize + n_images * 4
-    if nbytes > train_cfg.device_cache_bytes:
-        print(f"region table {nbytes / 1e9:.1f} GB exceeds device cache "
-              "budget; streaming features from host", flush=True)
-        return None
-    counts = region_counts(store.features, _UPLOAD_ROWS)
-    return RegionCache(_upload(store.features, dtype, device),
-                       torch.from_numpy(counts).to(device))
 
 
 def make_feature_cache(ds: GraphVQADataset, train_cfg: TrainConfig,
                        compute_dtype: Optional[str] = None, device="cuda",
                        mesh: Optional[Mesh] = None, arch: str = "graph"):
     """The dataset's feature table on ``device`` (``mesh.device`` with a
-    mesh), or None (host mode).
-
-    Mode selection by the per-card budget ``train_cfg.device_cache_bytes``,
-    in this order: a table that fits in the cache dtype
-    (``feature_cache_dtype``; "auto" means the compute dtype) becomes a
-    (features, boxes f32) pair on every rank; "int8" becomes a
-    ``QuantizedFeatureCache`` (replicated only), or the compute dtype
-    when even int8 does not fit; a table that fits only divided over the
-    mesh's ranks becomes a ``ShardedFeatureCache`` (rank r uploads only
-    its rows); else None. On a (data, model) mesh a table over the
-    budget streams from the host, as in JAX: the sharded cache is the
-    1-D mesh's. For ``arch`` "mcan" the table becomes a ``RegionCache``
-    on every rank when it fits, else None, in the cache dtype or, where
-    that is int8, in the compute dtype.
-    """
+    mesh) in the format that the class of ``arch``'s model names
+    (``feature_cache``: ``data.feature_cache``), or None (host mode): its
+    ``build``, by the per-card budget ``train_cfg.device_cache_bytes``.
+    For the conditioned-graph model a ``FeatureCache`` on every rank, an
+    int8 ``QuantizedFeatureCache`` or a ``ShardedFeatureCache`` over the
+    mesh's ranks; for MCAN a ``RegionCache`` on every rank."""
     dev = resolve_device(device) if mesh is None else mesh.device
-    world = 1 if mesh is None else mesh.data_world
-    store = ds.store
-    cache_dtype = train_cfg.feature_cache_dtype
-    if cache_dtype == "auto":
-        cache_dtype = compute_dtype or "float32"
-    if cache_dtype == "int8" and arch != "mcan":
-        qc = _make_int8_cache(store, train_cfg, compute_dtype, dev)
-        if qc is not None:
-            return qc
-    if cache_dtype == "int8":
-        # over the budget, or MCAN's region table, which has no int8 form
-        cache_dtype = compute_dtype or "float32"
-    dtype = torch_dtype(cache_dtype)
-    if arch == "mcan":
-        return _make_region_cache(store, train_cfg, dtype, dev)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = store.features.size * itemsize + store.boxes.nbytes
-    if nbytes <= train_cfg.device_cache_bytes:
-        return (_upload(store.features, dtype, dev),
-                _upload(store.boxes, torch.float32, dev))
-    if mesh is not None and mesh.tp > 1:
-        print(f"feature table {nbytes / 1e9:.1f} GB exceeds device "
-              "cache budget and mesh has a model axis; streaming from "
-              "host (sharded cache is 1-D-mesh only)", flush=True)
-        return None
-    if world > 1 and nbytes / world <= train_cfg.device_cache_bytes:
-        print(f"feature table {nbytes / 1e9:.1f} GB: sharding across "
-              f"{world} ranks ({nbytes / world / 1e9:.1f} GB/rank)",
-              flush=True)
-        return ShardedFeatureCache.build(store, mesh, dtype)
-    print(f"feature table {nbytes / 1e9:.1f} GB exceeds device cache "
-          "budget; streaming features from host", flush=True)
-    return None
+    return MODELS[arch].feature_cache.build(ds.store, train_cfg,
+                                            compute_dtype, dev, mesh)
+
+
+def val_feature_cache(train_ds: GraphVQADataset, val_ds: GraphVQADataset,
+                      cache, train_cfg: TrainConfig,
+                      compute_dtype: Optional[str] = None, device="cuda",
+                      mesh: Optional[Mesh] = None, arch: str = "graph"):
+    """The val split's table: the train split's ``cache`` where both read
+    one store (the VQA v2 train and val splits do), else
+    ``make_feature_cache``'s."""
+    if _same_store(val_ds.store, train_ds.store):
+        return cache
+    return make_feature_cache(val_ds, train_cfg, compute_dtype, device,
+                              mesh, arch)
 
 
 def _batches_forever(batcher: Batcher):
@@ -208,37 +116,33 @@ def _batches_forever(batcher: Batcher):
         yield from batcher
 
 
-def _rank_part(mesh: Mesh, cache):
-    """The function from a global host batch to this rank's part of it
-    (its rows; with a sharded cache their image rows in its shard), or
-    None on a data axis of one rank."""
-    if mesh.data_world == 1:
-        return None
-    sharded = isinstance(cache, ShardedFeatureCache)
-
-    def part(batch):
-        local = shard_batch(batch, mesh)
-        if sharded:
-            local = {**local, "image_row": cache.local_rows(
-                local["image_row"])}
-        return local
-
-    return part
-
-
-def _batcher_kwargs(cache, ds: GraphVQADataset, mesh: Mesh) -> dict:
-    """Batcher kwargs: locality batches over a sharded cache, in host
-    mode the dense fields of this rank's rows only, and over MCAN's
-    region table the images' region counts, from which each batch counts
-    its padded rows."""
-    if isinstance(cache, RegionCache):
-        return {"region_counts": cache.counts.cpu().numpy()}
-    if isinstance(cache, ShardedFeatureCache):
-        return {"partitions": cache.partitions()[ds.table.image_row],
-                "n_partitions": mesh.data_world}
-    if cache is None and mesh.data_world > 1:
-        return {"shard": (mesh.data_rank, mesh.data_world)}
-    return {}
+def _feed(ds: GraphVQADataset, cache, model_cfg: ModelConfig, mesh: Mesh,
+          batch_size: int, **batcher):
+    """(image_fn, part, Batcher) of ``ds`` over ``cache`` (None: host
+    mode): the cache's image gather (``make_image_fn``); the function
+    from a global host batch to this rank's part of it (its rows, their
+    image rows as rows of this rank's table), or None on a data axis of
+    one rank; and the batches, index batches over a cache (made as the
+    cache asks: ``batcher_kwargs``), dense ones in host mode, where a
+    rank of several materializes only its rows. ``batcher`` goes to the
+    Batcher as well."""
+    cache = as_feature_cache(cache)
+    image_fn = make_image_fn(cache, model_cfg.compute_dtype,
+                             model_cfg.merged_block)
+    part = None
+    if mesh.data_world > 1:
+        def part(batch):
+            local = shard_batch(batch, mesh)
+            if cache is not None:
+                local = {**local, "image_row": cache.local_rows(
+                    local["image_row"])}
+            return local
+    if cache is not None:
+        batcher.update(cache.batcher_kwargs(ds, mesh))
+    elif mesh.data_world > 1:
+        batcher["shard"] = (mesh.data_rank, mesh.data_world)
+    return image_fn, part, Batcher(ds, batch_size,
+                                   materialize=cache is None, **batcher)
 
 
 def mini_validation(model, val_iter, n_batches: int = 10,
@@ -400,12 +304,9 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
         cache = make_feature_cache(train_ds, train_cfg,
                                    model_cfg.compute_dtype, dev, mesh,
                                    model_cfg.arch)
-    image_fn = make_image_fn(cache, model_cfg.compute_dtype,
-                             model_cfg.merged_block)
-    part = _rank_part(mesh, cache)
-    loader = Batcher(train_ds, bs, shuffle=True, seed=train_cfg.seed,
-                     drop_last=True, materialize=cache is None,
-                     **_batcher_kwargs(cache, train_ds, mesh))
+    image_fn, part, loader = _feed(train_ds, cache, model_cfg, mesh, bs,
+                                   shuffle=True, seed=train_cfg.seed,
+                                   drop_last=True)
     steps_per_epoch = len(loader)
     optimizer, scheduler = make_optimizer(model, train_cfg, steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(
@@ -438,21 +339,17 @@ def fit(train_cfg: TrainConfig, model_cfg: ModelConfig,
     val_fn = None
     if val_ds is not None:
         if val_cache is _UNSET:
-            val_cache = (cache if _same_store(val_ds.store, train_ds.store)
-                         else make_feature_cache(val_ds, train_cfg,
-                                                 model_cfg.compute_dtype,
-                                                 dev, mesh, model_cfg.arch))
-        val_iter = _batches_forever(Batcher(
-            val_ds, bs, shuffle=True, seed=train_cfg.seed + 1,
-            materialize=val_cache is None,
-            **_batcher_kwargs(val_cache, val_ds, mesh)))
-        val_part = _rank_part(mesh, val_cache)
+            val_cache = val_feature_cache(train_ds, val_ds, cache, train_cfg,
+                                          model_cfg.compute_dtype, dev, mesh,
+                                          model_cfg.arch)
+        val_image_fn, val_part, val_loader = _feed(
+            val_ds, val_cache, model_cfg, mesh, bs, shuffle=True,
+            seed=train_cfg.seed + 1)
+        val_iter = _batches_forever(val_loader)
         if val_cache is None:
             val_fn = lambda: mini_validation(  # noqa: E731
                 model, val_iter, part=val_part, mesh=mesh)
         else:
-            val_image_fn = make_image_fn(val_cache, model_cfg.compute_dtype,
-                                         model_cfg.merged_block)
             val_fn = lambda: mini_validation_resident(  # noqa: E731
                 model, val_iter, val_image_fn, dev, part=val_part,
                 mesh=mesh)
@@ -577,13 +474,10 @@ def evaluate(model: torch.nn.Module, ds: GraphVQADataset, batch_size: int, *,
             cache = make_feature_cache(ds, train_cfg or TrainConfig(
                 batch_size=batch_size), model.cfg.compute_dtype, dev, mesh,
                 model.cfg.arch)
-        image_fn = make_image_fn(cache, model.cfg.compute_dtype,
-                                 model.cfg.merged_block)
-        part = _rank_part(mesh, cache)
+        image_fn, part, loader = _feed(ds, cache, model.cfg, mesh,
+                                       batch_size, shuffle=False)
         # a generator: its batches are built where it is iterated
-        batches = iter(Batcher(ds, batch_size, shuffle=False,
-                               materialize=cache is None,
-                               **_batcher_kwargs(cache, ds, mesh)))
+        batches = iter(loader)
         if max_batches is not None:
             batches = itertools.islice(batches, max_batches)
 

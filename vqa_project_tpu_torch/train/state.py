@@ -226,15 +226,16 @@ class Adam(torch.optim.Optimizer):
         return out
 
     @torch.no_grad()
-    def capture_update(self, buffers: dict) -> Optional[list]:
+    def capture_update(self, buffers: dict) -> list:
         """Inside a CUDA graph's capture, after the backward: each group's
         launch over its parameters with a gradient, reading its scalars
         tensor, from a table built into its buffer (``capture_buffers``,
         made before the capture). Returns [(group index, params, table)],
         whose tables the caller uploads once the capture has ended and
-        which ``graph_host_step`` takes before every replay; or None,
-        launching nothing, where such a parameter has no state yet or
-        lies off the card."""
+        which ``graph_host_step`` takes before every replay. A key's first
+        call is an eager step, which gives every such parameter its
+        state: one without a state, or off the card, raises before any
+        launch."""
         groups = []
         for gi, group in enumerate(self.param_groups):
             params = [p for p in group["params"] if p.grad is not None]
@@ -242,7 +243,10 @@ class Adam(torch.optim.Optimizer):
                 continue
             if gi not in buffers or any(
                     "exp_avg" not in self.state.get(p, {}) for p in params):
-                return None
+                raise RuntimeError(
+                    f"Adam's group {gi} has a parameter with a gradient "
+                    "but no state, or off the card: a graph captures the "
+                    "update only after an eager step of this optimizer")
             groups.append((gi, params, AdamTable(
                 *self._launch_lists(gi, params), out=buffers[gi])))
         for gi, _, table in groups:

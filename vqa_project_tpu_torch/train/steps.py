@@ -2,14 +2,12 @@
 
 Counterpart of ``vqa_project_tpu/train/steps.py``. Ingest modes:
 
-- device-cache mode: region features and boxes live on the device
-  (a ``(features, boxes)`` pair or a ``QuantizedFeatureCache``); a batch
-  carries token ids, lengths, image rows and SPARSE answer/vote entries
+- device-cache mode: the model's feature table lives on the device (one
+  of the formats of ``data.feature_cache``); a batch carries token ids,
+  lengths, image rows and SPARSE answer/vote entries
   (``data.loader.pack_index_batch``), and the step gathers its images
-  as the model's node rows in one launch (``make_image_fn``, a
-  ``NodeImage``; for MCAN a ``RegionCache`` of feature-only rows and
-  region counts, a ``RegionImage``) and densifies its labels on the
-  device;
+  in one launch (``make_image_fn``: the cache's ``gather_fn``) and
+  densifies its labels on the device;
 - host mode: the batch carries dense images, answers and votes.
 
 One training step is forward, the model's masked loss (``model.loss``),
@@ -17,15 +15,14 @@ backward, Adam and the score;
 ``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
 loop.
 
-On one card, ``train_step`` replays its device work (the inputs' unpack
-and image gather, the forward, the loss, the backward and the score) as
-one CUDA graph once it has seen a batch of the same shapes: the first
-such call runs eagerly and warms up, the second captures, every later
-one copies its batch into the graph's inputs and replays
-(``step_path``). The port's own Adam over parameters on the card is
-captured too, after the backward (``adam_path``), with its host part
-(the counts, lr and the bias corrections) and the schedule run before
-each replay; any other optimizer runs eagerly after it.
+On one card, ``train_step`` with the port's own Adam replays its device
+work (the inputs' unpack and image gather, the forward, the loss, the
+backward, Adam's launch and the score) as one CUDA graph once it has
+seen a batch of the same shapes: the first such call runs eagerly and
+warms up, the second captures, every later one runs Adam's host part
+(the counts, lr and the bias corrections) and the schedule, copies its
+batch into the graph's inputs and replays. Any call that the graph
+cannot hold runs wholly eagerly (``step_path``, the one rule).
 
 Across data-parallel ranks (``parallel.Mesh``; the data axis of a
 (data, model) grid under tensor parallelism) each rank steps on its
@@ -40,44 +37,20 @@ per-rank means is not wherever the ranks' valid counts differ.
 from __future__ import annotations
 
 import weakref
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from vqa_project_tpu_torch.config import device_guard, torch_dtype
+# QuantizedFeatureCache and RegionCache are imported from here as well
+from vqa_project_tpu_torch.data.feature_cache import (  # noqa: F401
+    QuantizedFeatureCache, RegionCache, as_feature_cache)
 from vqa_project_tpu_torch.data.loader import DENSE_KEYS, pack_index_batch
 from vqa_project_tpu_torch.ops._build import COUNTED
-from vqa_project_tpu_torch.ops.gather_rows import (NodeImage,
-                                                   gather_image_rows,
-                                                   gather_region_rows)
 from vqa_project_tpu_torch.ops.losses import vqa_score
 from vqa_project_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
-from vqa_project_tpu_torch.parallel.sharded_cache import ShardedFeatureCache
 from vqa_project_tpu_torch.train.profiling import annotate, count
 from vqa_project_tpu_torch.train.state import Adam
-
-
-class QuantizedFeatureCache(NamedTuple):
-    """int8 device feature table with per-box dequantization scales
-    (``ops.quant.quantize_feature_table``): a quarter of the f32 table's
-    memory, half of bf16's. The gather dequantizes the rows to
-    ``out_dtype``, which must be the model's compute dtype; the model is
-    unchanged."""
-
-    features: torch.Tensor   # (N, K, F) int8
-    scales: torch.Tensor     # (N, K) float32
-    boxes: torch.Tensor      # (N, K, 4) float32
-    out_dtype: str           # dequantization target
-
-
-class RegionCache(NamedTuple):
-    """MCAN's device feature table: the region rows (N, K, F) in the
-    cache dtype, and each image's count of live regions (N,) int32, its
-    rows past the count zero (``data.store.region_counts``)."""
-
-    features: torch.Tensor
-    counts: torch.Tensor
 
 
 def densify_labels(idx: torch.Tensor, val: torch.Tensor,
@@ -108,56 +81,35 @@ def sparse_vqa_score(logits: torch.Tensor, vote_idx: torch.Tensor,
 
 def make_image_fn(feature_cache, compute_dtype: str,
                   merged_block: bool = False) -> Optional[Callable]:
-    """``rows (B,) int32 -> NodeImage`` for a device feature cache, or
-    None in host mode (no cache).
-
-    One launch of ``gather_image_rows`` writes the model's input: the
-    node rows feat||bbox in ``compute_dtype`` (an int8 cache dequantized
-    there), in rows padded for the merged block when ``merged_block``,
-    and the f32 boxes. An int8 cache must dequantize to ``compute_dtype``.
-    A ``RegionCache`` (MCAN) gives ``rows -> RegionImage`` instead: the
-    rows as the table holds them, by one launch of ``gather_region_rows``,
-    with their region counts.
-    """
-    if feature_cache is None:
+    """``rows (B,) int32 -> the model's image`` for a device feature
+    cache, or None in host mode (no cache): the cache's ``gather_fn``
+    (``data.feature_cache``; a bare (features, boxes) pair is a
+    ``FeatureCache``), one launch a call. A ``FeatureCache`` or an int8
+    ``QuantizedFeatureCache`` gives a ``NodeImage``, the node rows
+    feat||bbox in ``compute_dtype`` (padded for the merged block when
+    ``merged_block``) and the f32 boxes; a ``RegionCache`` (MCAN) a
+    ``RegionImage``. The function carries its cache as
+    ``.feature_cache``, which ``train_step``'s bf16 refusal reads."""
+    cache = as_feature_cache(feature_cache)
+    if cache is None:
         return None
-    if isinstance(feature_cache, RegionCache):
-        features, counts = feature_cache
-
-        def region_fn(rows):
-            with device_guard(rows.device):
-                return gather_region_rows(features, counts, rows)
-
-        return region_fn
-    if isinstance(feature_cache, ShardedFeatureCache):
-        return feature_cache.gather_fn(compute_dtype, merged_block)
-    node_dtype = torch_dtype(compute_dtype)
-    if isinstance(feature_cache, QuantizedFeatureCache):
-        features, scales, boxes, out = feature_cache
-        if torch_dtype(out) != node_dtype:
-            raise ValueError(f"the int8 cache dequantizes to {out}, the "
-                             f"model computes in {compute_dtype}")
-    else:
-        (features, boxes), scales = feature_cache, None
-
-    def image_fn(rows) -> NodeImage:
-        with device_guard(rows.device):
-            return gather_image_rows(features, boxes, rows, scales,
-                                     node_dtype, padded=merged_block)
-
+    image_fn = cache.gather_fn(compute_dtype, merged_block)
+    image_fn.feature_cache = cache
     return image_fn
 
 
 def supports_bf16_reduce(feature_cache, mesh: Optional[Mesh] = None
                          ) -> Tuple[bool, Optional[str]]:
     """(ok, why): the bf16 gradient all-reduce takes the 1-D data mesh
-    (tp = 1) and a replicated device cache or host mode; ``why`` names
-    what it refuses. One rule for ``train_step``'s refusal and ``fit``'s
-    degrade to float32 (JAX's ``supports_bf16_reduce``)."""
+    (tp = 1) and a cache whose ``bf16_reduce`` allows it (every
+    replicated one) or host mode; ``why`` names what it refuses. One
+    rule for ``train_step``'s refusal and ``fit``'s degrade to float32
+    (JAX's ``supports_bf16_reduce``)."""
     if mesh is not None and mesh.tp > 1:
         return False, "a model-parallel mesh"
-    if isinstance(feature_cache, ShardedFeatureCache):
-        return False, f"a {type(feature_cache).__name__} feature cache"
+    cache = as_feature_cache(feature_cache)
+    if cache is not None and not cache.bf16_reduce:
+        return False, f"a {type(cache).__name__} feature cache"
     return True, None
 
 
@@ -231,31 +183,28 @@ def _assemble_inputs(batch: Dict[str, torch.Tensor],
 _STEP_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def step_path(cuda: bool, one_rank: bool, hooked: bool, seen: bool,
-              captured: bool, grads_static: bool) -> str:
+def step_path(cuda: bool, one_rank: bool, hooked: bool,
+              adam: Tuple[bool, bool, bool, bool, bool], seen: bool,
+              captured: bool, static: bool) -> str:
     """How ``train_step`` runs a call, from what it observes: "eager" off
     a CUDA card, across ranks (a data-parallel mesh or a sharded
-    optimizer), with a hook on the model, or for a key other than the
-    model's last (that call is the key's warm-up); else "replay" of the
-    key's graph while every parameter keeps the gradient tensor and the
-    storage that its capture saw, and "capture" (then one replay) where
-    there is no graph yet or they moved."""
-    if not (cuda and one_rank) or hooked or not seen:
+    optimizer), with a hook on the model, for an optimizer whose update
+    a graph cannot hold, or for a key other than the model's last (that
+    call is the key's warm-up); else "replay" of the key's graph while
+    every parameter keeps the gradient tensor and the storage, and every
+    moment the tensor and the storage, that its capture saw
+    (``static``), and "capture" (then one replay) where there is no
+    graph yet or they moved. ``adam`` is what ``adam_seen`` observes of
+    the optimizer: a graph holds the port's ``Adam`` whose ``step`` is
+    its class's own (not one set on the instance; the scheduler's
+    counting wrapper of it is its own), with no step hook, not sharded
+    over a model axis, over parameters all on the card."""
+    port_adam, own_step, step_hooks, sharded, on_card = adam
+    capturable = (port_adam and own_step and not step_hooks and not sharded
+                  and on_card)
+    if not (cuda and one_rank and capturable) or hooked or not seen:
         return "eager"
-    return "replay" if captured and grads_static else "capture"
-
-
-def adam_path(port_adam: bool, own_step: bool, step_hooks: bool,
-              sharded: bool, on_card: bool) -> str:
-    """Where a graphed step runs its optimizer, from what it observes:
-    "graph" (its launch captured after the backward, its host part run
-    before each replay) for the port's ``Adam`` whose ``step`` is its
-    class's own (not one set on the instance; the scheduler's counting
-    wrapper of it is its own), with no step hook, not sharded over a
-    model axis, over parameters all on the card; else "eager", after the
-    replay."""
-    ok = port_adam and own_step and not step_hooks and not sharded
-    return "graph" if ok and on_card else "eager"
+    return "replay" if captured and static else "capture"
 
 
 def _own_step(optimizer) -> bool:
@@ -270,7 +219,8 @@ def _own_step(optimizer) -> bool:
 
 
 def adam_seen(optimizer) -> Tuple[bool, bool, bool, bool, bool]:
-    """What ``adam_path`` reads of ``optimizer``."""
+    """What ``step_path`` reads of ``optimizer``: (the port's Adam, its
+    own step, a step hook, sharded, its parameters all on the card)."""
     from torch.optim import optimizer as torch_optimizer
     port = isinstance(optimizer, Adam)
     hooks = bool(getattr(optimizer, "_optimizer_step_pre_hooks", None)
@@ -341,28 +291,25 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
 class _StepGraph:
     """A model's graph for one key. ``refs`` (optimizer, generator,
     image_fn) keeps the objects whose ids the key holds alive. A capture
-    makes the static inputs, the graph and its (3,) output, and notes
-    each parameter with the gradient tensor and the storage it saw, and
-    each launch counter's count in the step (``_build.COUNTED``), which
-    every later replay adds. With Adam inside (``adam``: what
-    ``Adam.capture_update`` returned, None for an optimizer left out) it
-    notes each captured parameter's moments too."""
+    makes the static inputs, the graph, its (3,) output and Adam's
+    launches (``adam``: what ``Adam.capture_update`` returned), and
+    notes each parameter with the gradient tensor and the storage it
+    saw, each captured parameter's moments, and each launch counter's
+    count in the step (``_build.COUNTED``), which every later replay
+    adds."""
 
     def __init__(self, key: tuple, refs: tuple):
         self.key, self.refs = key, refs
         self.graph = self.inputs = self.out = self.adam = None
-        self.adam_wanted = False
         self.params, self.moments, self.launches = [], [], []
 
     def grads_static(self) -> bool:
         return all(p.grad is g and p.data_ptr() == ptr
                    for p, g, ptr in self.params)
 
-    def adam_static(self, optimizer, adam: bool) -> bool:
-        """The capture asked for Adam as ``adam`` does now, and every
-        captured moment is still its parameter's, where it was."""
-        if adam != self.adam_wanted:
-            return False
+    def adam_static(self, optimizer) -> bool:
+        """Every captured moment is still its parameter's, where it
+        was."""
         for p, mu, nu, ptrs in self.moments:
             st = optimizer.state.get(p)
             if (st is None or st.get("exp_avg") is not mu
@@ -378,12 +325,10 @@ class _StepGraph:
         for k, v in fields.items():
             self.inputs[k].copy_(v)
 
-    def capture(self, model, optimizer, generator, image_fn,
-                adam: bool) -> None:
+    def capture(self, model, optimizer, generator, image_fn) -> None:
         # the old graph and its pool go first; the backward then writes
         # fresh gradients, which every replay overwrites in place
         self.graph = self.out = self.adam = None
-        self.adam_wanted = adam
         optimizer.zero_grad(set_to_none=True)
         before = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
@@ -391,22 +336,21 @@ class _StepGraph:
             # every replay advances it by what an eager step draws (the
             # default generator is registered by the capture itself)
             graph.register_generator_state(generator)
-        buffers = optimizer.capture_buffers() if adam else None
+        buffers = optimizer.capture_buffers()
         # the loader's thread may pin memory while the capture runs
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.out = torch.stack(_step_body(model, optimizer, self.inputs,
                                               image_fn, generator))
-            if adam:
-                self.adam = optimizer.capture_update(buffers)
+            self.adam = optimizer.capture_update(buffers)
         self.graph = graph
         # the tables' one copy each, which a capture cannot hold
-        for _, _, table in self.adam or ():
+        for _, _, table in self.adam:
             table.upload()
         self.launches = [(f, f.launches - n)
                          for f, n in zip(COUNTED, before) if f.launches != n]
         self.params = [(p, p.grad, p.data_ptr()) for p in model.parameters()]
         self.moments = [(p, m, v, (m.data_ptr(), v.data_ptr()))
-                        for _, _, table in self.adam or ()
+                        for _, _, table in self.adam
                         for p, m, v in zip(table.params, table.mus,
                                            table.nus)]
 
@@ -420,14 +364,13 @@ class _StepGraph:
 
 
 def _graph_entry(model, optimizer, generator, image_fn,
-                 fields: Dict[str, torch.Tensor], adam: bool = False):
+                 fields: Dict[str, torch.Tensor]):
     """(the model's ``_StepGraph``, ``step_path``'s answer) of a one-card
-    call on the card, whose optimizer ``adam_path`` puts inside the graph
-    where ``adam``. The key: every input's shape and dtype and the
+    call on the card. The key: every input's shape and dtype and the
     identity of the optimizer, the generator and ``image_fn``. A model
     keeps one graph: a key other than its last drops it, and the call
     runs eagerly as the new key's first. A graph recaptures where a
-    gradient or a captured moment moved, or ``adam`` changed."""
+    gradient or a captured moment moved."""
     key = (tuple((k, tuple(v.shape), v.dtype) for k, v in fields.items()),
            id(optimizer), id(generator), id(image_fn))
     entry = _STEP_GRAPHS.get(model)
@@ -436,33 +379,29 @@ def _graph_entry(model, optimizer, generator, image_fn,
         entry = _STEP_GRAPHS[model] = _StepGraph(
             key, (optimizer, generator, image_fn))
     captured = entry.graph is not None
-    path = step_path(True, True, _hooked(model), seen, captured,
-                     captured and entry.grads_static()
-                     and entry.adam_static(optimizer, adam))
+    path = step_path(True, True, _hooked(model), adam_seen(optimizer), seen,
+                     captured, captured and entry.grads_static()
+                     and entry.adam_static(optimizer))
     return entry, path
 
 
-def _graphed_step(entry: _StepGraph, path: str, adam: bool, model, optimizer,
-                  scheduler, fields, generator, image_fn,
+def _graphed_step(entry: _StepGraph, path: str, model, optimizer, scheduler,
+                  fields, generator, image_fn,
                   dev) -> Dict[str, torch.Tensor]:
     with annotate("train_step.inputs"):
         entry.copy_in(fields, dev)
     if path == "capture":
         with annotate("train_step.capture"):
-            entry.capture(model, optimizer, generator, image_fn, adam)
-    inside = entry.adam is not None
-    if inside:
-        # the counts and this step's lr and bias corrections reach the
-        # card before the replay that reads them
-        _optimize(optimizer, scheduler, captured=entry.adam)
+            entry.capture(model, optimizer, generator, image_fn)
+    # the counts and this step's lr and bias corrections reach the card
+    # before the replay that reads them
+    _optimize(optimizer, scheduler, captured=entry.adam)
     with annotate("train_step.graph"):
         out = entry.replay()
         if path == "replay":
             # the capture ran the wrappers once; a replay runs none
             entry.count_launches()
-    if not inside:
-        _optimize(optimizer, scheduler)
-    count("adam.graphed", int(inside))
+    count("adam.graphed", 1)
     return {"loss": out[0], "score": out[1], "valid": out[2]}
 
 
@@ -516,17 +455,16 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     parameters (``parallel/tp.py``).
 
     On one card (no process group, no sharded optimizer) with no hook on
-    the model, a call with the key (``_graph_entry``) of the call before
-    runs its device work before the optimizer (``_step_body``) as one
-    CUDA graph: the second call of a key captures, later ones replay
-    (``step_path``). The port's own Adam on the card is captured with it,
-    after the backward; its host part and the schedule run before each
-    replay (``adam_path``); another optimizer steps after the replay. Its
-    results, gradients, dropout draws, parameters, moments and counts are
-    an eager step's, and each wrapper's ``.launches`` counts a replay as
-    the step it replays. Every call counts ``adam.graphed``
-    (``train.profiling.count``): 1 where its Adam ran inside the replayed
-    graph, else 0.
+    the model and the port's own Adam over parameters on the card, a
+    call with the key (``_graph_entry``) of the call before runs as one
+    CUDA graph: its device work (``_step_body``) and, after the
+    backward, Adam's launch; the second call of a key captures, later
+    ones replay, each after Adam's host part and the schedule. Every
+    other call runs wholly eagerly (``step_path``). The graph's results,
+    gradients, dropout draws, parameters, moments and counts are an
+    eager step's, and each wrapper's ``.launches`` counts a replay as the
+    step it replays. Every call counts ``adam.graphed``
+    (``train.profiling.count``): 1 where it replayed the graph, else 0.
 
     Its spans (``train.profiling.annotate``): ``train_step`` around the
     call, and inside it ``train_step.inputs`` (the copy in, the unpack,
@@ -534,8 +472,8 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     inputs), ``.forward`` (the model, the loss and its labels),
     ``.backward`` (the zeroing, autograd's backward and, inside it,
     ``.allreduce``: the data-parallel sum) and ``.optimizer`` (the
-    optimizer and the schedule; with Adam inside the graph its host part
-    and the schedule, before ``.graph``). On the
+    optimizer and the schedule; on the graph path Adam's host part and
+    the schedule, before ``.graph``). On the
     graph path ``.graph`` (the replay and the copy of its results) takes
     the place of ``.forward`` and ``.backward``; a capture runs them,
     with a second ``.inputs``, inside ``.capture``.
@@ -560,11 +498,10 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
         dev = next(model.parameters()).device
         fields = _fields(batch)
         if dev.type == "cuda" and not dp and shards is None:
-            adam = adam_path(*adam_seen(optimizer)) == "graph"
             entry, path = _graph_entry(model, optimizer, generator,
-                                       image_fn, fields, adam)
+                                       image_fn, fields)
             if path != "eager":
-                return _graphed_step(entry, path, adam, model, optimizer,
+                return _graphed_step(entry, path, model, optimizer,
                                      scheduler, fields, generator, image_fn,
                                      dev)
         loss, score, valid = _step_body(
