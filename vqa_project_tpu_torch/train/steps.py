@@ -13,7 +13,9 @@ Counterpart of ``vqa_project_tpu/train/steps.py``. Ingest modes:
 One training step is forward, the model's masked loss (``model.loss``),
 backward, Adam and the score;
 ``eval_epoch`` runs a whole resident eval epoch with no fetch inside its
-loop.
+loop, on the card as one CUDA graph of the eval forward replayed for
+every batch once the model has seen a batch of its key (``eval_path``,
+a rule of its own, and a graph apart from the train step's).
 
 On one card, ``train_step`` with the port's own Adam replays its device
 work (the inputs' unpack and image gather, the forward, the loss, the
@@ -42,6 +44,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vqa_project_tpu_torch.config import device_guard
 # QuantizedFeatureCache and RegionCache are imported from here as well
 from vqa_project_tpu_torch.data.feature_cache import (  # noqa: F401
     QuantizedFeatureCache, RegionCache, as_feature_cache)
@@ -89,12 +92,14 @@ def make_image_fn(feature_cache, compute_dtype: str,
     feat||bbox in ``compute_dtype`` (padded for the merged block when
     ``merged_block``) and the f32 boxes; a ``RegionCache`` (MCAN) a
     ``RegionImage``. The function carries its cache as
-    ``.feature_cache``, which ``train_step``'s bf16 refusal reads."""
+    ``.feature_cache``, which ``train_step``'s bf16 refusal reads, and
+    its two arguments as ``.gather``; ``eval_key`` reads both."""
     cache = as_feature_cache(feature_cache)
     if cache is None:
         return None
     image_fn = cache.gather_fn(compute_dtype, merged_block)
     image_fn.feature_cache = cache
+    image_fn.gather = (str(compute_dtype), bool(merged_block))
     return image_fn
 
 
@@ -181,6 +186,9 @@ def _assemble_inputs(batch: Dict[str, torch.Tensor],
 
 # each model's one graph (``_StepGraph``), of the key it last saw
 _STEP_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# each model's one eval graph (``_EvalGraph``), of the key it last saw;
+# a registry of its own, so that neither kind of key evicts the other
+_EVAL_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def step_path(cuda: bool, one_rank: bool, hooked: bool,
@@ -205,6 +213,17 @@ def step_path(cuda: bool, one_rank: bool, hooked: bool,
     if not (cuda and one_rank and capturable) or hooked or not seen:
         return "eager"
     return "replay" if captured and static else "capture"
+
+
+def eval_path(cuda: bool, hooked: bool, seen: bool, captured: bool) -> str:
+    """How ``eval_epoch`` runs a batch, from what it observes: "eager" off
+    a CUDA card, with a hook on the model, or for the first batch of a
+    key (``eval_key``) that the model has not seen (its warm-up); else
+    "capture" (then one replay) where the key has no graph yet, and
+    "replay" of its graph."""
+    if not cuda or hooked or not seen:
+        return "eager"
+    return "replay" if captured else "capture"
 
 
 def _own_step(optimizer) -> bool:
@@ -288,20 +307,46 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
         return loss.detach(), score_fn(logits, mask), mask.sum()
 
 
-class _StepGraph:
-    """A model's graph for one key. ``refs`` (optimizer, generator,
-    image_fn) keeps the objects whose ids the key holds alive. A capture
-    makes the static inputs, the graph, its (3,) output and Adam's
-    launches (``adam``: what ``Adam.capture_update`` returned), and
-    notes each parameter with the gradient tensor and the storage it
-    saw, each captured parameter's moments, and each launch counter's
-    count in the step (``_build.COUNTED``), which every later replay
-    adds."""
+class _Graph:
+    """What a model's graphs share: the key, the graph, static inputs
+    made at the first copy in, and each launch counter's count in the
+    capture (``_build.COUNTED``), which every later replay adds."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.graph = self.inputs = None
+        self.launches = []
+
+    def copy_in(self, fields: Dict[str, torch.Tensor], dev) -> None:
+        if self.inputs is None:
+            self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                           for k, v in fields.items()}
+        for k, v in fields.items():
+            self.inputs[k].copy_(v)
+
+    def note_launches(self, before: list) -> None:
+        self.launches = [(f, f.launches - n)
+                         for f, n in zip(COUNTED, before) if f.launches != n]
+
+    def count_launches(self) -> None:
+        for f, n in self.launches:
+            f.launches += n
+
+
+class _StepGraph(_Graph):
+    """A model's train-step graph for one key. ``refs`` (optimizer,
+    generator, image_fn) keeps the objects whose ids the key holds
+    alive. A capture makes the static inputs, the graph, its (3,) output
+    and Adam's launches (``adam``: what ``Adam.capture_update``
+    returned), and notes each parameter with the gradient tensor and the
+    storage it saw, each captured parameter's moments, and the launch
+    counts."""
 
     def __init__(self, key: tuple, refs: tuple):
-        self.key, self.refs = key, refs
-        self.graph = self.inputs = self.out = self.adam = None
-        self.params, self.moments, self.launches = [], [], []
+        super().__init__(key)
+        self.refs = refs
+        self.out = self.adam = None
+        self.params, self.moments = [], []
 
     def grads_static(self) -> bool:
         return all(p.grad is g and p.data_ptr() == ptr
@@ -317,13 +362,6 @@ class _StepGraph:
                     or (mu.data_ptr(), nu.data_ptr()) != ptrs):
                 return False
         return True
-
-    def copy_in(self, fields: Dict[str, torch.Tensor], dev) -> None:
-        if self.inputs is None:
-            self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
-                           for k, v in fields.items()}
-        for k, v in fields.items():
-            self.inputs[k].copy_(v)
 
     def capture(self, model, optimizer, generator, image_fn) -> None:
         # the old graph and its pool go first; the backward then writes
@@ -346,8 +384,7 @@ class _StepGraph:
         # the tables' one copy each, which a capture cannot hold
         for _, _, table in self.adam:
             table.upload()
-        self.launches = [(f, f.launches - n)
-                         for f, n in zip(COUNTED, before) if f.launches != n]
+        self.note_launches(before)
         self.params = [(p, p.grad, p.data_ptr()) for p in model.parameters()]
         self.moments = [(p, m, v, (m.data_ptr(), v.data_ptr()))
                         for _, _, table in self.adam
@@ -357,10 +394,6 @@ class _StepGraph:
     def replay(self) -> torch.Tensor:
         self.graph.replay()
         return self.out.clone()
-
-    def count_launches(self) -> None:
-        for f, n in self.launches:
-            f.launches += n
 
 
 def _graph_entry(model, optimizer, generator, image_fn,
@@ -558,22 +591,110 @@ def stack_epoch_batches(batches: Sequence[Dict[str, np.ndarray]],
              "floats": buf[..., wi:].view(torch.float32)}, len(batches))
 
 
+def eval_key(model, image_fn: Callable,
+             fields: Dict[str, torch.Tensor]) -> tuple:
+    """What the eval graph of one batch reads: each field's shape and
+    dtype; the table of ``image_fn`` (``make_image_fn``'s), its
+    ``.feature_cache`` (its type, and each of its fields, a tensor as its
+    pointer, shape and dtype), and the gather's compute dtype and
+    ``merged_block`` (``.gather``); every parameter's and buffer's
+    pointer, so that a moved one recaptures. Never an object's id:
+    ``evaluate`` makes a new image function every call, and a dead
+    function's id may be reused."""
+    cache = image_fn.feature_cache
+    parts = cache if isinstance(cache, tuple) else vars(cache).values()
+    table = tuple((v.data_ptr(), tuple(v.shape), v.dtype)
+                  if torch.is_tensor(v) else v for v in parts)
+    weights = tuple(t.data_ptr() for t in model.parameters())
+    weights += tuple(t.data_ptr() for t in model.buffers())
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in fields.items()),
+            type(cache), table, image_fn.gather, weights)
+
+
+class _EvalGraph(_Graph):
+    """A model's eval graph for one key. ``table`` (the image function's
+    cache) keeps the tensors whose pointers the key holds alive. A
+    capture makes the static inputs' graph of ``_eval_forward`` and its
+    outputs, the predictions (B,) int32 and the summed score, and notes
+    the launch counts."""
+
+    def __init__(self, key: tuple, table):
+        super().__init__(key)
+        self.table = table
+        self.preds = self.score = None
+
+    def capture(self, model, image_fn) -> None:
+        before = [f.launches for f in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        # a training loader's thread may pin memory while the capture runs
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.preds, self.score, _ = _eval_forward(model, self.inputs,
+                                                      image_fn)
+        self.graph = graph
+        self.note_launches(before)
+
+
+def _eval_entry(model, key: tuple, table) -> Tuple[_EvalGraph, bool]:
+    """(the model's ``_EvalGraph`` of ``key``, whether the model had it):
+    a model keeps one eval graph, and a key other than its last takes its
+    place (``_EVAL_GRAPHS``, apart from the train step's graphs)."""
+    entry = _EVAL_GRAPHS.get(model)
+    if entry is not None and entry.key == key:
+        return entry, True
+    entry = _EVAL_GRAPHS[model] = _EvalGraph(key, table)
+    return entry, False
+
+
 def eval_epoch(model, epoch: Dict[str, torch.Tensor],
                image_fn: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eval forward over every batch of a resident epoch
     (``stack_epoch_batches``): (summed VQA score, 0-d f32; preds (S, B)
     int32), both on the device. The loop over steps fetches nothing; the
-    caller fetches the two results once."""
+    caller fetches the two results once.
+
+    On a CUDA card with no hook on the model, a batch's forward
+    (``_eval_forward``) runs as the CUDA graph of its key (``eval_key``),
+    one graph a model: the first batch of a key that the model has not
+    seen runs eagerly and warms up, the next captures, and every later
+    one, across calls, copies its fields into the graph's inputs and
+    replays (``eval_path``, the one rule). The graph reads the weights
+    where they are, so an update in place (Adam, ``load_state_dict``)
+    reaches the next replay. A replay's predictions and score are the
+    eager forward's, and each wrapper's ``.launches`` counts it as the
+    batch it replays. Every batch counts ``eval.graphed``
+    (``train.profiling.count``): 1 where it replayed (the capture's
+    included), else 0."""
     if image_fn is None:
         raise ValueError("a resident eval epoch needs a device feature "
                          "cache")
     ints, floats = epoch["ints"], epoch["floats"]
     s_steps, b = ints.shape[:2]
+    dev = next(model.parameters()).device
     total = torch.zeros((), dtype=torch.float32, device=ints.device)
     preds = torch.empty((s_steps, b), dtype=torch.int32, device=ints.device)
-    for s in range(s_steps):
-        p, score, _ = _eval_forward(
-            model, {"ints": ints[s], "floats": floats[s]}, image_fn)
-        preds[s] = p
-        total += score
+    cuda, hooked = dev.type == "cuda", _hooked(model)
+    key = eval_key(model, image_fn, {"ints": ints[0], "floats": floats[0]})
+    entry, seen = None, False
+    if cuda and not hooked:
+        entry, seen = _eval_entry(model, key, image_fn.feature_cache)
+    with device_guard(dev):
+        for s in range(s_steps):
+            fields = {"ints": ints[s], "floats": floats[s]}
+            path = eval_path(cuda, hooked, seen,
+                             seen and entry.graph is not None)
+            if path == "eager":
+                p, score, _ = _eval_forward(model, fields, image_fn)
+            else:
+                entry.copy_in(fields, dev)
+                if path == "capture":
+                    entry.capture(model, image_fn)
+                entry.graph.replay()
+                if path == "replay":
+                    # the capture ran the wrappers once; a replay runs none
+                    entry.count_launches()
+                p, score = entry.preds, entry.score
+            preds[s] = p
+            total += score
+            count("eval.graphed", int(path != "eager"))
+            seen = entry is not None
     return total, preds
