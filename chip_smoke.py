@@ -212,6 +212,23 @@ Phases, in order; the first failure exits non-zero:
     full-width bf16 train steps (B = 64, host batches) with one launch a
     step, the first eager and the rest inside the step's CUDA graph
     (adam.graphed 0, then 1);
+21. the grouped expert product (``python3 chip_smoke.py --phase 21``
+    runs phases 1, 2 and 21 alone; in the full run it comes after phase
+    20): four train steps of the benchmark's Nemotron-H cell model
+    (portbench/configs/nemotron3_nano.json: every block, its held
+    experts, the published widths; B = 64 region batches from a
+    RegionCache), the grouped kernel's launches counted a step: six a
+    MoE block in every step, the first eager and the rest inside the
+    step's CUDA graph (adam.graphed 0, then 1), the MoE row counts
+    fetched with window_sums; then ops/moe.py's grouped_gemm at that
+    cell's shapes (its held experts, 2688 -> 1856 -> 2688, the static
+    buffer of ops.moe.capacity rows, the held share those steps routed
+    spread unevenly with one expert empty), every product of the layer
+    (x W_up^T with the relu^2 epilogue, a W_down^T, dy W_down with the
+    relu^2' epilogue, the two weight gradients, dh W_up) against the
+    per-expert loop, then timed (device time behind a sleep kernel)
+    beside its byte and operation bound, the loop and torch._grouped_mm
+    where present (a yardstick only);
 6. timing, in four parts: after phase 5 the serving kernels and the
    forward at B=16 and 256 (kernel B at 16, 64 and 256 beside cuDNN and
    the per-step kernel; A beside a torch.bmm of the product alone),
@@ -5575,15 +5592,210 @@ def fused_adam(dev, gen):
     return entries
 
 
+NEMOTRON_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "portbench", "configs", "nemotron3_nano.json")
+
+
+def nemotron_cell():
+    """The sizes of the benchmark's Nemotron-H configuration, as its cell
+    runs them (portbench/harness/nemotron.py::spec), and its lr."""
+    from portbench.harness.nemotron import spec
+    with open(NEMOTRON_CONFIG) as f:
+        config = json.load(f)
+    return {**spec(config), "lr": config["train"]["lr"]}
+
+
+def nemotron_steps(dev, gen, m, n=4):
+    """Train steps of the cell's model (every block, the held experts, the
+    published widths; B = 64 region batches from a RegionCache): the
+    grouped kernel's launches counted a step, six a MoE block in every
+    step, the first eager and the rest inside the step's CUDA graph.
+    Returns (the share of the routed pairs held, the routed pairs of a
+    MoE block a step), from the MoE row counts fetched with
+    window_sums."""
+    from portbench.harness.nemotron import make_weights, program_config
+    from vqa_project_tpu_torch.data.feature_cache import RegionCache
+    from vqa_project_tpu_torch.models.nemotron_h import NemotronHModel
+    from vqa_project_tpu_torch.ops.moe import grouped_gemm
+    from vqa_project_tpu_torch.train.metrics import window_sums
+    from vqa_project_tpu_torch.train.steps import make_image_fn
+    with torch.device("meta"):
+        model = NemotronHModel(ModelConfig(**program_config(m)),
+                               device="meta")
+    model = model.to_empty(device=dev)
+    model.load_state_dict(make_weights(m, SEED, dev))
+    n_moe = sum(layer.kind == "E" for layer in model.backbone.layers)
+    optimizer, scheduler = make_optimizer(model, TrainConfig(lr=m["lr"]),
+                                          100)
+    n_img, k, t = 256, m["img_feat_pad_size"], m["max_token"]
+    regions = torch.randint(m["regions"][0], m["regions"][1] + 1, (n_img,),
+                            generator=gen)
+    feats = torch.rand(n_img, k, m["img_feat_size"], generator=gen)
+    feats[torch.arange(k)[None, :] >= regions[:, None]] = 0.0
+    image_fn = make_image_fn(RegionCache(
+        feats.to(dev, torch.bfloat16), regions.to(dev, torch.int32)),
+        m["compute_dtype"])
+    q = torch.randint(1, m["vocab_size"], (TRAIN_B, t), generator=gen,
+                      dtype=torch.int32)
+    qlen = torch.randint(3, 14, (TRAIN_B,), generator=gen)
+    q[torch.arange(t)[None, :] >= qlen[:, None]] = 0
+    a = m["answer_size"]
+    batch = {"question": q.numpy(), "qlen": qlen.int().numpy(),
+             "image_row": torch.randint(0, n_img, (TRAIN_B,),
+                                        generator=gen).int().numpy(),
+             "ans_idx": np.full((TRAIN_B, 16), a, np.int32),
+             "ans_score": np.zeros((TRAIN_B, 16), np.float32),
+             "vote_idx": np.full((TRAIN_B, 16), a, np.int32),
+             "vote_val": np.zeros((TRAIN_B, 16), np.float32),
+             "mask": np.ones(TRAIN_B, np.float32)}
+    batch["ans_idx"][:, 0] = 7
+    batch["ans_score"][:, 0] = 1.0
+    per_step, window = [], []
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        before = grouped_gemm.launches
+        window.append(train_step(model, optimizer, scheduler, batch, None,
+                                 image_fn))
+        per_step.append(grouped_gemm.launches - before)
+    sums = window_sums(window)
+    torch.cuda.synchronize()
+    graphed = [c[1] for c in profiling.recent_counts()
+               if c[0] == "adam.graphed" and c[2] >= t0]
+    rows = {c[0]: c[1] for c in profiling.recent_counts()
+            if c[0].startswith("moe.") and c[2] >= t0}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"nemotron_h cell model ({len(model.backbone.layers)} blocks, "
+          f"{n_moe} MoE, {m['n_routed_experts']} held experts): "
+          f"grouped_gemm launches a step {per_step}; adam.graphed {graphed}; "
+          f"losses summed {sums[0]}; MoE rows over {n} steps {rows}; "
+          f"peak {peak} B", flush=True)
+    require(per_step == [6 * n_moe] * n and graphed == [0] + [1] * (n - 1)
+            and rows.get("moe.routed_rows", 0) > 0,
+            f"grouped_gemm per step {per_step} (want {6 * n_moe}), "
+            f"adam.graphed {graphed}, rows {rows}")
+    del model, optimizer, scheduler, image_fn, window
+    torch.cuda.empty_cache()
+    return (rows["moe.held_rows"] / rows["moe.routed_rows"],
+            rows["moe.routed_rows"] / (n * n_moe))
+
+
+def expert_rows(gen, held, total):
+    """Uneven row counts of ``held`` experts summing to about ``total``,
+    one expert empty, and the offsets of the rows padded to
+    ops.moe.ALIGN."""
+    from vqa_project_tpu_torch.ops.moe import ALIGN
+    share = torch.rand(held, generator=gen) ** 2
+    share[3] = 0.0
+    counts = (share / share.sum() * total).round().long()
+    padded = (counts + ALIGN - 1) // ALIGN * ALIGN
+    offsets = torch.zeros(held + 1, dtype=torch.long)
+    offsets[1:] = torch.cumsum(padded, 0)
+    return counts, offsets
+
+
+def grouped_products(dev, gen, m, held_share, routed):
+    """Phase 21's checks and timings of ops/moe.py::grouped_gemm at the
+    cell's shapes: its held experts and widths, the static buffer the
+    layer sorts its rows into (ops.moe.capacity of every pair of a batch)
+    and ``held_share`` of ``routed`` pairs spread unevenly over them."""
+    from vqa_project_tpu_torch.ops.moe import (capacity, grouped_gemm,
+                                               grouped_gemm_reference)
+    hid, inner = m["hidden_size"], m["moe_intermediate_size"]
+    held_experts = m["n_routed_experts"]
+    counts, offsets = expert_rows(gen, held_experts,
+                                  round(held_share * routed))
+    rows = capacity(TRAIN_B * (m["img_feat_pad_size"] + m["max_token"])
+                    * m["num_experts_per_tok"], held_experts)
+    require(int(offsets[-1]) <= rows, f"{int(offsets[-1])} rows > {rows}")
+    live = torch.zeros(rows, dtype=torch.bool)
+    for e in range(held_experts):
+        live[int(offsets[e]):int(offsets[e]) + int(counts[e])] = True
+    live = live.to(dev)[:, None]
+
+    def operand(*shape, rows_live=False):
+        t = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+        return torch.where(live, t, torch.zeros_like(t)) if rows_live else t
+
+    x = operand(rows, hid, rows_live=True)
+    up = (operand(held_experts, inner, hid) * 0.02).contiguous()
+    down = (operand(held_experts, hid, inner) * 0.02).contiguous()
+    off = offsets.to(dev, torch.int32)
+    act, relu = grouped_gemm(x, up, off, "nt", "relu2")
+    dy = operand(rows, hid, rows_live=True)
+    dh, _ = grouped_gemm(dy, down, off, "nn", "dact", relu)
+    cases = (("x W_up^T relu2", (x, up, off, "nt", "relu2"), True),
+             ("a W_down^T", (act, down, off, "nt"), True),
+             ("dy W_down relu2'", (dy, down, off, "nn", "dact", relu), True),
+             ("dy^T a", (dy, act, off, "tn"), False),
+             ("dh^T x", (dh, x, off, "tn"), False),
+             ("dh W_up", (dh, up, off, "nn"), True))
+    held = int(counts.sum())
+    print(f"grouped_gemm at the cell's shapes: {held_experts} experts, "
+          f"{held} rows ({100 * held_share:.2f}% of {routed:.0f} routed "
+          f"pairs), {int(offsets[-1])} padded, a buffer of {rows}",
+          flush=True)
+    entries = []
+    for label, args, by_rows in cases:
+        got = grouped_gemm(*args)[0]
+        want = grouped_gemm_reference(*args)[0]
+        if by_rows:
+            got, want = got[:int(offsets[-1])], want[:int(offsets[-1])]
+        err = norm_err(got.float(), want.float())
+        tol = 1e-2 if got.dtype == torch.bfloat16 else 1e-5
+        require(err < tol, f"grouped_gemm {label}: normalized error {err}")
+        a, b = args[0], args[1]
+        k = a.shape[1] if not by_rows else (b.shape[2] if args[3] == "nt"
+                                            else b.shape[1])
+        n = (b.shape[1] if args[3] != "nn" else b.shape[2]) if by_rows \
+            else b.shape[1]
+        flops = 2 * held * (a.shape[1] if args[3] == "tn" else k) * n
+        weights = held_experts * hid * inner
+        out_b = (4 if got.dtype == torch.float32 else 2) * (
+            weights if args[3] == "tn" else held * n)
+        nbytes = (held * (a.shape[1] + (b.shape[1] if args[3] == "tn"
+                                        else 0)) * 2
+                  + (0 if args[3] == "tn" else weights * 2) + out_b
+                  * (2 if args[4:5] == ("relu2",) else 1))
+        library = None
+        if hasattr(torch, "_grouped_mm") and args[3] != "tn":
+            ends = (off[1:]).contiguous()
+            bb = (b.transpose(1, 2) if args[3] == "nt" else b).contiguous()
+            try:
+                torch._grouped_mm(a, bb, offs=ends)
+                library = lambda: torch._grouped_mm(  # noqa: E731
+                    a, bb, offs=ends)
+            except (RuntimeError, TypeError) as e:
+                print(f"torch._grouped_mm refused {label}: {e}", flush=True)
+        t = timed(lambda: grouped_gemm(*args),
+                  lambda: grouped_gemm_reference(*args), nbytes,
+                  flops / PEAK_FLOPS[torch.bfloat16], library)
+        entry = {"name": f"grouped_gemm {label}", "experts": held_experts,
+                 "held_rows": held, "padded_rows": int(offsets[-1]),
+                 "buffer_rows": rows, "error": err, **t,
+                 "bound_share": t["bound_ms"] / t["ms"]}
+        print(json.dumps(entry), flush=True)
+        entries.append(entry)
+    return entries
+
+
+def expert_phase(dev, gen):
+    """Phase 21: the cell's model's steps, then the grouped products at
+    the held share those steps routed."""
+    m = nemotron_cell()
+    share, routed = nemotron_steps(dev, gen, m)
+    return grouped_products(dev, gen, m, share, routed)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--dp-rank"]:
         return dp_rank(argv[1:])
     only_dp = {("--phase", "19"): "abcde", ("--phase", "19c"): "cd"}.get(
         tuple(argv))
     only_adam = tuple(argv) == ("--phase", "20")
-    if argv and not (only_dp or only_adam):
-        print("usage: chip_smoke.py [--phase 19 | --phase 19c | --phase 20]",
-              file=sys.stderr)
+    only_moe = tuple(argv) == ("--phase", "21")
+    if argv and not (only_dp or only_adam or only_moe):
+        print("usage: chip_smoke.py [--phase 19 | --phase 19c | --phase 20 "
+              "| --phase 21]", file=sys.stderr)
         return 2
     phase("1 device")
     if not torch.cuda.is_available():
@@ -5607,6 +5819,17 @@ def main(argv) -> int:
         print(f"{name}.cu ptxas:\n{_build.resource_report(name)}", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
+    if only_moe:
+        phase("21 the grouped expert product")
+        entries = expert_phase(dev, gen)
+        print(f"moe_grouped_gemm.cu ptxas:\n"
+              f"{_build.resource_report('moe_grouped_gemm')}", flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if only_adam:
         phase("20 the fused Adam kernel")
         entries = fused_adam(dev, gen)
@@ -5689,6 +5912,8 @@ def main(argv) -> int:
     data_parallel(dev, smi)
     phase("20 the fused Adam kernel")
     entries += fused_adam(dev, gen)
+    phase("21 the grouped expert product")
+    entries += expert_phase(dev, gen)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -162,11 +162,13 @@ def test_flags_keep_the_jax_names_and_defaults():
     _, parser, _ = run.input_args([])
     _, j_parser, _ = j_run.input_args([])
     mine, theirs = _dests(parser), _dests(j_parser)
-    added = {"device", "arch"}
+    added = {"device", "arch", "arch_sizes"}
     assert set(mine) == (set(theirs) - LEFT_OUT) | added
     for dest in set(mine) - added:
         assert mine[dest] == theirs[dest], dest
-    assert mine["arch"] == "graph"
+    assert mine["arch"] == "graph" and mine["arch_sizes"] == []
+    arch = next(a for a in parser._actions if a.dest == "arch")
+    assert sorted(arch.choices) == ["graph", "mcan", "nemotron_h"]
     flags = {s for a in parser._actions for s in a.option_strings}
     j_flags = {s for a in j_parser._actions for s in a.option_strings}
     assert flags == (j_flags - {f"--{d}" for d in LEFT_OUT}) | {

@@ -153,7 +153,8 @@ def test_make_feature_cache_builds_the_models_table(synthetic, arch,
     cache = loop.make_feature_cache(ds, TrainConfig(), "float32", "cpu",
                                     arch=arch)
     assert type(cache) is MODELS[arch].feature_cache
-    assert type(cache) is {"graph": FeatureCache, "mcan": RegionCache}[arch]
+    assert type(cache) is {"graph": FeatureCache, "mcan": RegionCache,
+                           "nemotron_h": RegionCache}[arch]
 
 
 def test_val_feature_cache_shares_one_store(synthetic):

@@ -16,7 +16,10 @@ Added: ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels) and ``--arch`` (default ``graph``, the
 conditioned-graph model; ``mcan``: MCAN-large, ``models/mcan.py``, on
 the same train step, Adam, image gather and evaluate, its questions cut
-to ``MCANModel.MAX_QLEN`` = 14 tokens, MCAN's MAX_TOKEN).
+to ``MCANModel.MAX_QLEN`` = 14 tokens, MCAN's MAX_TOKEN; ``nemotron_h``:
+Nemotron-H's hybrid decoder, ``models/nemotron_h.py``, on the same path
+and the same 14 tokens, with ``--arch_sizes KEY=VALUE ...`` over its
+published sizes).
 
 Data parallelism: ``--bsize`` is the global batch, split over the
 ranks. ``--num_devices N`` (default: every visible card) starts N ranks,
@@ -81,10 +84,19 @@ def input_args(argv=None):
     parser.add_argument("--arch", type=str, default="graph",
                         choices=sorted(MODELS),
                         help="the model: graph (the conditioned-graph "
-                             "model) or mcan (MCAN-large, "
+                             "model), mcan (MCAN-large, "
                              "arXiv:1906.10770; its questions are cut to "
                              "14 tokens; pair it with --n_obj 100 "
-                             "--dropout 0.1)")
+                             "--dropout 0.1) or nemotron_h (Nemotron-H's "
+                             "hybrid decoder over the regions and 14 "
+                             "tokens, hidden width --hid; pair it with "
+                             "--n_obj 100 --hid 2688)")
+    parser.add_argument("--arch_sizes", nargs="*", default=[],
+                        metavar="KEY=VALUE",
+                        help="the architecture's own sizes over its "
+                             "published ones (nemotron_h: the keys of "
+                             "models/nemotron_h.py::PUBLISHED, e.g. "
+                             "num_hidden_layers=13 n_held_experts=16)")
     parser.add_argument("--n_kernels", type=int, default=8,
                         help="number of Gaussian kernels.")
     parser.add_argument("--hid", metavar="", type=int, default=1024,
@@ -209,13 +221,31 @@ def add_synthetic_args(parser) -> None:
                              "features (binary scales to many classes)")
 
 
+def parse_sizes(pairs) -> dict:
+    """``["key=value", ...]`` -> {key: int, float or str value}."""
+    out = {}
+    for pair in pairs:
+        key, sep, value = pair.partition("=")
+        if not sep or not key:
+            raise SystemExit(f"--arch_sizes takes KEY=VALUE, not {pair!r}")
+        for kind in (int, float):
+            try:
+                out[key] = kind(value)
+                break
+            except ValueError:
+                continue
+        else:
+            out[key] = value
+    return out
+
+
 def make_configs(args):
     mu_dtype, nu_dtype = resolve_dtype_knobs(args)
     mcfg = ModelConfig(
         emb_dim=args.emb, hid_dim=args.hid, n_kernels=args.n_kernels,
         neighbourhood_size=args.neighbourhood_size, n_obj=args.n_obj,
         dropout=args.dropout, compute_dtype=args.compute_dtype,
-        arch=args.arch)
+        arch=args.arch, arch_sizes=parse_sizes(args.arch_sizes))
     tcfg = TrainConfig(
         lr=args.lr, epochs=args.ep, batch_size=args.bsize,
         log_interval=args.log_interval, eval_interval=args.eval_interval,

@@ -43,11 +43,18 @@ class ModelConfig:
     # the weight-norm layers (ops/quant.py); build the model with this on
     # and load quantize_state_dict_for_serving of a float state_dict
     quantized_inference: bool = False
-    # the architecture: "graph" (models/graph_vqa.py) or "mcan", the
+    # the architecture: "graph" (models/graph_vqa.py); "mcan", the
     # deep modular co-attention network (models/mcan.py, arXiv:1906.10770)
     # on hid_dim, emb_dim, the regions' feat_dim - 4 features, n_obj,
-    # max_qlen, out_dim - 1 answers and dropout
+    # max_qlen, out_dim - 1 answers and dropout; or "nemotron_h",
+    # Nemotron-H's hybrid decoder (models/nemotron_h.py) over the regions
+    # and tokens, hidden width hid_dim
     arch: str = "graph"
+    # the architecture's own sizes beyond the fields above, under its
+    # source's names, over its published ones (nemotron_h: the keys of
+    # models/nemotron_h.py::PUBLISHED, e.g. num_hidden_layers or
+    # n_held_experts); empty for the others
+    arch_sizes: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

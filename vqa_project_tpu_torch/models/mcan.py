@@ -69,7 +69,7 @@ from vqa_project_tpu_torch.data.feature_cache import RegionCache
 from vqa_project_tpu_torch.ops.dropout import dropout
 from vqa_project_tpu_torch.ops.gather_rows import RegionImage
 from vqa_project_tpu_torch.ops.losses import bce_sum_loss
-from vqa_project_tpu_torch.ops.matmul import bmm, matmul
+from vqa_project_tpu_torch.ops.matmul import Linear, bmm, matmul
 
 # the score of a masked key or position (MCAN's)
 MASKED = -1e9
@@ -80,27 +80,6 @@ N_HEADS = 8            # MULTI_HEAD
 N_LAYERS = 6           # LAYER: SA encoders and SGA decoders
 FLAT_MLP = 512         # FLAT_MLP_SIZE
 GLIMPSES = 1           # FLAT_GLIMPSES
-
-
-class Linear(nn.Linear):
-    """``nn.Linear`` under the port's policy: operands in the compute
-    dtype, the sum in float32, the result and the bias added to it in
-    ``out_dtype``. Its parameters are filled by the model's
-    ``reset_parameters``."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype,
-                 out_dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
-        self.compute_dtype, self.out_dtype = compute_dtype, out_dtype
-
-    def reset_parameters(self) -> None:
-        pass
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cdt = self.compute_dtype
-        y = matmul(x.to(cdt), self.weight.to(cdt).t(), self.out_dtype)
-        return y + self.bias.to(self.out_dtype)
 
 
 class LayerNorm(nn.Module):

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 KERNELS = ("adam", "edge_aggregate", "edge_aggregate_bwd", "gather_rows",
            "graph_block", "graph_block_bwd", "gru_scan", "gru_scan_bwd",
-           "gru_wgrad")
+           "gru_wgrad", "moe_grouped_gemm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +80,9 @@ _SIGNATURES = {
     },
     "gru_wgrad": {
         "gru_wgrad_wgmma": [_P] * 4 + [_I, _I, _I, _P],
+    },
+    "moe_grouped_gemm": {
+        "moe_grouped_gemm": [_P] * 6 + [_I] * 8 + [_P],
     },
 }
 

@@ -6,11 +6,13 @@ in a chosen dtype. ``matmul`` is that contract for torch. These are the
 large plain products the JAX package also leaves outside its kernels
 (GRU input projection, weight-norm layers, conv projection, A = E E^T).
 ``bmm`` is the same contract for batched products (MCAN's attention).
+``Linear`` is ``nn.Linear`` under it, the layer of MCAN and Nemotron-H.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype):
@@ -108,3 +110,24 @@ def bmm(a: torch.Tensor, b: torch.Tensor,
     else:
         y = torch.bmm(a3.float(), b3.float()).to(out_dtype)
     return y.reshape(*lead, *y.shape[-2:])
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` under the port's policy: operands in the compute
+    dtype, the sum in float32, the result and the bias (if any) added to
+    it in ``out_dtype``; parameters float32. It draws nothing: its
+    model's ``reset_parameters`` fills it."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype,
+                 out_dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype, self.out_dtype = compute_dtype, out_dtype
+
+    def reset_parameters(self) -> None:
+        pass
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        y = matmul(x.to(cdt), self.weight.to(cdt).t(), self.out_dtype)
+        return y if self.bias is None else y + self.bias.to(self.out_dtype)

@@ -71,15 +71,17 @@ def build_model(model_cfg: ModelConfig, ds: GraphVQADataset, *,
     """The model of ``model_cfg.arch`` (``models.make_model``) at the
     dataset's widths (vocabulary, embedding, feature, answer and object
     counts, question length), weights from ``seed`` and the dataset's
-    word embeddings."""
+    word embeddings (none for a model whose ``word_embedding`` is None:
+    its own table is of another width)."""
     cfg = dataclasses.replace(
         model_cfg, vocab_size=ds.q_words,
         emb_dim=ds.pretrained_wemb.shape[1], feat_dim=ds.feat_dim,
         out_dim=ds.n_answers, n_obj=ds.n_obj, max_qlen=ds.max_qlen)
     model = make_model(cfg, device=device, seed=seed)
-    with torch.no_grad():
-        model.word_embedding.weight.copy_(
-            torch.from_numpy(ds.pretrained_wemb))
+    if model.word_embedding is not None:
+        with torch.no_grad():
+            model.word_embedding.weight.copy_(
+                torch.from_numpy(ds.pretrained_wemb))
     return model
 
 

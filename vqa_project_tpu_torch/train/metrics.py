@@ -21,6 +21,7 @@ import torch
 
 from vqa_project_tpu_torch.parallel import multihost
 from vqa_project_tpu_torch.parallel.mesh import data_sum
+from vqa_project_tpu_torch.train.profiling import count
 
 
 def window_sums(window: List[Dict[str, torch.Tensor]],
@@ -30,11 +31,18 @@ def window_sums(window: List[Dict[str, torch.Tensor]],
     every rank without a mesh; under tensor parallelism the ranks that
     hold the global batch's rows once each), in float64 on the host: one
     stack, one all_reduce (across ranks) and one fetch for the whole
-    window."""
-    vals = torch.stack([torch.stack([m["loss"], m["score"], m["valid"]])
+    window. A result's further entries (a model's ``counters``) ride in
+    the same fetch, and each one's sum over the window is recorded as
+    ``train.profiling.count(name, sum)``."""
+    names = ["loss", "score", "valid"]
+    names += [k for k in window[0] if k not in names]
+    vals = torch.stack([torch.stack([m[k].float() for k in names])
                         for m in window])
     data_sum(vals, mesh)
-    return vals.double().sum(dim=0).cpu().numpy()
+    sums = vals.double().sum(dim=0).cpu().numpy()
+    for name, v in zip(names[3:], sums[3:]):
+        count(name, int(round(float(v))))
+    return sums[:3]
 
 
 class MetricLogger:

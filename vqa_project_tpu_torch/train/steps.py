@@ -272,14 +272,15 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator],
                n_valid: Optional[float] = None,
                reduce: Optional[Callable[[], None]] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               ) -> Dict[str, torch.Tensor]:
     """A step's work before the optimizer, which the eager step runs and
     the graph captures: the inputs on the model's device, the train-mode
     forward, the model's masked loss (``model.loss``; a mean over the
     global ``n_valid`` rows in a data-parallel step), the zeroing of the
     gradients, the backward and then ``reduce`` (the data-parallel sum,
-    in its span ``train_step.allreduce``). Returns (loss, score,
-    valid)."""
+    in its span ``train_step.allreduce``). Returns {loss, score, valid}
+    and, for a model with ``counters`` (Nemotron-H's MoE row counts),
+    those 0-d device tensors of the forward after them."""
     dev = next(model.parameters()).device
     with annotate("train_step.inputs"):
         question, image, qlen, mask, answers_fn, score_fn = \
@@ -303,8 +304,10 @@ def _step_body(model, optimizer, fields: Dict[str, torch.Tensor],
         if reduce is not None:
             with annotate("train_step.allreduce"):
                 reduce()
+    counters = getattr(model, "counters", None)
     with torch.no_grad():
-        return loss.detach(), score_fn(logits, mask), mask.sum()
+        return {"loss": loss.detach(), "score": score_fn(logits, mask),
+                "valid": mask.sum(), **(counters() if counters else {})}
 
 
 class _Graph:
@@ -336,16 +339,17 @@ class _Graph:
 class _StepGraph(_Graph):
     """A model's train-step graph for one key. ``refs`` (optimizer,
     generator, image_fn) keeps the objects whose ids the key holds
-    alive. A capture makes the static inputs, the graph, its (3,) output
-    and Adam's launches (``adam``: what ``Adam.capture_update``
-    returned), and notes each parameter with the gradient tensor and the
-    storage it saw, each captured parameter's moments, and the launch
-    counts."""
+    alive. A capture makes the static inputs, the graph, its output (the
+    values of ``_step_body``'s dict, under ``names``) and Adam's
+    launches (``adam``: what ``Adam.capture_update`` returned), and
+    notes each parameter with the gradient tensor and the storage it
+    saw, each captured parameter's moments, and the launch counts."""
 
     def __init__(self, key: tuple, refs: tuple):
         super().__init__(key)
         self.refs = refs
         self.out = self.adam = None
+        self.names = []
         self.params, self.moments = [], []
 
     def grads_static(self) -> bool:
@@ -368,6 +372,9 @@ class _StepGraph(_Graph):
         # fresh gradients, which every replay overwrites in place
         self.graph = self.out = self.adam = None
         optimizer.zero_grad(set_to_none=True)
+        # the eager steps' cached blocks back to the card: the capture's
+        # private pool cannot take them, and a large model needs them
+        torch.cuda.empty_cache()
         before = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
@@ -377,8 +384,10 @@ class _StepGraph(_Graph):
         buffers = optimizer.capture_buffers()
         # the loader's thread may pin memory while the capture runs
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.out = torch.stack(_step_body(model, optimizer, self.inputs,
-                                              image_fn, generator))
+            body = _step_body(model, optimizer, self.inputs, image_fn,
+                              generator)
+            self.names = list(body)
+            self.out = torch.stack([v.float() for v in body.values()])
             self.adam = optimizer.capture_update(buffers)
         self.graph = graph
         # the tables' one copy each, which a capture cannot hold
@@ -391,9 +400,9 @@ class _StepGraph(_Graph):
                         for p, m, v in zip(table.params, table.mus,
                                            table.nus)]
 
-    def replay(self) -> torch.Tensor:
+    def replay(self) -> Dict[str, torch.Tensor]:
         self.graph.replay()
-        return self.out.clone()
+        return dict(zip(self.names, self.out.clone()))
 
 
 def _graph_entry(model, optimizer, generator, image_fn,
@@ -435,7 +444,7 @@ def _graphed_step(entry: _StepGraph, path: str, model, optimizer, scheduler,
             # the capture ran the wrappers once; a replay runs none
             entry.count_launches()
     count("adam.graphed", 1)
-    return {"loss": out[0], "score": out[1], "valid": out[2]}
+    return out
 
 
 def _optimize(optimizer, scheduler, captured: Optional[list] = None,
@@ -474,7 +483,8 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
     from ``make_image_fn``, an index batch (packed or not). Returns 0-d
     tensors on the model's device (reading them waits for the step):
     loss, score (the summed VQA score of the train-mode logits, padded
-    rows 0) and valid (the count of unpadded rows).
+    rows 0) and valid (the count of unpadded rows), then the model's
+    ``counters`` where it has them (float32 on the graph path).
 
     Inside a process group (``mesh.distributed``) ``batch`` is this
     rank's rows and ``n_valid`` the global batch's valid count: the loss
@@ -537,14 +547,14 @@ def train_step(model, optimizer, scheduler, batch: Dict[str, object],
                 return _graphed_step(entry, path, model, optimizer,
                                      scheduler, fields, generator, image_fn,
                                      dev)
-        loss, score, valid = _step_body(
+        out = _step_body(
             model, optimizer, fields, image_fn, generator,
             n_valid if dp else None,
             (lambda: all_reduce_grads(model, mesh, grad_reduce_dtype,
                                       mesh.data_group)) if dp else None)
         _optimize(optimizer, scheduler, shards=shards)
         count("adam.graphed", 0)
-        return {"loss": loss, "score": score, "valid": valid}
+        return out
 
 
 def _eval_forward(model, b, image_fn):
